@@ -1,0 +1,1 @@
+"""Part of the jamun_tpu_torch port (see the package docstring)."""

@@ -1,0 +1,210 @@
+"""E3Conv: the E(3)-equivariant message-passing denoiser network, dense path.
+
+Counterpart of `jamun_tpu/models/e3conv.py` for the separable (uvu), l <= 1
+configuration. Parameters carry the flax names (`ConvBlock_0`,
+`_HiddenLayer_k`, `EquivariantMLP_0`, ...), so `params.from_jax_params`
+maps a JAX param tree onto this module one to one.
+
+Two ways through the forward:
+  - the kernel path (the default): edge features once per forward
+    (`ops/cuda/edge_features`, K1), then every ConvBlock as one fused block
+    (`ops/cuda/conv_block`, K2): the projector and each hidden layer. On the
+    card these are the hand-written CUDA kernels, on the CPU their plain
+    twins. It covers N <= 128 with edge_attr_dim 64.
+  - `plain=True` (CPU only): the module-level plain path on
+    `ops/graph.dense_edge_data`, the reference the kernel path is held to.
+Shapes outside the kernels raise NotImplementedError on the card.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+from torch import nn
+
+from jamun_tpu_torch.models.embeddings import AtomEmbeddingWithResidueInformation
+from jamun_tpu_torch.models.noise_conditioning import (
+    NoiseConditionalScaling,
+    NoiseConditionalSkipConnection,
+)
+from jamun_tpu_torch.ops.conv import ConvBlock
+from jamun_tpu_torch.ops.cuda import conv_block as k2
+from jamun_tpu_torch.ops.cuda.edge_features import edge_features
+from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data
+from jamun_tpu_torch.ops.irreps import Irreps
+from jamun_tpu_torch.ops.mlp import EquivariantMLP
+from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
+from jamun_tpu_torch.ops.sh import spherical_harmonics
+from jamun_tpu_torch.utils.device import resolve_device
+
+__all__ = ["E3Conv", "irreps_to_vector", "MAX_KERNEL_ATOMS"]
+
+MAX_KERNEL_ATOMS = 128  # the layerwise kernels' range (N > 128: ROADMAP.md queue B #5)
+
+
+def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
+    """The l=1 component order (y, z, x) -> (x, y, z)."""
+    return f[..., [2, 0, 1]]
+
+
+class _HiddenLayer(nn.Module):
+    """Noise scaling -> ConvBlock -> noise-conditional skip blend."""
+
+    def __init__(self, irreps_hidden, irreps_sh, edge_attr_dim, dtype):
+        super().__init__()
+        self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_hidden)
+        self.ConvBlock_0 = ConvBlock(irreps_hidden, irreps_hidden, irreps_sh, edge_attr_dim, dtype)
+        self.NoiseConditionalSkipConnection_0 = NoiseConditionalSkipConnection(irreps_hidden)
+
+    def forward(self, x, c_noise, block):
+        out = block(self.ConvBlock_0, self.NoiseConditionalScaling_0(x, c_noise))
+        return self.NoiseConditionalSkipConnection_0(x, out, c_noise)
+
+
+class E3Conv(nn.Module):
+    def __init__(
+        self,
+        irreps_out: str = "1x1e",
+        irreps_hidden: str = "120x0e + 32x1e",
+        irreps_sh: str = "1x0e + 1x1e",
+        n_layers: int = 5,
+        edge_attr_dim: int = 64,
+        atom_type_embedding_dim: int = 8,
+        atom_code_embedding_dim: int = 8,
+        residue_code_embedding_dim: int = 32,
+        residue_index_embedding_dim: int = 8,
+        use_residue_sequence_index: bool = False,
+        tensor_product: str = "uvu",
+        dtype: Optional[torch.dtype] = None,
+        neighbor_mode: str = "dense",
+        plain: bool = False,
+        device=None,
+        seed: Optional[int] = None,
+    ):
+        """`dtype` is the compute dtype (parameters stay f32); `device`
+        follows `utils.device.resolve_device` (the card unless "cpu");
+        `seed` draws the parameters (flax's init distributions) from a CPU
+        generator, so a seed gives the same weights on any device."""
+        super().__init__()
+        if tensor_product != "uvu":
+            raise NotImplementedError(
+                f"tensor_product={tensor_product!r}: only the separable uvu product is "
+                "ported (uvw and experimental: ROADMAP.md queue A item 11)"
+            )
+        if neighbor_mode != "dense":
+            raise NotImplementedError(
+                f"neighbor_mode={neighbor_mode!r}: the sparse capped-neighbour path is "
+                "not ported (ROADMAP.md queue A item 7, queue B #6/#7)"
+            )
+        self.irreps_hidden, self.irreps_out = Irreps(irreps_hidden), Irreps(irreps_out)
+        self.irreps_sh = Irreps(irreps_sh)
+        if self.irreps_hidden.sv_shape() is None or self.irreps_hidden.sv_shape()[1] == 0:
+            raise NotImplementedError(f"hidden irreps {irreps_hidden}: want Sx0e + Vx1e")
+        self.n_layers = n_layers
+        self.edge_attr_dim = edge_attr_dim
+        self.dtype = dtype
+        self.plain = plain
+        self.bonded_dim = edge_attr_dim // 2
+        self.radial_dim = (edge_attr_dim + 1) // 2
+
+        self.embed_bondedness = nn.Parameter(torch.empty(2, self.bonded_dim))
+        self.AtomEmbeddingWithResidueInformation_0 = AtomEmbeddingWithResidueInformation(
+            atom_type_embedding_dim, atom_code_embedding_dim,
+            residue_code_embedding_dim, residue_index_embedding_dim,
+            use_residue_sequence_index,
+        )
+        irreps_node = self.AtomEmbeddingWithResidueInformation_0.irreps_out
+        self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_node)
+        self.ConvBlock_0 = ConvBlock(
+            irreps_node, self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype
+        )
+        for k in range(n_layers):
+            self.add_module(
+                f"_HiddenLayer_{k}",
+                _HiddenLayer(self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype),
+            )
+        self.EquivariantMLP_0 = EquivariantMLP(
+            self.irreps_hidden, self.irreps_out, [self.irreps_hidden]
+        )
+        self.output_gain = nn.Parameter(torch.zeros(()))
+        if seed is not None:
+            self.reset_parameters(torch.Generator().manual_seed(seed))
+        self.to(resolve_device(device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's init: N(0, 1) embeddings and IrrepsLinear kernels,
+        U(+-1/sqrt(fan_in)) radial Dense layers, identity noise scaling,
+        output_gain 0."""
+        with torch.no_grad():
+            self.embed_bondedness.copy_(torch.randn(self.embed_bondedness.shape, generator=generator))
+            self.output_gain.zero_()
+            for m in self.modules():
+                if m is not self and hasattr(m, "reset_parameters"):
+                    m.reset_parameters(generator)
+
+    def _hidden_layers(self):
+        return [getattr(self, f"_HiddenLayer_{k}") for k in range(self.n_layers)]
+
+    def kernel_path_supported(self, n_atoms: int) -> bool:
+        """The shapes K1 and K2 cover."""
+        S, V = self.irreps_hidden.sv_shape()
+        S_emb = self.AtomEmbeddingWithResidueInformation_0.irreps_out.sv_shape()[0]
+        return (
+            n_atoms <= MAX_KERNEL_ATOMS
+            and self.edge_attr_dim == 2 * k2.N_RADIAL
+            and max(2 * S + 3 * V, 2 * S_emb) <= k2.MAX_WIDTH
+        )
+
+    def forward(
+        self, batch: GraphBatch, c_noise: torch.Tensor, radial_cutoff: float
+    ) -> torch.Tensor:
+        """batch.pos are the scaled noisy positions (c_in * y); c_noise [1].
+        Returns the per-atom output irreps [G, N, irreps_out.dim]."""
+        N = batch.pos.shape[1]
+        on_card = batch.pos.device.type == "cuda"
+        if self.plain and on_card:
+            raise ValueError("plain=True is the CPU reference path; the card runs the kernels")
+        kernels = not self.plain and self.kernel_path_supported(N)
+        if on_card and not kernels:
+            raise NotImplementedError(
+                f"N={N}, edge_attr_dim={self.edge_attr_dim}: outside the layerwise "
+                f"kernels (N <= {MAX_KERNEL_ATOMS}, edge_attr_dim 64); N > 128 needs "
+                "packed_fused_block_v2 (ROADMAP.md queue B #5)"
+            )
+        x = self.AtomEmbeddingWithResidueInformation_0(batch)
+        x = self.NoiseConditionalScaling_0(x, c_noise)
+        if kernels:
+            block = self._kernel_block(batch, float(radial_cutoff))
+        else:
+            edges = self._plain_edges(batch, radial_cutoff)
+            block = lambda blk, h: blk(h, edges)  # noqa: E731
+        x = block(self.ConvBlock_0, x)
+        for layer in self._hidden_layers():
+            x = layer(x, c_noise, block)
+        x = self.EquivariantMLP_0(x)
+        return x * self.output_gain * batch.node_mask[..., None].to(x.dtype)
+
+    def _kernel_block(self, batch: GraphBatch, radial_cutoff: float):
+        cdt = self.dtype or torch.float32
+        ef, bf = edge_features(
+            batch.pos.to(torch.float32).contiguous(), batch.node_mask, batch.bond_src,
+            batch.bond_dst, batch.bond_mask, radial_cutoff, self.radial_dim, cdt,
+        )
+        bond0, bond1 = self.embed_bondedness[0], self.embed_bondedness[1]
+        return lambda blk, h: blk.fused(
+            h, ef, bf, batch.bond_src, batch.bond_dst, bond0, bond1, cdt
+        )
+
+    def _plain_edges(self, batch: GraphBatch, radial_cutoff):
+        def attr_fn(dist, bonded: bool):
+            radial = soft_one_hot_linspace(dist, 0.0, radial_cutoff, self.radial_dim)
+            bond = self.embed_bondedness[1 if bonded else 0].to(dist.dtype)
+            return torch.cat([bond.expand(dist.shape + (self.bonded_dim,)), radial], dim=-1)
+
+        return dense_edge_data(
+            batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
+            radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh), attr_fn,
+        )
+

@@ -1,0 +1,118 @@
+"""Separable (uvu) equivariant graph convolution on dense padded batches.
+
+Counterpart of `jamun_tpu/ops/conv.py` (`Conv` and `ConvBlock`, dense path,
+l <= 1). Per edge: uvu messages of the source features, the edge SH and the
+radial-MLP weights; mean over the combined degree of dense pairs and bonds;
+then the post-linear. `ConvBlock` wraps it as
+IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
+
+`ConvBlock.forward` is the plain path. `ConvBlock.fused` runs the whole block
+through `ops/cuda/conv_block.fused_conv_block` (the hand-written kernel on
+the card, its plain twin on the CPU).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from jamun_tpu_torch.ops.cuda.conv_block import fused_conv_block, pack_block_weights
+from jamun_tpu_torch.ops.fast_uvu import fast_uvu_messages_dense, uvu_messages
+from jamun_tpu_torch.ops.gate import Gate
+from jamun_tpu_torch.ops.graph import EdgeData
+from jamun_tpu_torch.ops.irreps import Irreps
+from jamun_tpu_torch.ops.linear import IrrepsLinear
+from jamun_tpu_torch.ops.mlp import ScalarMLP
+
+__all__ = ["Conv", "ConvBlock", "depthwise_irreps"]
+
+
+def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
+    """Output irreps of the uvu product of `Sx0e (+ Vx1e)` with `1x0e + 1x1e`
+    restricted to irreps_out plus scalars: [Sx0e, Sx1e(, Vx1e, Vx0e, Vx1e)]."""
+    sv = Irreps(irreps_in).sv_shape()
+    if sv is None or "1e" not in Irreps(irreps_out) or "2e" in Irreps(irreps_out):
+        raise NotImplementedError(
+            f"only l <= 1 uvu shapes are ported ({irreps_in} -> {irreps_out})"
+        )
+    S, V = sv
+    blocks = [(S, "0e"), (S, "1e")]
+    if V:
+        blocks += [(V, "1e"), (V, "0e"), (V, "1e")]
+    return Irreps(blocks)
+
+
+class Conv(nn.Module):
+    """Tensor-field-network convolution with the depthwise product."""
+
+    def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None):
+        super().__init__()
+        self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
+        self.irreps_sh = Irreps(irreps_sh)
+        self.S, self.V = self.irreps_in.sv_shape() or (0, 0)
+        self.dtype = dtype
+        dtp = depthwise_irreps(self.irreps_in, self.irreps_out)
+        self.radial_nn = ScalarMLP(edge_attr_dim, 2 * self.S + 3 * self.V, [edge_attr_dim])
+        self._post_linear = IrrepsLinear(dtp, self.irreps_out)
+
+    def forward(self, x: torch.Tensor, edges: EdgeData) -> torch.Tensor:
+        """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]."""
+        S, V = self.S, self.V
+        cdt = self.dtype or x.dtype
+        out_dtype = x.dtype
+        x = x.to(cdt)
+        w_dense = self.radial_nn(edges.attr_dense.to(cdt))
+        out, deg = fast_uvu_messages_dense(x, edges.sh_dense, w_dense, edges.adj, S, V)
+        out, deg = out.to(out_dtype), deg.to(torch.float32)
+
+        w_bond = self.radial_nn(edges.attr_bond.to(cdt))
+        src = torch.gather(x, 1, edges.bond_src[..., None].expand(-1, -1, x.shape[-1]))
+        msg_b = uvu_messages(src, edges.sh_bond, w_bond, S, V).to(out_dtype)
+        msg_b = msg_b * edges.bond_mask[..., None].to(out_dtype)
+        dst = edges.bond_dst[..., None]
+        out = out.scatter_add(1, dst.expand(-1, -1, msg_b.shape[-1]), msg_b)
+        deg = deg.scatter_add(1, edges.bond_dst, edges.bond_mask.to(torch.float32))
+        out = out / torch.clamp(deg, min=1.0)[..., None].to(out_dtype)
+        return self._post_linear(out)
+
+
+class ConvBlock(nn.Module):
+    """LinearSelfInteraction(Gated(Conv)): IrrepsLinear_1(gate(Conv_0(x))) +
+    IrrepsLinear_0(x)."""
+
+    def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None):
+        super().__init__()
+        self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
+        self.gate = Gate(self.irreps_out)
+        self.dtype = dtype
+        self.Conv_0 = Conv(irreps_in, self.gate.irreps_in, irreps_sh, edge_attr_dim, dtype)
+        self.IrrepsLinear_0 = IrrepsLinear(self.irreps_in, self.gate.irreps_out)
+        self.IrrepsLinear_1 = IrrepsLinear(self.gate.irreps_out, self.gate.irreps_out)
+
+    def forward(self, x: torch.Tensor, edges: EdgeData) -> torch.Tensor:
+        skip = self.IrrepsLinear_0(x)
+        y = self.IrrepsLinear_1(self.gate(self.Conv_0(x, edges)))
+        return y + skip
+
+    def fused(
+        self,
+        x: torch.Tensor,
+        ef: torch.Tensor,
+        bf: torch.Tensor,
+        bond_src: torch.Tensor,
+        bond_dst: torch.Tensor,
+        bond0: torch.Tensor,
+        bond1: torch.Tensor,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        """The whole block on the per-forward edge features of
+        `ops/cuda/edge_features.edge_features`. Returns f32 [G, N, Sc + 3Vg]."""
+        cdt = compute_dtype or x.dtype
+        conv = self.Conv_0
+        weights = pack_block_weights(
+            conv.radial_nn, conv._post_linear, self.IrrepsLinear_1, self.IrrepsLinear_0,
+            bond0, bond1, S=conv.S, V=conv.V, cdt=cdt,
+        )
+        return fused_conv_block(x.to(cdt).contiguous(), ef, bf, bond_src, bond_dst, weights)

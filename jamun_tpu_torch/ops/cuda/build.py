@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels of `jamun_tpu_torch/csrc/`.
+
+Each source compiles with `nvcc` for `sm_90a` into a shared library with a
+plain C interface, loaded with `ctypes`, at its first use. Libraries land in
+`jamun_tpu_torch/_build/`, named by a hash of the source, so an edited source
+rebuilds. `build_all()` starts one `nvcc` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC"]
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+# per source: the edge features keep separate multiplies and adds, so the
+# cutoff test sees the same distance as the plain version's
+EXTRA_FLAGS = {"edge_features": ["--fmad=false"]}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
+
+
+def _flags(source: Path) -> List[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(source.stem, [])
+
+
+def _lib_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(_flags(source)).encode()).hexdigest()
+    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
+
+
+def _start(source: Path):
+    """Start nvcc for `source` unless its library exists; returns
+    (process or None, temp output, final path)."""
+    out = _lib_path(source)
+    if out.exists():
+        return None, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *_flags(source), "-Xptxas", "-v", "-o", tmp, str(source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(proc, tmp, out: Path) -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Compile the named sources in parallel; returns nvcc's log per name
+    (empty when the library was already built)."""
+    names = list(names)
+    started = [_start(CSRC / f"{n}.cu") for n in names]
+    return {n: _finish(*s) for n, s in zip(names, started)}
+
+
+class CudaKernel:
+    """One CUDA source: its library (built and loaded at first use), the C
+    entry points with their argument types, and the count of launches that
+    its wrapper made."""
+
+    def __init__(self, name: str, entries: Dict[str, List]):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.entries = entries
+        self.launches = 0
+        self._lib = None
+
+    def fn(self, entry: str):
+        if self._lib is None:
+            _finish(*_start(self.source))
+            lib = ctypes.CDLL(str(_lib_path(self.source)))
+            for e, argtypes in self.entries.items():
+                f = getattr(lib, e)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            self._lib = lib
+        return getattr(self._lib, entry)
+
+    def launch(self, entry: str, *args) -> None:
+        """Call a C entry point (which launches the kernel on the given stream)
+        and count the launch; raises on a CUDA error code."""
+        err = self.fn(entry)(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}.{entry} failed with CUDA error {err}")
+        self.launches += 1

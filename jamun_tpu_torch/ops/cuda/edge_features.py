@@ -1,0 +1,130 @@
+"""K1: per-forward edge features of the dense E3Conv (wrapper + plain twin).
+
+Replaces `packed_edge_features` of `jamun_tpu/ops/pallas/packed_conv.py`
+(pallas_call at line 806). The CUDA kernel is `csrc/edge_features.cu`.
+
+Outputs, in the compute dtype (EC = 4 + n_radial channels per edge):
+    ef [G, N, N, EC]: dense pair src j -> dst i, vector pos[j] - pos[i]
+    bf [G, B, EC]:    bond b, vector pos[src] - pos[dst]
+with channels [shy, shz, shx, adj (or bond mask), radial basis...].
+`packed_rows` lays them out as the TPU kernel's [G, 16 + pad16(nr), P] rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from jamun_tpu_torch.ops.cuda.build import CudaKernel
+
+__all__ = ["edge_features", "edge_features_plain", "packed_rows", "KERNEL", "EF_GEOM"]
+
+EF_GEOM = 4  # channels before the radial basis: shy, shz, shx, adj
+_SQRT3 = math.sqrt(3.0)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P]
+KERNEL = CudaKernel("edge_features", {"edge_features_f32": _ARGS, "edge_features_bf16": _ARGS})
+_ENTRY = {torch.float32: "edge_features_f32", torch.bfloat16: "edge_features_bf16"}
+
+
+def _features(dx, dy, dz, flag, cutoff: float, n_radial: int, cdt) -> torch.Tensor:
+    """[..., EC] rows of `_geom_radial_rows` from f32 components."""
+    dist = torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-12)
+    inv_d = 1.0 / torch.clamp(dist, min=1e-12)
+    step = torch.tensor(cutoff, dtype=torch.float32, device=dx.device) / (n_radial + 1)
+    centers = torch.arange(1, n_radial + 1, dtype=torch.float32, device=dx.device) * step
+    diff = (dist[..., None] - centers) / step
+    radial = torch.exp(-(diff * diff)) * (1.0 / 1.12)
+    sh = torch.stack([_SQRT3 * dy * inv_d, _SQRT3 * dz * inv_d, _SQRT3 * dx * inv_d], dim=-1)
+    return torch.cat([sh, flag[..., None], radial], dim=-1).to(cdt)
+
+
+def edge_features_plain(
+    pos, node_mask, bond_src, bond_dst, bond_mask, cutoff: float, n_radial: int, cdt
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernel (same function, same layout).
+    The cutoff is rounded to f32 first, as the kernel receives it."""
+    cutoff = float(torch.tensor(cutoff, dtype=torch.float32))
+    pos = pos.to(torch.float32)
+    N = pos.shape[1]
+    rel = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i, j] = pos_j - pos_i
+    dx, dy, dz = rel.unbind(-1)
+    dist = torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-12)
+    eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
+    adj = (dist < cutoff) & node_mask[:, :, None] & node_mask[:, None, :] & ~eye
+    ef = _features(dx, dy, dz, adj.to(torch.float32), cutoff, n_radial, cdt)
+
+    src = torch.gather(pos, 1, bond_src[..., None].expand(-1, -1, 3))
+    dst = torch.gather(pos, 1, bond_dst[..., None].expand(-1, -1, 3))
+    bx, by, bz = (src - dst).unbind(-1)
+    bf = _features(bx, by, bz, bond_mask.to(torch.float32), cutoff, n_radial, cdt)
+    return ef, bf
+
+
+def edge_features(
+    pos: torch.Tensor,
+    node_mask: torch.Tensor,
+    bond_src: torch.Tensor,
+    bond_dst: torch.Tensor,
+    bond_mask: torch.Tensor,
+    cutoff: float,
+    n_radial: int = 32,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ef [G, N, N, 4 + n_radial], bf [G, B, 4 + n_radial]) in compute_dtype.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    cutoff = float(cutoff)
+    if pos.device.type == "cpu":
+        return edge_features_plain(
+            pos, node_mask, bond_src, bond_dst, bond_mask, cutoff, n_radial, compute_dtype
+        )
+    if pos.device.type != "cuda":
+        raise ValueError(f"edge_features: unsupported device {pos.device}")
+    if compute_dtype not in _ENTRY:
+        raise TypeError(f"edge_features: compute dtype {compute_dtype} not supported")
+    G, N, _ = pos.shape
+    B = bond_src.shape[1]
+    checks = [
+        (pos, torch.float32, (G, N, 3)),
+        (node_mask, torch.bool, (G, N)),
+        (bond_src, torch.int64, (G, B)),
+        (bond_dst, torch.int64, (G, B)),
+        (bond_mask, torch.bool, (G, B)),
+    ]
+    for t, dt, shape in checks:
+        if t.device != pos.device or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"edge_features: want {dt} {shape} contiguous on {pos.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    ec = EF_GEOM + n_radial
+    ef = torch.empty((G, N, N, ec), dtype=compute_dtype, device=pos.device)
+    bf = torch.empty((G, B, ec), dtype=compute_dtype, device=pos.device)
+    KERNEL.launch(
+        _ENTRY[compute_dtype],
+        pos.data_ptr(), node_mask.data_ptr(), bond_src.data_ptr(), bond_dst.data_ptr(),
+        bond_mask.data_ptr(), cutoff, ef.data_ptr(), bf.data_ptr(), G, N, B, n_radial,
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    return ef, bf
+
+
+def packed_rows(ef: torch.Tensor, bf: torch.Tensor, n_radial: int):
+    """The TPU kernel's layout: ef [G, EFR, N*N] (pair p = i*N + j) and
+    bf [G, EFR, B], rows 0-3 sh/adj, rows 16.. the radial basis, zero pads."""
+    pad16 = lambda c: ((c + 15) // 16) * 16  # noqa: E731
+    efr = 16 + pad16(n_radial)
+
+    def rows(a):
+        lead = a.shape[:-1]
+        out = a.new_zeros(lead + (efr,))
+        out[..., 0:4] = a[..., 0:4]
+        out[..., 16 : 16 + n_radial] = a[..., 4:]
+        return out
+
+    G, N = ef.shape[0], ef.shape[1]
+    return rows(ef).reshape(G, N * N, efr).transpose(1, 2), rows(bf).transpose(1, 2)

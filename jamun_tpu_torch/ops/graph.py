@@ -1,0 +1,95 @@
+"""Padded batch and edge containers (counterpart of `jamun_tpu/ops/graph.py`).
+
+Graphs are padded to [G, N] dense tensors. The radial edge set is a masked
+N x N distance test recomputed from positions on every forward; bonded edges
+are a small padded edge list [G, B].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["GraphBatch", "EdgeData", "dense_edge_data"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """A batch of G graphs padded to N nodes and B directed bonds (both
+    directions present). Index tensors are int64, masks are bool."""
+
+    pos: torch.Tensor  # [G, N, 3] float
+    node_mask: torch.Tensor  # [G, N]
+    atom_type_index: torch.Tensor  # [G, N]
+    atom_code_index: torch.Tensor  # [G, N]
+    residue_code_index: torch.Tensor  # [G, N]
+    residue_sequence_index: torch.Tensor  # [G, N]
+    bond_src: torch.Tensor  # [G, B]
+    bond_dst: torch.Tensor  # [G, B]
+    bond_mask: torch.Tensor  # [G, B]
+    loss_weight: torch.Tensor  # [G]
+    graph_mask: torch.Tensor  # [G]
+
+    def replace_pos(self, pos: torch.Tensor) -> "GraphBatch":
+        return dataclasses.replace(self, pos=pos)
+
+    def to(self, device) -> "GraphBatch":
+        return GraphBatch(
+            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeData:
+    """Edge features shared by all conv layers of one forward (plain path)."""
+
+    sh_dense: torch.Tensor  # [G, N, N, 4] (dst, src)
+    attr_dense: torch.Tensor  # [G, N, N, A]
+    adj: torch.Tensor  # [G, N, N] float; adj[g, i, j] = 1 for an edge src j -> dst i
+    sh_bond: torch.Tensor  # [G, B, 4]
+    attr_bond: torch.Tensor  # [G, B, A]
+    bond_src: torch.Tensor  # [G, B]
+    bond_dst: torch.Tensor  # [G, B]
+    bond_mask: torch.Tensor  # [G, B] float
+
+
+def dense_edge_data(
+    pos: torch.Tensor,
+    node_mask: torch.Tensor,
+    bond_src: torch.Tensor,
+    bond_dst: torch.Tensor,
+    bond_mask: torch.Tensor,
+    radial_cutoff,
+    sh_fn,
+    attr_fn,
+) -> EdgeData:
+    """Build EdgeData from positions.
+
+    sh_fn(edge_vec [..., 3]) -> [..., 4]; attr_fn(edge_len [...], bonded) -> [..., A].
+    The radial edge set (bondedness 0) is the distance-cutoff graph over all
+    pairs, bonded ones included, with the self-pair masked out; bonds are an
+    additional edge set (bondedness 1), so a bonded pair in cutoff contributes
+    two messages. Edge vector = pos[src] - pos[dst].
+    """
+    N = pos.shape[1]
+    edge_vec = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i(dst), j(src)]
+    dist = torch.linalg.vector_norm(edge_vec + 1e-12, dim=-1)
+    eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
+    pair_mask = node_mask[:, :, None] & node_mask[:, None, :] & ~eye
+    adj = ((dist < radial_cutoff) & pair_mask).to(pos.dtype)
+
+    src = torch.gather(pos, 1, bond_src[..., None].expand(-1, -1, 3))
+    dst = torch.gather(pos, 1, bond_dst[..., None].expand(-1, -1, 3))
+    bvec = src - dst
+    bdist = torch.linalg.vector_norm(bvec + 1e-12, dim=-1)
+    return EdgeData(
+        sh_dense=sh_fn(edge_vec),
+        attr_dense=attr_fn(dist, bonded=False),
+        adj=adj,
+        sh_bond=sh_fn(bvec),
+        attr_bond=attr_fn(bdist, bonded=True),
+        bond_src=bond_src,
+        bond_dst=bond_dst,
+        bond_mask=bond_mask.to(pos.dtype),
+    )

@@ -1,0 +1,136 @@
+"""Irreducible-representation metadata for O(3)-equivariant features.
+
+The port's own copy of `jamun_tpu/ops/irreps.py` (pure Python, no arrays).
+Features are flat tensors of shape [..., irreps.dim]; each (mul, l) block is
+laid out mul-major: block.reshape(..., mul, 2l+1). The l=1 components are in
+(y, z, x) order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import List, Sequence, Tuple, Union
+
+__all__ = ["Irrep", "MulIrrep", "Irreps"]
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class Irrep:
+    l: int
+    p: int  # parity: +1 (even, "e") or -1 (odd, "o")
+
+    def __post_init__(self):
+        if self.l < 0 or self.p not in (1, -1):
+            raise ValueError(f"invalid irrep l={self.l} p={self.p}")
+
+    @property
+    def dim(self) -> int:
+        return 2 * self.l + 1
+
+    def __repr__(self) -> str:
+        return f"{self.l}{'e' if self.p == 1 else 'o'}"
+
+    @classmethod
+    def parse(cls, s: Union[str, "Irrep"]) -> "Irrep":
+        if isinstance(s, Irrep):
+            return s
+        m = re.fullmatch(r"(\d+)([eo])", s.strip())
+        if not m:
+            raise ValueError(f"cannot parse irrep {s!r}")
+        return cls(int(m.group(1)), 1 if m.group(2) == "e" else -1)
+
+
+class MulIrrep(Tuple[int, Irrep]):
+    def __new__(cls, mul: int, ir: Irrep):
+        return super().__new__(cls, (mul, ir))
+
+    @property
+    def mul(self) -> int:
+        return self[0]
+
+    @property
+    def ir(self) -> Irrep:
+        return self[1]
+
+    @property
+    def dim(self) -> int:
+        return self.mul * self.ir.dim
+
+    def __repr__(self) -> str:
+        return f"{self.mul}x{self.ir}"
+
+
+class Irreps(tuple):
+    """An ordered sequence of (multiplicity, irrep) blocks, e.g. "120x0e + 32x1e"."""
+
+    def __new__(cls, irreps: Union[str, "Irreps", Sequence]) -> "Irreps":
+        if isinstance(irreps, Irreps):
+            return super().__new__(cls, irreps)
+        out: List[MulIrrep] = []
+        if isinstance(irreps, str):
+            if irreps.strip():
+                for term in irreps.split("+"):
+                    term = term.strip()
+                    if "x" in term:
+                        mul_s, ir_s = term.split("x")
+                        out.append(MulIrrep(int(mul_s), Irrep.parse(ir_s)))
+                    else:
+                        out.append(MulIrrep(1, Irrep.parse(term)))
+        else:
+            for item in irreps:
+                if isinstance(item, MulIrrep):
+                    out.append(item)
+                elif isinstance(item, Irrep):
+                    out.append(MulIrrep(1, item))
+                else:
+                    mul, ir = item
+                    out.append(MulIrrep(int(mul), Irrep.parse(ir)))
+        return super().__new__(cls, out)
+
+    @property
+    def dim(self) -> int:
+        return sum(mi.dim for mi in self)
+
+    @property
+    def num_irreps(self) -> int:
+        """Total multiplicity (number of irrep copies)."""
+        return sum(mi.mul for mi in self)
+
+    def slices(self) -> List[slice]:
+        out, ix = [], 0
+        for mi in self:
+            out.append(slice(ix, ix + mi.dim))
+            ix += mi.dim
+        return out
+
+    def __contains__(self, ir) -> bool:
+        if isinstance(ir, (Irrep, str)):
+            ir = Irrep.parse(ir)
+            return any(mi.ir == ir for mi in self)
+        return super().__contains__(ir)
+
+    def __add__(self, other) -> "Irreps":
+        return Irreps(tuple(self) + tuple(Irreps(other)))
+
+    def __repr__(self) -> str:
+        return " + ".join(repr(mi) for mi in self) if len(self) else "(empty)"
+
+    def simplify(self) -> "Irreps":
+        """Merge consecutive blocks with the same irrep."""
+        out: List[List] = []
+        for mi in self:
+            if out and out[-1][1] == mi.ir:
+                out[-1][0] += mi.mul
+            elif mi.mul > 0:
+                out.append([mi.mul, mi.ir])
+        return Irreps([MulIrrep(m, ir) for m, ir in out])
+
+    def sv_shape(self):
+        """(S, V) when the irreps are `Sx0e` or `Sx0e + Vx1e` (the l <= 1
+        shapes the separable conv and its kernels take), else None."""
+        if len(self) == 1 and self[0].ir == Irrep(0, 1):
+            return self[0].mul, 0
+        if len(self) == 2 and self[0].ir == Irrep(0, 1) and self[1].ir == Irrep(1, 1):
+            return self[0].mul, self[1].mul
+        return None

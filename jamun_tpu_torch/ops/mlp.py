@@ -1,0 +1,94 @@
+"""Scalar and equivariant MLP stacks (counterpart of `jamun_tpu/ops/mlp.py`).
+
+`Dense` keeps flax's parameter orientation: `kernel` is [in, out] and the
+layer computes x @ kernel + bias. `ScalarMLP` is the radial network that makes
+the tensor-product weights; `EquivariantMLP` is the gated head.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jamun_tpu_torch.ops.gate import Gate
+from jamun_tpu_torch.ops.irreps import Irreps
+from jamun_tpu_torch.ops.linear import IrrepsLinear
+
+__all__ = ["Dense", "ScalarMLP", "EquivariantMLP"]
+
+
+class Dense(nn.Module):
+    """x @ kernel + bias, kernel [in, out] (flax `nn.Dense` layout).
+    `identity_init` starts the layer at kernel 0, bias 1."""
+
+    def __init__(self, in_features: int, out_features: int, identity_init: bool = False):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.identity_init = identity_init
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torch.nn.Linear's default: U(+-1/sqrt(fan_in)) for kernel and bias."""
+        if self.identity_init:
+            self.kernel.data.zero_()
+            self.bias.data.fill_(1.0)
+            return
+        bound = self.kernel.shape[0] ** -0.5
+        for p in (self.kernel, self.bias):
+            p.data.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class ScalarMLP(nn.Module):
+    """Dense -> SiLU per hidden width, then a final Dense."""
+
+    def __init__(self, in_features: int, out_features: int, hidden_features: Sequence[int]):
+        super().__init__()
+        widths = [in_features, *hidden_features, out_features]
+        self.n_layers = len(widths) - 1
+        for i in range(self.n_layers):
+            self.add_module(f"Dense_{i}", Dense(widths[i], widths[i + 1]))
+
+    def layer(self, i: int) -> Dense:
+        return getattr(self, f"Dense_{i}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = self.layer(i)(x)
+            if i < self.n_layers - 1:
+                x = F.silu(x)
+        return x
+
+
+class EquivariantMLPBlock(nn.Module):
+    def __init__(self, irreps_in, irreps_out):
+        super().__init__()
+        self.gate = Gate(Irreps(irreps_out))
+        self.IrrepsLinear_0 = IrrepsLinear(irreps_in, self.gate.irreps_in)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gate(self.IrrepsLinear_0(x))
+
+
+class EquivariantMLP(nn.Module):
+    """Gated blocks, one per hidden irreps, then a final IrrepsLinear."""
+
+    def __init__(self, irreps_in, irreps_out, irreps_hidden_list=()):
+        super().__init__()
+        irreps = Irreps(irreps_in)
+        self.n_blocks = len(irreps_hidden_list)
+        for i, hidden in enumerate(irreps_hidden_list):
+            blk = EquivariantMLPBlock(irreps, Irreps(hidden))
+            self.add_module(f"EquivariantMLPBlock_{i}", blk)
+            irreps = blk.gate.irreps_out
+        self.IrrepsLinear_0 = IrrepsLinear(irreps, Irreps(irreps_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_blocks):
+            x = getattr(self, f"EquivariantMLPBlock_{i}")(x)
+        return self.IrrepsLinear_0(x)

@@ -1,0 +1,139 @@
+"""Underdamped Langevin MCMC with the BAOAB splitting.
+
+Counterpart of `jamun_tpu/sampling/mcmc.py:114-287` (BAOAB, dense score). The
+JAX walk is one `lax.scan`; here it is a Python loop of steps. Semantics:
+  - `steps` runs steps - 1 updates (the reference's `range(1, steps)`);
+  - saved frames are the states at absolute steps i with
+    i % save_every == 0 and i >= burn_in (the initial state when burn_in == 0);
+  - the score is evaluated once before the loop and carried across steps.
+Every Gaussian draw comes from the caller's `torch.Generator`, and a step
+takes its noise `R` as an argument, so a test can feed it numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Union
+
+import torch
+
+__all__ = ["MCMCConfig", "BAOAB", "make_processed_score_fn", "initialize_velocity"]
+
+
+def make_processed_score_fn(
+    score_fn: Callable, inverse_temperature: float = 1.0, score_fn_clip: Optional[float] = None
+):
+    """processed(y) -> (clipped and scaled score, raw score): clip by
+    per-atom norm, then multiply by the inverse temperature."""
+
+    def processed(y):
+        orig = score_fn(y)
+        score = orig
+        if score_fn_clip is not None:
+            norm = torch.linalg.vector_norm(score, dim=-1, keepdim=True)
+            score = score / torch.clamp(norm, min=1e-20) * torch.clamp(norm, max=score_fn_clip)
+        return score * inverse_temperature, orig
+
+    return processed
+
+
+def initialize_velocity(
+    v_init: Union[str, torch.Tensor], y: torch.Tensor, u: float, generator: torch.Generator
+) -> torch.Tensor:
+    if isinstance(v_init, str):
+        if v_init == "gaussian":
+            return math.sqrt(u) * torch.randn(
+                y.shape, generator=generator, dtype=y.dtype, device=y.device
+            )
+        if v_init == "zero":
+            return torch.zeros_like(y)
+        raise ValueError(f"{v_init} not in (gaussian, zero)")
+    return v_init
+
+
+@dataclasses.dataclass(frozen=True)
+class MCMCConfig:
+    delta: float = 1.0
+    friction: float = 1.0
+    M: float = 1.0  # mass
+    steps: int = 128
+    save_every_n_steps: int = 1
+    burn_in_steps: int = 0
+    inverse_temperature: float = 1.0
+    score_fn_clip: Optional[float] = None
+
+    @property
+    def u(self) -> float:
+        return 1.0 / self.M
+
+    @property
+    def first_save_step(self) -> int:
+        """The smallest multiple of save_every_n_steps that is >= burn_in_steps."""
+        s = self.save_every_n_steps
+        return ((self.burn_in_steps + s - 1) // s) * s
+
+    @property
+    def num_saved_frames(self) -> int:
+        total = max(self.steps - 1, 0)
+        if self.first_save_step > total:
+            return 0
+        return 1 + (total - self.first_save_step) // self.save_every_n_steps
+
+
+class BAOAB:
+    """BAOAB splitting (Leimkuhler-Matthews section 7.3)."""
+
+    def __init__(self, config: MCMCConfig):
+        self.config = config
+        self.damp = math.exp(-config.friction)
+        self.zeta2 = math.sqrt(1.0 - math.exp(-2.0 * config.friction))
+
+    def step(self, carry, R: torch.Tensor, processed):
+        """One update; carry = (y, v, processed score, raw score), R the
+        Gaussian draw for the O step."""
+        cfg = self.config
+        y, v, psi, _ = carry
+        d2 = cfg.delta / 2.0
+        v = v + cfg.u * d2 * psi  # B
+        y = y + d2 * v  # A
+        vhat = self.damp * v + self.zeta2 * math.sqrt(cfg.u) * R  # O
+        y = y + d2 * vhat  # A
+        psi, orig = processed(y)
+        v = vhat + d2 * psi  # B
+        return (y, v, psi, orig)
+
+    def __call__(
+        self,
+        y: torch.Tensor,
+        score_fn: Callable,
+        generator: torch.Generator,
+        v_init: Union[str, torch.Tensor] = "zero",
+        mask: Optional[torch.Tensor] = None,
+    ):
+        """Run the walk from positions y [..., 3]; mask multiplies the
+        velocity and every noise draw (node padding). Returns
+        (y, v, y_traj, score_traj), trajectories stacked on a new axis 0."""
+        cfg = self.config
+        processed = make_processed_score_fn(score_fn, cfg.inverse_temperature, cfg.score_fn_clip)
+        v = initialize_velocity(v_init, y, cfg.u, generator)
+        if mask is not None:
+            v = v * mask
+        carry = (y, v, *processed(y))
+
+        total = max(cfg.steps - 1, 0)
+        first, every = cfg.first_save_step, cfg.save_every_n_steps
+        ys, scores = [], []
+        for i in range(total + 1):
+            if i > 0:
+                R = torch.randn(y.shape, generator=generator, dtype=y.dtype, device=y.device)
+                carry = self.step(carry, R * mask if mask is not None else R, processed)
+            if i >= first and (i - first) % every == 0:
+                ys.append(carry[0])
+                scores.append(carry[3])
+        if ys:
+            y_traj, score_traj = torch.stack(ys), torch.stack(scores)
+        else:
+            y_traj = y.new_zeros((0,) + tuple(y.shape))
+            score_traj = y.new_zeros((0,) + tuple(y.shape))
+        return carry[0], carry[1], y_traj, score_traj
