@@ -17,16 +17,27 @@ Phases (any failure exits non-zero; nothing is caught):
      before and read just after, and must show K1 once and K2 six times per
      score call;
   4. check the output: finite, the expected shape, the kernel path's score
-     against the CPU plain path on a small input, and E(3) equivariance.
-A torch.profiler trace of a short 4AA walk closes the run (device time by
-kernel, device busy share). `--out FILE` writes every number as JSON. The
-line before the last is a JSON object of per-kernel numbers; the last line
-is {"ok": true, "device": {...}}.
+     against the CPU plain path on a small input, and E(3) equivariance;
+     a torch.profiler trace of a short 4AA walk (device time by kernel,
+     device busy share);
+  5. training: K4 (the ConvBlock backward) against its plain version for
+     the projector and a hidden block at the training shape (G = 32, N = 48,
+     44 atoms) and at N = 112 (G = 32), bf16 and f32, timed; then the second
+     main path, a 20-step `Trainer.fit` of the flagship in bf16 (seed 0, lr
+     2e-3, ConstantSigma(0.04), one fixed noise draw) with one EMA
+     validation, launch counts
+     zeroed before and read after (K1 once and K2 six times per forward, K4
+     six times per step), finite and falling loss; then the f32 gradients of
+     `training_loss` on the card's kernel path against the CPU plain path.
+`--out FILE` writes every number as JSON. The line before the last is a
+JSON object of per-kernel numbers; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -75,9 +86,254 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     return diff, diff / max(want.float().abs().max().item(), 1e-30)
 
 
-def profile_walk(den, batch, dev, steps: int) -> None:
-    """torch.profiler over a short walk: device time by kernel and the share
-    of the wall time the device was busy."""
+def ef_bytes(ef: torch.Tensor, n_dense: int) -> int:
+    """The bytes of ef that a kernel visiting only the pairs inside the
+    cutoff must read: one 32-byte sector for each other pair's flag, the
+    whole row of each visited pair."""
+    pairs = ef[..., 0].numel()
+    return (pairs - n_dense) * 32 + n_dense * ef.shape[-1] * ef.element_size()
+
+
+def rel_leaves(got: dict, want: dict) -> dict:
+    """max |got - want| / max |want| per key (empty tensors left out)."""
+    return {k: rel_err(got[k], want[k])[1] for k in want if want[k].numel()}
+
+
+def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
+    """Phase 5a: K4 against its plain version on K2's residuals, at the
+    training shape and N = 112, bf16 and f32, projector and hidden block."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
+    from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3)
+    c_in = normalization_factors(SIGMA, config.average_squared_distance)[0]
+    cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(SIGMA) / c_in
+    shapes = {
+        "train": dict(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96),
+        "N112": dict(num_graphs=32, max_nodes=112, nodes_per_graph=[112] * 32, max_bonds=224,
+                     scale=0.35),
+    }
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for label, kw in shapes.items():
+        batch = make_test_batch(**kw, device=dev)
+        G, N = batch.pos.shape[:2]
+        B = batch.bond_src.shape[1]
+        pos = (batch.pos * c_in).contiguous()
+        geo = (pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, cutoff, 32)
+        for cdt in (torch.bfloat16, torch.float32):
+            tag = f"{label} N={N} G={G} {str(cdt).split('.')[-1]}"
+            ef, bf = k1.edge_features(*geo, cdt)
+            n_dense = int(ef[..., 3].sum())
+            n_pairs = n_dense + int(bf[..., 3].sum())
+            model = models[cdt]
+            for block_name, blk, S, V in (
+                ("projector", model.ConvBlock_0, 56, 0),
+                ("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32),
+            ):
+                conv = blk.Conv_0
+                masters = k2.block_master_weights(
+                    conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
+                    model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V,
+                )
+                w = k2.cast_block_weights(masters, cdt)
+                x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                out, agg, deg = k2.fused_conv_block(
+                    x, ef, bf, batch.bond_src, batch.bond_dst, w, residuals=True
+                )
+                agg_p, deg_p = k2.conv_block_residuals_plain(
+                    x, ef, bf, batch.bond_src, batch.bond_dst, w
+                )
+                res_err = max(rel_err(agg, agg_p)[1], rel_err(deg, deg_p)[1])
+                assert res_err <= card_tol[cdt], f"K2 residuals {block_name} {tag}: {res_err:.3g}"
+                g = torch.randn(out.shape, generator=gen, device=dev)
+                args = (g, x, ef, bf, batch.bond_src, batch.bond_dst, w, agg, deg)
+                got = k4.conv_block_bwd(*args)
+                want = k4.conv_block_bwd_plain(*args)
+                torch.cuda.synchronize()
+                for k, t in got.items():
+                    assert torch.isfinite(t).all(), f"K4 {block_name} {tag}: non-finite {k}"
+                errs = rel_leaves(got, want)
+                worst = max(errs, key=errs.get)
+                assert errs[worst] <= card_tol[cdt], (
+                    f"K4 {block_name} {tag}: {worst} rel err {errs[worst]:.3g} > {card_tol[cdt]}"
+                )
+                abs_e = max(rel_err(got[k], want[k])[0] for k in errs)
+                Wd, Sc, Vg, C0 = 2 * S + 3 * V, w.Sc, w.Vg, w.Sc + w.Vg
+                pair_flops = 2 * n_pairs * (32 * 64 + 3 * 64 * Wd + 32 * 64)
+                node_flops = 2 * G * N * (
+                    (S + V) * C0 + 3 * (S + 2 * V) * Vg  # post-linear recomputed
+                    + 2 * (Sc * Sc + 3 * Vg * Vg + S * Sc + 3 * V * Vg)  # lin2, skip: dW and dx
+                    + 2 * ((S + V) * C0 + 3 * (S + 2 * V) * Vg)  # post-linear: dW and d_in
+                )
+                flops = pair_flops + node_flops
+                k4_bytes = (
+                    g.numel() * 4 + (x.numel() + bf.numel()) * x.element_size()
+                    + ef_bytes(ef, n_dense) + 2 * B * G * 8 + agg.numel() * 4 + deg.numel() * 4
+                    + sum(t.numel() * t.element_size() for t in w.tensors())
+                    + sum(t.numel() * 4 for t in got.values())
+                )
+                t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+                t_bytes = k4_bytes / PEAK_BYTES_PER_S * 1e3
+                row = dict(
+                    shape=f"{block_name} {tag}", max_abs_err=abs_e, max_rel_err=errs[worst],
+                    worst_leaf=worst, rel_err_by_leaf=errs, residual_rel_err=res_err,
+                    tol=card_tol[cdt],
+                    ms=cuda_time_ms(lambda: k4.conv_block_bwd(*args), 10),
+                    plain_ms=cuda_time_ms(lambda: k4.conv_block_bwd_plain(*args), 2),
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    visited_pairs=n_pairs, flops=flops, dtype=str(cdt), N=N, G=G,
+                    block=block_name, label=label,
+                )
+                rows.append(row)
+                log(f"phase 5: K4 {block_name} {tag}: worst rel err {errs[worst]:.3g} ({worst}), "
+                    f"max abs {abs_e:.3g} (tol {card_tol[cdt]}); K2 residuals rel {res_err:.3g}; "
+                    f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+                del got, want, out, agg, deg, agg_p, deg_p
+            del ef, bf
+            torch.cuda.empty_cache()
+    return rows
+
+
+def train_flagship(dev, card: str) -> dict:
+    """Phase 5b: the training main path, a 20-step Trainer.fit with one EMA
+    validation, launch counts zeroed before and read after."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.ops.cuda import conv_block as k2
+    from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
+    from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    steps, G = 20, 32
+    model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
+    # one fixed noise draw for every step (`add_fixed_noise`): with fresh
+    # draws the 20-step trend of the loss at lr 2e-3 is smaller than the
+    # draw-to-draw spread, so falling loss would say nothing of the updates
+    den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.3,
+                                         add_fixed_noise=True))
+    batch = make_test_batch(num_graphs=G, max_nodes=48, nodes_per_graph=[44] * G, max_bonds=96,
+                            device=dev)
+    trainer = Trainer(
+        TrainerConfig(max_steps=steps, log_every_n_steps=1, val_every_n_steps=steps,
+                      learning_rate=2.0e-3, seed=0),
+        den, ConstantSigma(SIGMA), device=dev,
+    )
+    for k in (k1, k2, k4):
+        k.KERNEL.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit([batch] * steps, [batch])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"edge_features": k1.KERNEL.launches, "conv_block": k2.KERNEL.launches,
+                "conv_block_bwd": k4.KERNEL.launches}
+    train = [m for _, m in trainer.metrics if "train/loss" in m]
+    val = [m for _, m in trainer.metrics if "val/loss" in m]
+    losses = [m["train/loss"] for m in train]
+    forwards = steps + 1  # every step's forward, and the validation's
+    log(f"phase 5: launches {launches} over {steps} steps and {forwards} forwards")
+    assert launches == {"edge_features": forwards, "conv_block": 6 * forwards,
+                        "conv_block_bwd": 6 * steps}, launches
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log("phase 5: losses " + " ".join(f"{v:.5f}" for v in losses))
+    log(f"phase 5: mean loss steps 1-5 {first:.5f}, steps 16-20 {last:.5f}; "
+        f"EMA val loss {val[0]['val/loss']:.5f}; grad norms "
+        + " ".join(f"{m['train/grad_norm']:.4g}" for m in train))
+    assert last < first, (first, last)
+    assert len(val) == 1 and math.isfinite(val[0]["val/loss"])
+    elapsed = [m["train/steps_per_sec"] for m in train]
+    t_at = [(i + 1) / r for i, r in enumerate(elapsed)]  # seconds since the start, synchronised
+    steady = (t_at[-1] - t_at[4]) * 1e3 / (steps - 5)
+    out = dict(G=G, N=48, atoms=44, steps=steps, seconds=dt, ms_per_step=t_at[-1] * 1e3 / steps,
+               ms_per_step_6_to_20=steady, losses=losses, val_loss=val[0]["val/loss"],
+               launches=launches)
+    log(f"phase 5: train G={G} N=48 bf16: {out['ms_per_step']:.3f} ms/step over {steps} steps, "
+        f"{steady:.3f} ms/step over steps 6-20, fit with validation {dt:.3f} s on {card}")
+    out["profile"] = profile_steps(den, batch, 3)
+    return out
+
+
+def device_profile(prof, label: str, wall_us: float, top: int) -> dict:
+    """Log and return the device's busy time from a torch.profiler trace:
+    kernel, memcpy and memset events only. A CPU op's self device time
+    repeats the time of the kernels it launched, and a user-annotation
+    range (`Optimizer.step#Adam.step`) covers kernels counted already."""
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type != torch.autograd.DeviceType.CPU and not e.is_user_annotation
+        and e.self_device_time_total > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in events)
+    ops = sum(e.count for e in events)
+    log(f"profile: {label}, wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}%), {ops} device ops")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, busy_share=busy_us / wall_us,
+                device_ops=ops,
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in ranked[:top]])
+
+
+def profile_steps(den, batch, steps: int) -> dict:
+    """torch.profiler over a few more train steps (after the counted run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.state import create_train_state, make_train_step
+
+    state = create_train_state(den, 2.0e-3, seed=1, device=batch.pos.device)
+    step = make_train_step(den, ConstantSigma(SIGMA))
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return device_profile(prof, f"{steps} train steps", wall_us, 14)
+
+
+def check_train_gradients(dev) -> float:
+    """Phase 5c: f32 gradients of training_loss, kernel path on the card
+    against the plain path on the CPU (the same noise: add_fixed_ones)."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3, add_fixed_ones=True)
+    card_model = E3Conv(device=dev, seed=0)
+    card_model.output_gain.data.fill_(1.0)
+    cpu_model = E3Conv(device="cpu", plain=True)
+    cpu_model.load_state_dict(card_model.state_dict())
+    small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
+                            scale=0.35, device=dev)
+    grads = []
+    for model, batch, d in ((card_model, small, dev), (cpu_model, small.to("cpu"), "cpu")):
+        loss, _ = Denoiser(model, config).training_loss(batch, SIGMA, torch.Generator(device=d))
+        loss.backward()
+        grads.append({  # an unused table (the residue-index embedding) has no gradient
+            n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+            for n, p in model.named_parameters()
+        })
+    errs = {n: rel_err(grads[0][n], g)[1] for n, g in grads[1].items() if g.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    log(f"phase 5: f32 training_loss gradients, card kernel path vs CPU plain path: "
+        f"{len(errs)} leaves, worst rel err {errs[worst]:.3g} ({worst}) (tol 1e-3)")
+    assert errs[worst] < 1e-3, (worst, errs[worst])
+    return errs[worst]
+
+
+def profile_walk(den, batch, dev, steps: int) -> dict:
+    """torch.profiler over a short walk."""
     from torch.profiler import ProfilerActivity, profile
 
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
@@ -93,18 +349,7 @@ def profile_walk(den, batch, dev, steps: int) -> None:
         sampler.walk_jump(den, batch, batch.pos, g)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: a CPU op's self device time repeats the time
-    # of the kernels it launched
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
-    ]
-    busy_us = sum(e.self_device_time_total for e in events)
-    log(f"profile: {steps}-step walk, wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
-        f"{sum(e.count for e in events)} device ops")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+    return device_profile(prof, f"{steps}-step walk", wall_us, 12)
 
 
 def main() -> int:
@@ -117,6 +362,7 @@ def main() -> int:
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import conv_block as k2
+    from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda.build import build_all
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
@@ -132,7 +378,7 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    logs = build_all([k1.KERNEL.name, k2.KERNEL.name])
+    logs = build_all([k1.KERNEL.name, k2.KERNEL.name, k4.KERNEL.name])
     log(f"phase 1: built {list(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -173,7 +419,8 @@ def main() -> int:
             abs_e, rel_e = map(max, zip(rel_err(ef, ef_p), rel_err(bf, bf_p)))
             assert adj_mismatch == 0, f"K1 {tag}: {adj_mismatch} adjacency entries differ"
             assert rel_e <= TOL[cdt], f"K1 {tag}: rel err {rel_e:.3g} > {TOL[cdt]}"
-            n_pairs = int(ef[..., 3].sum()) + int(bf[..., 3].sum())
+            n_dense = int(ef[..., 3].sum())
+            n_pairs = n_dense + int(bf[..., 3].sum())
             k1_bytes = (
                 pos.numel() * 4 + batch.node_mask.numel() + batch.bond_src.numel() * 16
                 + batch.bond_mask.numel() + (ef.numel() + bf.numel()) * ef.element_size()
@@ -214,7 +461,7 @@ def main() -> int:
                     + S * Sc + 3 * V * Vg
                 )
                 k2_bytes = (
-                    (x.numel() + ef.numel() + bf.numel()) * x.element_size()
+                    (x.numel() + bf.numel()) * x.element_size() + ef_bytes(ef, n_dense)
                     + batch.bond_src.numel() * 16 + got.numel() * 4
                     + sum(t.numel() * t.element_size() for t in w if torch.is_tensor(t))
                 )
@@ -300,7 +547,15 @@ def main() -> int:
             f"|score(Ry+t) - (R score(y) - t/sigma^2)| / max|score| = {err:.3g} (tol {tol})")
         assert err < tol
 
-    profile_walk(den, batches["4AA"], dev, steps=6)
+    walk_profile = profile_walk(den, batches["4AA"], dev, steps=6)
+    del batches, den
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: training, the ConvBlock backward ----
+    results["conv_block_bwd"] = check_conv_block_bwd(k2, k4, models, dev, TOL)
+    train = train_flagship(dev, card)
+    launches["conv_block_bwd"] = train["launches"]["conv_block_bwd"]
+    grad_err = check_train_gradients(dev)
 
     # ---- the report ----
     def main_row(rows, **match):
@@ -308,10 +563,13 @@ def main() -> int:
 
     k1_main = main_row(results["edge_features"], N=44, dtype=str(torch.bfloat16))
     k2_main = main_row(results["conv_block"], N=44, dtype=str(torch.bfloat16), block="hidden")
+    k4_main = main_row(results["conv_block_bwd"], label="train", dtype=str(torch.bfloat16),
+                       block="hidden")
     kernels = []
     for name, main, replaces in (
         ("edge_features", k1_main, "jamun_tpu/ops/pallas/packed_conv.py:806"),
         ("conv_block", k2_main, "jamun_tpu/ops/pallas/packed_conv.py:1495"),
+        ("conv_block_bwd", k4_main, "jamun_tpu/ops/pallas/packed_conv.py:2220"),
     ):
         kernels.append(dict(
             name=name, route="cuda", source=f"jamun_tpu_torch/csrc/{name}.cu", replaces=replaces,
@@ -320,7 +578,8 @@ def main() -> int:
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=None,
         ))
-    report = dict(card=card, compare=results, walks=walks, launches=launches)
+    report = dict(card=card, compare=results, walks=walks, walk_profile=walk_profile,
+                  launches=launches, train=train, train_grad_rel_err=grad_err)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

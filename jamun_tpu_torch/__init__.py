@@ -4,6 +4,7 @@ The JAX package `jamun_tpu` is the reference; this package imports neither it
 nor JAX. Layout mirrors it: `ops/` (irreps, SH, radial basis, graph, linear,
 gate, MLPs, the separable conv), `ops/cuda/` (the hand-written Hopper kernels
 and their plain PyTorch twins, sources in `csrc/`), `models/` (E3Conv,
-Denoiser), `sampling/` (BAOAB, walk-jump), `utils/`, and `params.py` (the
-flax param bridge).
+Denoiser with its training loss), `sampling/` (BAOAB, walk-jump), `train/`
+(sigma distributions, LR schedules, EMA, train state and steps, Trainer),
+`utils/`, and `params.py` (the flax param bridge).
 """

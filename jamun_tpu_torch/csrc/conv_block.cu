@@ -27,6 +27,11 @@
 // h = silu(h32) in the compute type T, message weights in T, f32
 // accumulation, the normalised aggregates in T, the gate's scalars and
 // gated vectors in T, f32 output.
+//
+// Under autograd the wrapper also asks for the residuals of the backward
+// kernel (csrc/conv_block_bwd.cu): the normalised aggregates as
+// [G, N, 3, W] f32 (component, radial channel) and the degree [G, N], the
+// counterpart of the TPU kernel's save_residuals mode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +78,8 @@ struct Params {
   const void* sk0;    // [S, Sc] T
   const void* sk1;    // [V, Vg] T (unused when V == 0)
   float* out;         // [G, N, Sc + 3Vg] f32 (vector block [Vg][3])
+  float* agg_out;     // [G, N, 3, W] f32 or null: normalised aggregates
+  float* deg_out;     // [G, N] f32 or null: degree
   int N, B, S, V, Sc, Vg;
 };
 
@@ -282,6 +289,13 @@ __global__ void __launch_bounds__(MAX_THREADS) conv_block_kernel(Params p) {
     acc[k] = rnd<T>(acc[k] * (1.0f / fmaxf(deg[td], 1.0f)));
   }
   __syncthreads();
+  if (p.agg_out != nullptr) {
+    for (int k = tid; k < nd * 3 * W; k += nt) {
+      int td = k / (3 * W), comp = (k / W) % 3, ch = k % W;
+      p.agg_out[(((long long)g * N + i0 + td) * 3 + comp) * W + ch] = acc[(td * 3 + comp) * nt + ch];
+    }
+    if (tid < nd) p.deg_out[(long long)g * N + i0 + tid] = deg[tid];
+  }
   // aggregate views: acc[(td * 3 + comp) * nt + channel]
   auto agg = [&](int td, int comp, int ch) { return acc[(td * 3 + comp) * nt + ch]; };
 
@@ -374,7 +388,8 @@ Params make_params(const void* x, const void* ef, const void* bf, const void* bo
                    const void* bond_dst, const void* w1, const void* b1d, const void* b1b,
                    const void* w2, const void* b2, const void* pl0, const void* pl1,
                    const void* lin20, const void* lin21, const void* sk0, const void* sk1,
-                   void* out, int N, int B, int S, int V, int Sc, int Vg) {
+                   void* out, void* agg_out, void* deg_out, int N, int B, int S, int V, int Sc,
+                   int Vg) {
   Params p;
   p.x = x;
   p.ef = ef;
@@ -393,6 +408,8 @@ Params make_params(const void* x, const void* ef, const void* bf, const void* bo
   p.sk0 = sk0;
   p.sk1 = sk1;
   p.out = (float*)out;
+  p.agg_out = (float*)agg_out;
+  p.deg_out = (float*)deg_out;
   p.N = N;
   p.B = B;
   p.S = S;
@@ -409,10 +426,12 @@ Params make_params(const void* x, const void* ef, const void* bf, const void* bo
                       const void* bond_dst, const void* w1, const void* b1d,                 \
                       const void* b1b, const void* w2, const void* b2, const void* pl0,      \
                       const void* pl1, const void* lin20, const void* lin21,                 \
-                      const void* sk0, const void* sk1, void* out, int G, int N, int B,      \
-                      int S, int V, int Sc, int Vg, void* stream) {                          \
+                      const void* sk0, const void* sk1, void* out, void* agg_out,            \
+                      void* deg_out, int G, int N, int B, int S, int V, int Sc, int Vg,      \
+                      void* stream) {                                                        \
     Params p = make_params(x, ef, bf, bond_src, bond_dst, w1, b1d, b1b, w2, b2, pl0, pl1,    \
-                           lin20, lin21, sk0, sk1, out, N, B, S, V, Sc, Vg);                 \
+                           lin20, lin21, sk0, sk1, out, agg_out, deg_out, N, B, S, V, Sc,    \
+                           Vg);                                                              \
     return launch<TYPE>(p, G, stream);                                                       \
   }
 

@@ -7,24 +7,28 @@ Counterpart of `jamun_tpu/models/denoiser.py:30-146` (the sampling side):
   effective_radial_cutoff = sqrt(max_radius^2 + 6 sigma^2)
   xhat = c_skip * y + c_out * g(c_in * y, c_noise, cutoff / c_in)
   score = (xhat - y) / sigma^2
+  loss  = mean over valid graphs of [ mean_atoms sum_D (xhat - x)^2 ] * loss_weight / c_out^2
 
-sigma is a Python float (one noise level per walk), so the factors are
-host scalars and the forward makes no host-device round trip for them.
-The training side (noise, loss) is a later slice.
+sigma is a Python float (one noise level per walk, one per training batch),
+so the factors are host scalars and the forward makes no host-device round
+trip for them. The training side (`add_noise` ... `training_loss`) is the
+counterpart of `jamun_tpu/models/denoiser.py:230-324`; its noise comes from
+an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict, Tuple
 
 import torch
 
 from jamun_tpu_torch.models.e3conv import irreps_to_vector
-from jamun_tpu_torch.ops.geometry import mean_center
+from jamun_tpu_torch.ops.geometry import kabsch_align, mean_center
 from jamun_tpu_torch.ops.graph import GraphBatch
 
-__all__ = ["DenoiserConfig", "Denoiser", "normalization_factors"]
+__all__ = ["DenoiserConfig", "Denoiser", "normalization_factors", "loss_weight", "masked_graph_mean"]
 
 
 def normalization_factors(sigma: float, average_squared_distance: float, D: int = 3):
@@ -37,11 +41,23 @@ def normalization_factors(sigma: float, average_squared_distance: float, D: int 
     return c_in, c_skip, c_out, c_noise
 
 
+def loss_weight(sigma: float, average_squared_distance: float, D: int = 3) -> float:
+    """1 / c_out^2."""
+    return 1.0 / normalization_factors(sigma, average_squared_distance, D)[2] ** 2
+
+
 @dataclasses.dataclass(frozen=True)
 class DenoiserConfig:
     max_radius: float
     average_squared_distance: float
+    align_noisy_input_during_training: bool = True
+    align_noisy_input_during_evaluation: bool = True
     mean_center: bool = True
+    mirror_augmentation_rate: float = 0.0
+    add_fixed_noise: bool = False  # the same N(0, 1) draw for every graph (seed 0)
+    add_fixed_ones: bool = False  # noise of ones: deterministic, for tests
+    # stored but not read by the loss, as in the JAX package
+    bond_loss_coefficient: float = 1.0
 
 
 class Denoiser:
@@ -76,3 +92,86 @@ class Denoiser:
     def score(self, y: GraphBatch, sigma: float) -> torch.Tensor:
         """score(y, sigma) = (xhat(y) - y) / sigma^2."""
         return (self.xhat(y, sigma) - y.pos) / float(sigma) ** 2
+
+    # ---- training path ----
+
+    def add_noise(self, x: GraphBatch, sigma: float, generator: torch.Generator) -> GraphBatch:
+        """y = x + sigma * noise on real atoms, then a mirror flip of the
+        whole batch with probability `mirror_augmentation_rate`."""
+        cfg = self.config
+        pos = x.pos
+        if cfg.add_fixed_ones:
+            noise = torch.ones_like(pos)
+        elif cfg.add_fixed_noise:
+            fixed = torch.randn(pos.shape[1:], generator=torch.Generator().manual_seed(0))
+            noise = fixed.to(pos)[None].expand_as(pos)
+        else:
+            noise = torch.randn(pos.shape, generator=generator, device=generator.device).to(pos)
+        pos = pos + float(sigma) * noise * x.node_mask[..., None].to(pos.dtype)
+        if cfg.mirror_augmentation_rate > 0:
+            u = torch.rand((), generator=generator, device=generator.device)
+            if float(u) < cfg.mirror_augmentation_rate:
+                pos = -pos
+        return x.replace_pos(pos)
+
+    def noise_and_denoise(
+        self, x: GraphBatch, sigma: float, generator: torch.Generator, align_noisy_input: bool
+    ):
+        """(xhat, the noisy y, the centred clean x)."""
+        if self.config.mean_center:
+            x = x.replace_pos(mean_center(x.pos, x.node_mask))
+        y = self.add_noise(x, sigma, generator)
+        if self.config.mean_center:
+            y = y.replace_pos(mean_center(y.pos, y.node_mask))
+        if align_noisy_input:
+            y = y.replace_pos(kabsch_align(y.pos, x.pos, x.node_mask))
+        return self.xhat(y, sigma), y, x
+
+    def compute_loss(
+        self, x: GraphBatch, xhat_pos: torch.Tensor, sigma: float
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Per-graph scaled loss [G] and a dict of per-graph metrics."""
+        pos = x.pos
+        if self.config.mean_center:
+            pos = mean_center(pos, x.node_mask)
+        D = pos.shape[-1]
+        m = x.node_mask.to(pos.dtype)
+        per_atom = ((xhat_pos - pos) ** 2).sum(-1) * m  # [G, N]
+        count = torch.clamp(m.sum(-1), min=1.0)
+        raw_loss = per_atom.sum(-1) / count
+        scaled_rmsd = (torch.sqrt(per_atom + 1e-20) * m).sum(-1) / count
+        scaled_rmsd = scaled_rmsd / (float(sigma) * math.sqrt(D))
+        w = loss_weight(sigma, self.config.average_squared_distance, D)
+        scaled_loss = raw_loss * x.loss_weight * w
+        return scaled_loss, {
+            "coordinate_loss": scaled_loss,
+            "raw_coordinate_loss": raw_loss,
+            "scaled_rmsd": scaled_rmsd,
+        }
+
+    def noise_and_compute_loss(
+        self, x: GraphBatch, sigma: float, generator: torch.Generator, align_noisy_input: bool
+    ):
+        xhat_pos, _, x_centered = self.noise_and_denoise(x, sigma, generator, align_noisy_input)
+        return self.compute_loss(x_centered, xhat_pos, sigma)
+
+    def training_loss(
+        self, x: GraphBatch, sigma: float, generator: torch.Generator
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The scalar loss averaged over valid graphs (`graph_mask`), and the
+        aux metrics averaged the same way (plus "loss")."""
+        per_graph, aux = self.noise_and_compute_loss(
+            x, sigma, generator, self.config.align_noisy_input_during_training
+        )
+        return masked_graph_mean(per_graph, aux, x.graph_mask)
+
+
+def masked_graph_mean(per_graph: torch.Tensor, aux: Dict[str, torch.Tensor], graph_mask):
+    """(mean of per_graph over valid graphs, each aux metric likewise with
+    "loss" added)."""
+    gm = graph_mask.to(per_graph.dtype)
+    denom = torch.clamp(gm.sum(), min=1.0)
+    loss = (per_graph * gm).sum() / denom
+    aux = {k: (v * gm).sum() / denom for k, v in aux.items()}
+    aux["loss"] = loss
+    return loss, aux

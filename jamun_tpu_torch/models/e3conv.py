@@ -10,7 +10,10 @@ Two ways through the forward:
     (`ops/cuda/edge_features`, K1), then every ConvBlock as one fused block
     (`ops/cuda/conv_block`, K2): the projector and each hidden layer. On the
     card these are the hand-written CUDA kernels, on the CPU their plain
-    twins. It covers N <= 128 with edge_attr_dim 64.
+    twins. It covers N <= 128 with edge_attr_dim 64. Under autograd each
+    block's backward is K4 (`ops/cuda/conv_block_bwd`). The EquivariantMLP
+    head then runs in the compute dtype, as JAX's chained kernel path runs
+    it (`_transposed_head`).
   - `plain=True` (CPU only): the module-level plain path on
     `ops/graph.dense_edge_data`, the reference the kernel path is held to.
 Shapes outside the kernels raise NotImplementedError on the card.
@@ -19,6 +22,7 @@ Shapes outside the kernels raise NotImplementedError on the card.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -155,6 +159,7 @@ class E3Conv(nn.Module):
             n_atoms <= MAX_KERNEL_ATOMS
             and self.edge_attr_dim == 2 * k2.N_RADIAL
             and max(2 * S + 3 * V, 2 * S_emb) <= k2.MAX_WIDTH
+            and all(mi.ir.l <= 1 and mi.ir.p == 1 for mi in self.irreps_out)
         )
 
     def forward(
@@ -183,8 +188,40 @@ class E3Conv(nn.Module):
         x = block(self.ConvBlock_0, x)
         for layer in self._hidden_layers():
             x = layer(x, c_noise, block)
-        x = self.EquivariantMLP_0(x)
-        return x * self.output_gain * batch.node_mask[..., None].to(x.dtype)
+        x = self._kernel_head(x) if kernels else self.EquivariantMLP_0(x)
+        return x.to(torch.float32) * self.output_gain * batch.node_mask[..., None].to(torch.float32)
+
+    def _kernel_head(self, x: torch.Tensor) -> torch.Tensor:
+        """The EquivariantMLP head with the rounding points of JAX's
+        `_transposed_head` (`jamun_tpu/models/e3conv.py:649-692`): inputs cast
+        to the compute dtype, each IrrepsLinear kernel cast and then scaled by
+        1/sqrt(fan-in), products, sigmoid, leaky-ReLU and gate in the compute
+        dtype. The activations are written as XLA evaluates them: the sigmoid
+        as 1 / (1 + exp(-t)) op by op, the leaky-ReLU slope rounded to the
+        compute dtype. Returns [G, N, irreps_out.dim] in the compute dtype."""
+        cdt = self.dtype or torch.float32
+        S, V = self.irreps_hidden.sv_shape()
+        G, N = x.shape[:2]
+        blk = self.EquivariantMLP_0.EquivariantMLPBlock_0.IrrepsLinear_0
+        fin = self.EquivariantMLP_0.IrrepsLinear_0
+
+        def lin(w, fan, h):  # the divisor rounded to cdt, as JAX's weak typing does
+            return h @ (w.to(cdt) / k2.rounded_divisor(math.sqrt(max(fan, 1)), cdt, h.device))
+
+        xs = x[..., :S].to(cdt)
+        xv = x[..., S:].reshape(G, N, V, 3).transpose(-1, -2).to(cdt)  # [G, N, 3, V]
+        s_pre = lin(blk.weight(0, 0), S, xs)
+        s_act = torch.where(s_pre >= 0, s_pre, s_pre * torch.tensor(0.01, dtype=cdt))
+        gates = 1 / (1 + torch.exp(-lin(blk.weight(0, 1), S, xs)))
+        gated = lin(blk.weight(1, 2), V, xv) * gates[:, :, None]
+        parts = []
+        for j, mi in enumerate(self.irreps_out):
+            if mi.ir.l == 0:
+                parts.append(lin(fin.weight(0, j), S, s_act))
+            else:
+                o = lin(fin.weight(1, j), V, gated)  # [G, N, 3, mul]
+                parts.append(o.transpose(-1, -2).reshape(G, N, 3 * mi.mul))
+        return torch.cat(parts, -1)
 
     def _kernel_block(self, batch: GraphBatch, radial_cutoff: float):
         cdt = self.dtype or torch.float32

@@ -7,8 +7,9 @@ then the post-linear. `ConvBlock` wraps it as
 IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
 
 `ConvBlock.forward` is the plain path. `ConvBlock.fused` runs the whole block
-through `ops/cuda/conv_block.fused_conv_block` (the hand-written kernel on
-the card, its plain twin on the CPU).
+through `ops/cuda/conv_block` (the hand-written kernels on the card, their
+plain twins on the CPU): `fused_conv_block` (K2) when no gradient is
+wanted, `conv_block_trainable` (K2 forward, K4 backward) when one is.
 """
 
 from __future__ import annotations
@@ -18,7 +19,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from jamun_tpu_torch.ops.cuda.conv_block import fused_conv_block, pack_block_weights
+from jamun_tpu_torch.ops.cuda.conv_block import (
+    block_master_weights,
+    cast_block_weights,
+    conv_block_trainable,
+    fused_conv_block,
+)
 from jamun_tpu_torch.ops.fast_uvu import fast_uvu_messages_dense, uvu_messages
 from jamun_tpu_torch.ops.gate import Gate
 from jamun_tpu_torch.ops.graph import EdgeData
@@ -108,11 +114,18 @@ class ConvBlock(nn.Module):
         compute_dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
         """The whole block on the per-forward edge features of
-        `ops/cuda/edge_features.edge_features`. Returns f32 [G, N, Sc + 3Vg]."""
+        `ops/cuda/edge_features.edge_features`. Returns f32 [G, N, Sc + 3Vg],
+        differentiable in x, the block's parameters and bond0/bond1 when
+        autograd asks for it."""
         cdt = compute_dtype or x.dtype
         conv = self.Conv_0
-        weights = pack_block_weights(
+        masters = block_master_weights(
             conv.radial_nn, conv._post_linear, self.IrrepsLinear_1, self.IrrepsLinear_0,
-            bond0, bond1, S=conv.S, V=conv.V, cdt=cdt,
+            bond0, bond1, S=conv.S, V=conv.V,
         )
-        return fused_conv_block(x.to(cdt).contiguous(), ef, bf, bond_src, bond_dst, weights)
+        x = x.to(cdt).contiguous()
+        if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in masters.tensors())
+        ):
+            return conv_block_trainable(x, ef, bf, bond_src, bond_dst, masters)
+        return fused_conv_block(x, ef, bf, bond_src, bond_dst, cast_block_weights(masters, cdt))

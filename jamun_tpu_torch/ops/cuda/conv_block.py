@@ -1,9 +1,12 @@
-"""K2: one whole separable ConvBlock (wrapper + plain twin).
+"""K2: one whole separable ConvBlock (wrapper + plain twin), and the
+trainable block around it.
 
 Replaces `packed_separable_conv_layer(fuse_block=True)` of
 `jamun_tpu/ops/pallas/packed_conv.py` (pallas_call at line 1495), which the
-JAX model reaches through `make_trainable_conv_block`. The CUDA kernel is
-`csrc/conv_block.cu`.
+JAX model reaches through `make_trainable_conv_block` (`packed_conv.py:2349`).
+The CUDA kernel is `csrc/conv_block.cu`. `conv_block_trainable` is the
+counterpart of `make_trainable_conv_block`: a `torch.autograd.Function`
+whose forward is K2 and whose backward is K4 (`ops/cuda/conv_block_bwd.py`).
 
 Inputs: block input x [G, N, S + 3V] (packed irreps, compute dtype), the
 edge features of `edge_features` and the block's weights packed by
@@ -13,6 +16,7 @@ edge features of `edge_features` and the block's weights packed by
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -20,25 +24,33 @@ import torch
 import torch.nn.functional as F
 
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
+from jamun_tpu_torch.ops.cuda.conv_block_bwd import conv_block_bwd
 from jamun_tpu_torch.ops.cuda.edge_features import EF_GEOM
 from jamun_tpu_torch.ops.fast_uvu import uvu_messages
 
 __all__ = [
-    "BlockWeights", "pack_block_weights", "fused_conv_block", "fused_conv_block_plain",
-    "KERNEL", "N_RADIAL", "MAX_WIDTH",
+    "BlockWeights", "block_master_weights", "cast_block_weights", "pack_block_weights",
+    "fused_conv_block", "fused_conv_block_plain", "conv_block_residuals_plain",
+    "conv_block_trainable", "linear_scales", "rounded_divisor", "KERNEL", "N_RADIAL", "MAX_WIDTH",
 ]
 
 N_RADIAL = 32  # the kernel's radial basis size (edge_attr_dim 64)
 MAX_WIDTH = 384  # radial MLP output width 2S + 3V the kernel takes (one thread each)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 17 + [_I] * 7 + [_P]
+_ARGS = [_P] * 19 + [_I] * 7 + [_P]
 KERNEL = CudaKernel("conv_block", {"conv_block_f32": _ARGS, "conv_block_bf16": _ARGS})
 _ENTRY = {torch.float32: "conv_block_f32", torch.bfloat16: "conv_block_bf16"}
+_MATRICES = ("w1", "w2", "pl0", "pl1", "lin20", "lin21", "sk0", "sk1")
 
 
 class BlockWeights(NamedTuple):
-    """One ConvBlock's weights in the kernel's layout ([in, out] matrices)."""
+    """One ConvBlock's weights in the kernel's layout ([in, out] matrices).
+
+    `pack_block_weights` gives the kernel's operands (matrices in the compute
+    dtype, IrrepsLinear kernels scaled by 1/sqrt(fan-in)); the f32 "masters"
+    of `block_master_weights` hold the same fields unscaled, and are what
+    gradients flow to."""
 
     w1: torch.Tensor  # [nr, 64] cdt: radial rows of the first Dense kernel
     b1d: torch.Tensor  # [64] f32: bias + bondedness-0 embedding @ bond rows
@@ -56,11 +68,32 @@ class BlockWeights(NamedTuple):
     Sc: int
     Vg: int
 
+    def tensors(self):
+        return tuple(self[:11])
 
-def pack_block_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, *, S, V, cdt):
-    """Fold the bondedness embeddings into the first radial bias (in f32, as
-    `_pack_layer_weights` does) and scale the IrrepsLinear kernels by their
-    1/sqrt(fan-in), cast to cdt first."""
+
+def linear_scales(S: int, V: int, Sc: int, Vg: int) -> dict:
+    """sqrt(fan-in) of each IrrepsLinear operand: the summed multiplicity of
+    the inputs that share the output's irrep (flax's and `IrrepsLinear`'s)."""
+    fans = dict(pl0=S + V, pl1=S + 2 * V, lin20=Sc, lin21=Vg, sk0=S, sk1=V)
+    return {k: math.sqrt(max(f, 1)) for k, f in fans.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def rounded_divisor(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`value` rounded to `dtype`, a 0-dim tensor on `device` (JAX's
+    `w.astype(cdt) / math.sqrt(fan)` casts the Python float to the array's
+    type). Made once per key: a new tensor on the card at every forward
+    would cost a host-to-device copy and a stream sync each time."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def block_master_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, *, S, V) -> BlockWeights:
+    """The block's parameters gathered into the kernel's layout in f32 (the
+    IrrepsLinear kernels unscaled), differentiable in the parameters. The
+    bondedness embeddings fold into the first radial bias here, outside the
+    kernels, as `_pack_layer_weights` does, so their gradients and those of
+    the bond rows of the first Dense kernel come out by the chain rule."""
     f32 = torch.float32
     d0, d1 = radial_nn.layer(0), radial_nn.layer(1)
     nb = d0.kernel.shape[0] - N_RADIAL
@@ -71,37 +104,56 @@ def pack_block_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, *, S, V
     Sc, Vg = out[0], out[2]
 
     def lin(module, i_in, i_out):
-        fan = module.fan_in[i_out]
-        return module.weight(i_in, i_out).to(cdt) / math.sqrt(max(fan, 1))
+        return module.weight(i_in, i_out).to(f32)
 
     in0, in1 = ((0, 3), (1, 2, 4)) if V else ((0,), (1,))
-    pl0 = torch.cat([torch.cat([lin(post_linear, i, 0), lin(post_linear, i, 1)], 1) for i in in0])
-    pl1 = torch.cat([lin(post_linear, i, 2) for i in in1])
-    sk1 = lin(skip, 1, 1) if V else d0.kernel.new_zeros((0, Vg), dtype=cdt)
     return BlockWeights(
-        w1=d0.kernel[nb:].to(cdt).contiguous(),
-        b1d=(d0.bias.to(f32) + bond0.to(f32) @ wb).contiguous(),
-        b1b=(d0.bias.to(f32) + bond1.to(f32) @ wb).contiguous(),
-        w2=d1.kernel.to(cdt).contiguous(),
-        b2=d1.bias.to(f32).contiguous(),
-        pl0=pl0.contiguous(),
-        pl1=pl1.contiguous(),
-        lin20=lin(lin2, 0, 0).contiguous(),
-        lin21=lin(lin2, 1, 1).contiguous(),
-        sk0=lin(skip, 0, 0).contiguous(),
-        sk1=sk1.contiguous(),
+        w1=d0.kernel[nb:].to(f32),
+        b1d=d0.bias.to(f32) + bond0.to(f32) @ wb,
+        b1b=d0.bias.to(f32) + bond1.to(f32) @ wb,
+        w2=d1.kernel.to(f32),
+        b2=d1.bias.to(f32),
+        pl0=torch.cat([torch.cat([lin(post_linear, i, 0), lin(post_linear, i, 1)], 1) for i in in0]),
+        pl1=torch.cat([lin(post_linear, i, 2) for i in in1]),
+        lin20=lin(lin2, 0, 0),
+        lin21=lin(lin2, 1, 1),
+        sk0=lin(skip, 0, 0),
+        sk1=lin(skip, 1, 1) if V else d0.kernel.new_zeros((0, Vg), dtype=f32),
         S=S, V=V, Sc=Sc, Vg=Vg,
     )
 
 
-def fused_conv_block_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: the same function with the
-    same rounding points (compute dtype at the radial features, h, the
-    message weights, the normalised aggregates and the gate outputs; f32
-    products and sums everywhere else)."""
+def cast_block_weights(m: BlockWeights, cdt) -> BlockWeights:
+    """The kernel's operands from the f32 masters: matrices cast to cdt, each
+    IrrepsLinear kernel then divided by sqrt(fan-in) in cdt, the divisor
+    itself rounded to cdt (JAX's `w.astype(cdt) / math.sqrt(fan)` in
+    `_pack_layer_weights` and `packed_conv_block_bwd` casts the Python float
+    to the array's type); biases stay f32."""
+    scales = linear_scales(m.S, m.V, m.Sc, m.Vg)
+    fields = m._asdict()
+    for k in _MATRICES:
+        t = fields[k].to(cdt)
+        if k in scales:
+            t = t / rounded_divisor(scales[k], cdt, t.device)
+        fields[k] = t.contiguous()
+    for k in ("b1d", "b1b", "b2"):
+        fields[k] = fields[k].contiguous()
+    return BlockWeights(**fields)
+
+
+def pack_block_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, *, S, V, cdt):
+    """The kernel's operands for one block (`block_master_weights`, then
+    `cast_block_weights`)."""
+    return cast_block_weights(
+        block_master_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, S=S, V=V), cdt
+    )
+
+
+def _aggregate_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights):
+    """The normalised aggregates in the uvu layout [G, N, 4S + 7V] (rounded
+    to the compute dtype, held in f32) and the degree [G, N]."""
     f32, cdt = torch.float32, x.dtype
-    S, V, Sc, Vg = w.S, w.V, w.Sc, w.Vg
-    G, N, _ = x.shape
+    S, V = w.S, w.V
 
     def radial(feat, b1):
         h32 = feat[..., EF_GEOM:].to(f32) @ w.w1.to(f32) + b1
@@ -123,7 +175,48 @@ def fused_conv_block_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights) -> to
     agg = agg.scatter_add(1, bond_dst[..., None].expand(-1, -1, msg_b.shape[-1]), msg_b)
     deg = deg.scatter_add(1, bond_dst, bmask)
     norm = (agg * (1.0 / torch.clamp(deg, min=1.0))[..., None]).to(cdt).to(f32)
+    return norm, deg
 
+
+def _channel_major(norm: torch.Tensor, S: int, V: int) -> torch.Tensor:
+    """uvu layout [G, N, 4S + 7V] -> the kernels' residual layout
+    [G, N, 3, 2S + 3V]: [component, radial channel], zero where a channel
+    has no such component."""
+    G, N = norm.shape[:2]
+    out = norm.new_zeros((G, N, 3, 2 * S + 3 * V))
+    vec = lambda a, n: a.reshape(G, N, n, 3).transpose(-1, -2)  # noqa: E731
+    out[:, :, 0, :S] = norm[..., :S]
+    out[:, :, :, S : 2 * S] = vec(norm[..., S : 4 * S], S)
+    if V:
+        o = 4 * S
+        out[:, :, :, 2 * S : 2 * S + V] = vec(norm[..., o : o + 3 * V], V)
+        out[:, :, 0, 2 * S + V : 2 * S + 2 * V] = norm[..., o + 3 * V : o + 4 * V]
+        out[:, :, :, 2 * S + 2 * V :] = vec(norm[..., o + 4 * V :], V)
+    return out
+
+
+def conv_block_residuals_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights):
+    """What K2 saves for the backward: the normalised aggregates
+    [G, N, 3, 2S + 3V] f32 (rounded to the compute dtype) and the degree
+    [G, N] f32."""
+    norm, deg = _aggregate_plain(x, ef, bf, bond_src, bond_dst, w)
+    return _channel_major(norm, w.S, w.V), deg
+
+
+def fused_conv_block_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: the same function with the
+    same rounding points (compute dtype at the radial features, h, the
+    message weights, the normalised aggregates and the gate outputs; f32
+    products and sums everywhere else)."""
+    return _epilogue_plain(x, _aggregate_plain(x, ef, bf, bond_src, bond_dst, w)[0], w)
+
+
+def _epilogue_plain(x, norm, w: BlockWeights) -> torch.Tensor:
+    """Post-linear, gate, linear and skip on the normalised aggregates."""
+    f32, cdt = torch.float32, x.dtype
+    S, V, Sc, Vg = w.S, w.V, w.Sc, w.Vg
+    G, N, _ = x.shape
+    xf = x.to(f32)
     o1, o2 = norm[..., :S], norm[..., S : 4 * S].reshape(G, N, S, 3)
     if V:
         o3 = norm[..., 4 * S : 4 * S + 3 * V].reshape(G, N, V, 3)
@@ -146,11 +239,15 @@ def fused_conv_block_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights) -> to
     return torch.cat([out0, out1.reshape(G, N, 3 * Vg)], -1)
 
 
-def fused_conv_block(x, ef, bf, bond_src, bond_dst, w: BlockWeights) -> torch.Tensor:
+def fused_conv_block(x, ef, bf, bond_src, bond_dst, w: BlockWeights, residuals: bool = False):
     """One ConvBlock -> f32 [G, N, Sc + 3Vg]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel. With `residuals=True` also
+    returns what the backward reads: (out, aggregates [G, N, 3, 2S + 3V],
+    degree [G, N])."""
     if x.device.type == "cpu":
-        return fused_conv_block_plain(x, ef, bf, bond_src, bond_dst, w)
+        norm, deg = _aggregate_plain(x, ef, bf, bond_src, bond_dst, w)
+        out = _epilogue_plain(x, norm, w)
+        return (out, _channel_major(norm, w.S, w.V), deg) if residuals else out
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_block: unsupported device {x.device}")
     cdt = x.dtype
@@ -192,13 +289,55 @@ def fused_conv_block(x, ef, bf, bond_src, bond_dst, w: BlockWeights) -> torch.Te
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     out = torch.empty((G, N, Sc + 3 * Vg), dtype=f32, device=x.device)
+    agg = deg = None
+    if residuals:
+        agg = torch.empty((G, N, 3, W), dtype=f32, device=x.device)
+        deg = torch.empty((G, N), dtype=f32, device=x.device)
     KERNEL.launch(
         _ENTRY[cdt],
         x.data_ptr(), ef.data_ptr(), bf.data_ptr(), bond_src.data_ptr(), bond_dst.data_ptr(),
         w.w1.data_ptr(), w.b1d.data_ptr(), w.b1b.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
         w.pl0.data_ptr(), w.pl1.data_ptr(), w.lin20.data_ptr(), w.lin21.data_ptr(),
         w.sk0.data_ptr(), w.sk1.data_ptr(), out.data_ptr(),
+        agg.data_ptr() if residuals else None, deg.data_ptr() if residuals else None,
         G, N, B, S, V, Sc, Vg,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    return out
+    return (out, agg, deg) if residuals else out
+
+
+class _TrainableConvBlock(torch.autograd.Function):
+    """Forward K2 (saving its aggregates and degree), backward K4. The weight
+    inputs are the f32 masters: the cast to the compute dtype and the
+    1/sqrt(fan-in) scale happen inside, so the weight gradients stay f32 as
+    the JAX VJP returns them (`packed_conv.py:2290-2345`). The edge features
+    and bond indices get no gradient (JAX returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, x, ef, bf, bond_src, bond_dst, shape, *masters):
+        w = cast_block_weights(BlockWeights(*masters, *shape), x.dtype)
+        out, agg, deg = fused_conv_block(x, ef, bf, bond_src, bond_dst, w, residuals=True)
+        ctx.save_for_backward(x, ef, bf, bond_src, bond_dst, agg, deg, *w.tensors())
+        ctx.shape = shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ef, bf, bond_src, bond_dst, agg, deg, *wt = ctx.saved_tensors
+        w = BlockWeights(*wt, *ctx.shape)
+        grads = conv_block_bwd(g.contiguous(), x, ef, bf, bond_src, bond_dst, w, agg, deg)
+        # the VJP divides by the f32 sqrt(fan-in), as `packed_conv_block_bwd`
+        # does (`packed_conv.py:2317`), whatever the forward's rounded divisor
+        scales = linear_scales(*ctx.shape)
+        d_masters = [
+            grads[k] / scales[k] if k in scales else grads[k] for k in BlockWeights._fields[:11]
+        ]
+        return (grads["dx"].to(x.dtype), None, None, None, None, None, *d_masters)
+
+
+def conv_block_trainable(x, ef, bf, bond_src, bond_dst, masters: BlockWeights) -> torch.Tensor:
+    """`fused_conv_block` on the f32 masters of `block_master_weights`,
+    differentiable in x and every master (counterpart of
+    `make_trainable_conv_block`)."""
+    shape = (masters.S, masters.V, masters.Sc, masters.Vg)
+    return _TrainableConvBlock.apply(x, ef, bf, bond_src, bond_dst, shape, *masters.tensors())

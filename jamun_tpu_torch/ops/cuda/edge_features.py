@@ -76,7 +76,16 @@ def edge_features(
     compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ef [G, N, N, 4 + n_radial], bf [G, B, 4 + n_radial]) in compute_dtype.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+
+    The features carry no gradient to the positions: a position that
+    requires one raises (on both devices), as `packed_edge_features` refuses
+    dL/dpos, rather than dropping it silently."""
+    if pos.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "edge_features: no gradient with respect to the positions (the kernel path "
+            "trains the weights only); detach pos or run the plain path"
+        )
     cutoff = float(cutoff)
     if pos.device.type == "cpu":
         return edge_features_plain(

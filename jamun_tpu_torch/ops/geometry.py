@@ -1,11 +1,11 @@
-"""Masked mean-centering of padded [G, N, 3] batches
-(counterpart of `jamun_tpu/ops/geometry.py:mean_center`)."""
+"""Masked mean-centering and batched Kabsch alignment of padded [G, N, 3]
+batches (counterpart of `jamun_tpu/ops/geometry.py`)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mean_center"]
+__all__ = ["mean_center", "kabsch_align"]
 
 
 def mean_center(pos: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
@@ -14,3 +14,29 @@ def mean_center(pos: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
     count = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
     mean = (pos * m).sum(dim=1, keepdim=True) / count
     return (pos - mean) * m
+
+
+def kabsch_align(y: torch.Tensor, x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """Rigidly align each graph of y onto the same graph of x (the rotation
+    and translation that minimise the masked RMSD), reflections removed.
+    Returns the aligned y with padded atoms zeroed.
+
+    R = V diag(1, 1, det(V U^T)) U^T from the SVD of the 3x3 covariance. A
+    solver may return U and V with other column signs than LAPACK's; R does
+    not depend on them while the singular values are distinct."""
+    m = node_mask[..., None].to(y.dtype)
+    count = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+    x_mu = (x * m).sum(dim=1, keepdim=True) / count
+    y_mu = (y * m).sum(dim=1, keepdim=True) / count
+    x_c = (x - x_mu) * m
+    y_c = (y - y_mu) * m
+
+    H = torch.einsum("gni,gnj->gij", y_c, x_c)
+    U, _, Vh = torch.linalg.svd(H)
+    det = torch.linalg.det(torch.einsum("gki,gjk->gij", Vh, U))
+    signs = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    R = torch.einsum("gki,gk,gjk->gij", Vh, signs, U)
+
+    Ry = torch.einsum("gij,gnj->gni", R, y)
+    t = x_mu - torch.einsum("gij,gnj->gni", R, y_mu)
+    return (Ry + t) * m

@@ -45,6 +45,9 @@ class MulIrrep(Tuple[int, Irrep]):
     def __new__(cls, mul: int, ir: Irrep):
         return super().__new__(cls, (mul, ir))
 
+    def __getnewargs__(self):  # copy and pickle (modules are deep-copied for the EMA)
+        return (self.mul, self.ir)
+
     @property
     def mul(self) -> int:
         return self[0]

@@ -5,16 +5,19 @@ Run on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`
 (`tests/conftest.py` imports JAX, which that machine need not have).
 
-Tolerance (max |kernel - plain| / max |plain|): f32 1e-4 (summation order
-only), bf16 3e-2 (an f32 sum that differs in its last bits can round an
-intermediate to the neighbouring bf16 value).
+Tolerance (max |kernel - plain| / max |plain|, per output or gradient
+leaf): f32 1e-4 (summation order only), bf16 3e-2 (an f32 sum that differs
+in its last bits can round an intermediate to the neighbouring bf16 value).
 """
+
+import copy
 
 import pytest
 import torch
 
 from jamun_tpu_torch.models.e3conv import E3Conv
 from jamun_tpu_torch.ops.cuda import conv_block as k2
+from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
 from jamun_tpu_torch.ops.cuda import edge_features as k1
 from jamun_tpu_torch.utils.testing import make_test_batch
 
@@ -54,3 +57,61 @@ def test_kernels_match_plain_twins(cuda, cdt):
         args = (x, ef, bf, batch.bond_src, batch.bond_dst, w)
         assert _rel(k2.fused_conv_block(*args), k2.fused_conv_block_plain(*args)) <= TOL[cdt]
     assert (k1.KERNEL.launches - n1, k2.KERNEL.launches - n2) == (1, 2)
+
+
+def _small(cuda, cdt):
+    batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
+                            max_bonds=40, device=cuda)
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
+    return batch, model, k1.edge_features(*geo, cdt)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_block_bwd_matches_plain_twin(cuda, cdt):
+    """K4 (and K2's residual outputs) against the plain twins, projector and
+    hidden block."""
+    batch, model, (ef, bf) = _small(cuda, cdt)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n4 = k4.KERNEL.launches
+    for blk, (S, V) in ((model.ConvBlock_0, (56, 0)), (model._HiddenLayer_0.ConvBlock_0, (24, 8))):
+        conv = blk.Conv_0
+        with torch.no_grad():
+            w = k2.pack_block_weights(
+                conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
+                model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V, cdt=cdt,
+            )
+            x = torch.randn((3, 19, S + 3 * V), generator=gen, device=cuda).to(cdt)
+            fwd = (x, ef, bf, batch.bond_src, batch.bond_dst, w)
+            out, agg, deg = k2.fused_conv_block(*fwd, residuals=True)
+            agg_p, deg_p = k2.conv_block_residuals_plain(*fwd)
+            assert _rel(agg, agg_p) <= TOL[cdt] and torch.equal(deg, deg_p)
+            g = torch.randn(out.shape, generator=gen, device=cuda)
+            args = (g, x, ef, bf, batch.bond_src, batch.bond_dst, w, agg, deg)
+            got, want = k4.conv_block_bwd(*args), k4.conv_block_bwd_plain(*args)
+        for name, ref in want.items():
+            if ref.numel():
+                assert _rel(got[name], ref) <= TOL[cdt], name
+    assert k4.KERNEL.launches - n4 == 2
+
+
+def test_trainable_block_grads_match_cpu(cuda):
+    """`ConvBlock.fused` under autograd on the card (K2 + K4) against the same
+    block on the CPU (plain twins), f32: x and every parameter."""
+    batch, model, (ef, bf) = _small(cuda, torch.float32)
+    blk = model._HiddenLayer_0.ConvBlock_0
+    x = torch.randn((3, 19, 48), generator=torch.Generator().manual_seed(2))
+    cot = torch.randn((3, 19, 48), generator=torch.Generator().manual_seed(3))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        b = blk if dev.type == "cuda" else copy.deepcopy(blk).cpu()
+        b.zero_grad(set_to_none=True)
+        bond = model.embed_bondedness.detach().to(dev)
+        xd = x.to(dev).requires_grad_()
+        out = b.fused(xd, ef.to(dev), bf.to(dev), batch.bond_src.to(dev), batch.bond_dst.to(dev),
+                      bond[0], bond[1])
+        (out * cot.to(dev)).sum().backward()
+        grads.append({"x": xd.grad.cpu(), **{n: q.grad.cpu() for n, q in b.named_parameters()}})
+    assert set(grads[0]) == set(grads[1]) and len(grads[0]) == 16
+    for name, ref in grads[1].items():
+        assert _rel(grads[0][name], ref) <= TOL[torch.float32], name

@@ -179,3 +179,43 @@ def test_device_rule_and_unported_shapes():
         E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="uvw", device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 7"):
         E3Conv(**ARCH, neighbor_mode="nbr", device="cpu")
+
+
+def test_kernel_path_head_matches_jax_bf16():
+    """The EquivariantMLP head of the bf16 kernel path against JAX's
+    `E3Conv._transposed_head` (the head of its chained kernel path) at
+    N = 8, `16x0e + 8x1e`, one hidden layer. Both sides round at the same
+    points (inputs, weights, divisor, every product and activation in bf16),
+    so the outputs are equal bit for bit; the f32 head the port ran before
+    differs by about one bf16 step. The whole bf16 E3Conv cannot be held to
+    JAX here: JAX on the CPU refuses the bf16 x bf16 -> f32 products of its
+    interpret-mode kernels."""
+    from jamun_tpu.ops.irreps import Irreps as JIrreps
+
+    arch_kw = dict(irreps_hidden="16x0e + 8x1e", n_layers=1, tensor_product="uvu")
+    S, V, N = 16, 8, 8
+    jb = j_make_test_batch(num_graphs=2, max_nodes=N, max_bonds=16, scale=0.35)
+    jm = JE3Conv(**arch_kw, use_pallas=True, dtype=jnp.bfloat16)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jb, jnp.zeros((1,)), 1.2)
+    rng = np.random.default_rng(5)
+    params = jax.tree.map(
+        lambda p: jnp.asarray(np.asarray(p) + 0.3 * rng.standard_normal(np.shape(p)).astype(np.float32)),
+        params,
+    )
+    x = rng.standard_normal((2, N, S + 3 * V)).astype(np.float32)
+    xT = np.zeros((2, 16 + 3 * 16, N), np.float32)  # kernel-native [G, Sp + 3Vp, N]
+    xT[:, :S] = x[..., :S].transpose(0, 2, 1)
+    xv = x[..., S:].reshape(2, N, V, 3)
+    for c in range(3):
+        xT[:, 16 + 16 * c : 16 + 16 * c + V] = xv[..., c].transpose(0, 2, 1)
+    want = jm.apply(params, jnp.asarray(xT), JIrreps("16x0e + 8x1e"), JIrreps("1x1e"),
+                    method=JE3Conv._transposed_head)
+    assert want.dtype == jnp.bfloat16
+    arch = E3Conv(**arch_kw, dtype=torch.bfloat16, device="cpu")
+    arch.load_state_dict(from_jax_params(params), strict=True)
+    with torch.no_grad():
+        got = arch._kernel_head(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert np.abs(want).max() > 0.1
