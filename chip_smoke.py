@@ -8,18 +8,29 @@ Phases (any failure exits non-zero; nothing is caught):
      source, started together) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at the
      flagship width (hidden 120x0e + 32x1e, projector 56x0e) and the walk's
-     shapes (N = 44, G = 256 and N = 112, G = 128), in bf16 and f32, and time
-     kernel and plain version with CUDA events;
-  3. drive the main path, walk-jump sampling through the port's entry points
-     (E3Conv -> Denoiser.score -> BAOAB walk -> fused jump), at full flagship
-     width with random weights from a seed: 4AA (N = 44, G = 256, 101 steps)
-     and 5AA (N = 112, G = 128, 101 steps); launch counts are zeroed just
-     before and read just after, and must show K1 once and K2 six times per
-     score call;
-  4. check the output: finite, the expected shape, the kernel path's score
-     against the CPU plain path on a small input, and E(3) equivariance;
-     a torch.profiler trace of a short 4AA walk (device time by kernel,
-     device busy share);
+     shapes, in bf16 and f32, and time kernel and plain version with CUDA
+     events: the edge features and the ConvBlock at N = 44, G = 256 and
+     N = 112, G = 128; the whole-model kernel at 4AA (N = 44, G = 256), 2AA
+     (N = 19, G = 256) and one batch of sizes [44, 41], also against the
+     layerwise kernel path on the same weights;
+  3. drive the main paths at full flagship width with random weights from a
+     seed, launch counts zeroed just before each and read just after:
+     (a) the stack path through the sampling loop, `Sampler.sample` ->
+     `SingleMeasurementSampler` -> BAOAB -> `Denoiser.score` ->
+     `E3Conv(fused_stack=True)` -> the whole-model kernel: 4AA and 2AA,
+     G = 256, two continued batches of 101 steps, then a short ABOBA walk
+     (unfused jump) and a chunked host-offload walk; K3 must launch once per
+     denoiser call and K1 and K2 not at all;
+     (b) the layerwise path, E3Conv -> Denoiser.score -> BAOAB walk -> fused
+     jump: 4AA (N = 44, G = 256, 101 steps, the comparison) and 5AA (N = 112,
+     G = 128, 101 steps, beyond the whole-model kernel); K1 once and K2 six
+     times per score call, K3 not at all;
+  4. check the output: finite, the expected shape, both kernel paths' f32
+     score against the CPU plain path on a small input, and E(3)
+     equivariance of both; a short walk on each path with PyTorch's sync
+     debug mode set to raise (no step waits for the device); torch.profiler traces of a short 4AA walk on
+     each path (device time by kernel, device busy share, device ops per
+     forward);
   5. training: K4 (the ConvBlock backward) against its plain version for
      the projector and a hidden block at the training shape (G = 32, N = 48,
      44 atoms) and at N = 112 (G = 32), bf16 and f32, timed; then the second
@@ -42,6 +53,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SIGMA = 0.04
@@ -125,8 +137,8 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
         for cdt in (torch.bfloat16, torch.float32):
             tag = f"{label} N={N} G={G} {str(cdt).split('.')[-1]}"
             ef, bf = k1.edge_features(*geo, cdt)
-            n_dense = int(ef[..., 3].sum())
-            n_pairs = n_dense + int(bf[..., 3].sum())
+            n_dense = int(ef[..., 3].sum(dtype=torch.float32))
+            n_pairs = n_dense + int(bf[..., 3].sum(dtype=torch.float32))
             model = models[cdt]
             for block_name, blk, S, V in (
                 ("projector", model.ConvBlock_0, 56, 0),
@@ -194,6 +206,101 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
                 del got, want, out, agg, deg, agg_p, deg_p
             del ef, bf
+            torch.cuda.empty_cache()
+    return rows
+
+
+def stack_flops_bytes(args, n_pairs: int, out: torch.Tensor):
+    """The operations and bytes one whole forward needs on these inputs:
+    the ConvBlock count of phase 2 over the projector and the hidden blocks
+    at the run's visited pairs plus the head's products; positions,
+    embedding, bonds, masks, every weight once and the output."""
+    pos, node_mask, bond_src, bond_dst, bond_mask, _, nf0, proj_w, layers_w, scales, skipw, head = args[:12]
+    G, N = pos.shape[:2]
+    L = scales.shape[0]
+    S, V = proj_w.Sc, proj_w.Vg
+
+    def block(s_in, v_in):
+        return 2 * n_pairs * (32 * 64 + 64 * (2 * s_in + 3 * v_in)) + 2 * G * N * (
+            (s_in + v_in) * (S + V) + 3 * (s_in + 2 * v_in) * V + S * S + 3 * V * V
+            + s_in * S + 3 * v_in * V
+        )
+
+    C0o, V1o = head.f0.shape[1], head.f1.shape[1]
+    head_flops = 2 * G * N * (S * S + S * V + 3 * V * V + S * C0o + 3 * V * V1o)
+    flops = block(proj_w.S, 0) + L * block(S, V) + head_flops
+    tensors = [pos, node_mask, bond_src, bond_dst, bond_mask, nf0, scales, skipw, out,
+               *proj_w.tensors(), *layers_w.tensors(), *head[:5]]
+    return flops, sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_e3_stack(k1, k3, models, stack_models, dev, c_in: float, c_noise: float, cutoff: float) -> list:
+    """Phase 2, K3: the whole-model kernel against its plain version at the
+    4AA and 2AA walk shapes and on one batch of mixed sizes, bf16 and f32,
+    and the stack model against the layerwise kernel path (K1, six K2, the
+    layerwise head) on the same weights."""
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    shapes = {"4AA": (44, [44] * 256), "2AA": (19, [19] * 256), "mixed": (44, [44, 41])}
+    launch_shapes = {}
+    for N in (44, 19):  # the kernel's own split of a graph over its cluster, and 8 atoms per CTA
+        launch_shapes[N] = {a: k3.launch_shape(N, 2 * N, 120, 32, 56, a) for a in (0, 8)}
+        log(f"phase 2: K3 launch shape at N={N}: {launch_shapes[N][0]}; "
+            f"with 8 atoms per CTA: {launch_shapes[N][8]}")
+    layerwise_tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+    c_noise_t = torch.full((1,), c_noise, dtype=torch.float32, device=dev)
+    rows = []
+    for label, (N, nodes) in shapes.items():
+        G = len(nodes)
+        batch = make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
+                                scale=0.35, device=dev)
+        scaled = batch.replace_pos((batch.pos * c_in).contiguous())
+        for cdt in (torch.bfloat16, torch.float32):
+            tag = f"{label} N={N} G={G} {str(cdt).split('.')[-1]}"
+            model = stack_models[cdt]
+            nf0 = model.NoiseConditionalScaling_0(
+                model.AtomEmbeddingWithResidueInformation_0(scaled), c_noise_t
+            )
+            args = model._stack_args(scaled, nf0, c_noise_t, cutoff)
+            got = k3.e3conv_stack(*args)
+            want = k3.e3conv_stack_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), f"K3 {tag}: non-finite output"
+            abs_e, rel_e = rel_err(got, want)
+            assert rel_e <= TOL[cdt], f"K3 {tag}: rel err {rel_e:.3g} > {TOL[cdt]}"
+            assert model._stack_ok(scaled, c_noise_t)
+            whole = model(scaled, c_noise_t, cutoff)
+            layerwise = models[cdt](scaled, c_noise_t, cutoff)
+            lw_abs, lw_rel = rel_err(whole, layerwise)
+            assert lw_rel <= layerwise_tol[cdt], (
+                f"K3 {tag}: stack vs layerwise kernel path rel err {lw_rel:.3g} > {layerwise_tol[cdt]}"
+            )
+            ef, bf = k1.edge_features(*args[:6], 32, cdt)
+            n_pairs = int(ef[..., 3].sum(dtype=torch.float32)) + int(bf[..., 3].sum(dtype=torch.float32))
+            del ef, bf
+            flops, nbytes = stack_flops_bytes(args, n_pairs, got)
+            t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            timed = label != "mixed"
+            row = dict(
+                shape=tag, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
+                layerwise_rel_err=lw_rel, layerwise_abs_err=lw_abs, layerwise_tol=layerwise_tol[cdt],
+                ms=cuda_time_ms(lambda: k3.e3conv_stack(*args), 10) if timed else None,
+                ms_8_atoms_per_cta=(
+                    cuda_time_ms(lambda: k3.e3conv_stack(*args, atoms_per_cta=8), 10) if timed else None
+                ),
+                launch_shape=launch_shapes[N],
+                plain_ms=cuda_time_ms(lambda: k3.e3conv_stack_plain(*args), 2) if timed else None,
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                visited_pairs=n_pairs, flops=flops, bytes=nbytes, dtype=str(cdt), N=N, G=G, label=label,
+            )
+            rows.append(row)
+            times = (f"kernel {row['ms']:.4f} ms ({row['ms_8_atoms_per_cta']:.4f} ms with 8 atoms "
+                     f"per CTA), plain {row['plain_ms']:.4f} ms, " if timed else "")
+            log(f"phase 2: K3 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}); "
+                f"vs layerwise kernel path rel {lw_rel:.3g} (tol {layerwise_tol[cdt]}); {times}"
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+            del got, want, whole, layerwise
             torch.cuda.empty_cache()
     return rows
 
@@ -332,8 +439,30 @@ def check_train_gradients(dev) -> float:
     return errs[worst]
 
 
-def profile_walk(den, batch, dev, steps: int) -> dict:
-    """torch.profiler over a short walk."""
+def check_walk_never_waits(den, batch, dev, label: str) -> None:
+    """A short walk under PyTorch's sync debug mode set to raise: no step may
+    make the host wait for the device (a copy from pageable host memory, an
+    `.item()`), or the host could not queue the next forward while the
+    kernels of this one run."""
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    sampler = SingleMeasurementSampler(
+        BAOAB(MCMCConfig(delta=0.04, steps=4, score_fn_clip=100.0)), SIGMA
+    )
+    g = torch.Generator(device=dev).manual_seed(6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sampler.walk_jump(den, batch, batch.pos, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"phase 4: {label} walk: no step makes the host wait for the device")
+
+
+def profile_walk(den, batch, dev, steps: int, label: str) -> dict:
+    """torch.profiler over a short walk (steps + 1 denoiser forwards)."""
     from torch.profiler import ProfilerActivity, profile
 
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
@@ -349,7 +478,101 @@ def profile_walk(den, batch, dev, steps: int) -> dict:
         sampler.walk_jump(den, batch, batch.pos, g)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return device_profile(prof, f"{steps}-step walk", wall_us, 12)
+    out = device_profile(prof, f"{label} {steps}-step walk", wall_us, 12)
+    out["device_ops_per_forward"] = out["device_ops"] / (steps + 1)
+    log(f"profile:   {out['device_ops_per_forward']:.1f} device ops per denoiser forward")
+    return out
+
+
+class BatchTimes:
+    """Sampler callback: the seconds each sample batch took."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def on_after_sample_batch(self, sample, sampler, elapsed_seconds, neighbor_overflow):
+        self.seconds.append(elapsed_seconds)
+
+
+def check_samples(samples: list, G: int, N: int, frames: int, label: str) -> None:
+    """What `unbatch_samples` returned for one batch: one dict per graph,
+    trajectories [atoms, frames, 3] and final states [atoms, 3], all finite."""
+    assert len(samples) == G, (label, len(samples))
+    for entry in samples:
+        assert entry["num_atoms"] == N, (label, entry["num_atoms"])
+        for key in ("y_traj", "score_traj", "xhat_traj"):
+            assert entry[key].shape == (N, frames, 3), (label, key, entry[key].shape)
+        for key in ("y", "v", "xhat", "sample"):
+            assert entry[key].shape == (N, 3), (label, key, entry[key].shape)
+        for key, value in entry.items():
+            if hasattr(value, "shape"):
+                assert np.isfinite(value).all(), f"{label}: non-finite {key}"
+
+
+def stack_walks(den, batches: dict, dev, card: str):
+    """Phase 3a: the stack main path through `Sampler.sample`: two continued
+    101-step BAOAB batches at 4AA and 2AA, a short ABOBA walk (unfused jump)
+    and a chunked host-offload walk at 4AA. Returns the walks' numbers and
+    the number of denoiser calls made (one K3 launch each)."""
+    from jamun_tpu_torch.sampling.mcmc import ABOBA, BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.sampler import Sampler
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    def cfg(steps):
+        return MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=steps, save_every_n_steps=1,
+                          score_fn_clip=100.0)
+
+    walks, calls = {}, 0
+    steps, num_batches = 101, 2
+    for label in ("4AA", "2AA"):
+        batch = batches[label]
+        G, N = batch.pos.shape[:2]
+        times = BatchTimes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = Sampler(callbacks=[times], device=dev).sample(
+            den, SingleMeasurementSampler(BAOAB(cfg(steps)), SIGMA), num_batches, batch,
+            continue_chain=True, seed=2,
+        )
+        dt = time.perf_counter() - t0
+        calls += num_batches * (steps + 1)  # initial score, steps - 1 updates, the final jump
+        assert len(out) == num_batches
+        for samples in out:
+            check_samples(samples, G, N, steps, label)
+        walk_s = sum(times.seconds)
+        walks[f"{label}_stack"] = dict(
+            N=N, G=G, steps=steps, batches=num_batches, frames=steps, seconds=dt,
+            walk_seconds=times.seconds, ms_per_step=walk_s * 1e3 / (num_batches * steps),
+            ms_per_sample=walk_s * 1e3 / (num_batches * G * steps),
+        )
+        log(f"phase 3: stack walk-jump {label} N={N} G={G}, {num_batches} continued batches of "
+            f"{steps} steps through Sampler.sample: walks {walk_s:.3f} s "
+            f"({' '.join(f'{t:.3f}' for t in times.seconds)}), with unbatching {dt:.3f} s, "
+            f"{walks[f'{label}_stack']['ms_per_sample']:.6f} ms/sample, "
+            f"{walks[f'{label}_stack']['ms_per_step']:.3f} ms/step on {card}")
+
+    batch = batches["4AA"]
+    G, N = batch.pos.shape[:2]
+    # ABOBA: the saved score is the midpoint's, so every frame is jumped again
+    steps, per_call = 11, 4
+    out = Sampler(device=dev).sample(
+        den, SingleMeasurementSampler(ABOBA(cfg(steps)), SIGMA, jump_chunk_size=per_call), 1,
+        batch, seed=3,
+    )
+    check_samples(out[0], G, N, steps, "ABOBA")
+    calls += 1 + (steps - 1) + 1 + math.ceil(steps / per_call)  # frame 0, updates, final, jumps
+    log(f"phase 3: ABOBA 4AA {steps} steps, unfused jump {per_call} frames per call: ok")
+    # host offload: 40 updates in chunks of 16, 16 and 8, frames on the grid of 41
+    steps, chunk = 41, 16
+    out = Sampler(device=dev).sample(
+        den, SingleMeasurementSampler(BAOAB(cfg(steps)), SIGMA, offload_chunk_steps=chunk), 1,
+        batch, seed=4,
+    )
+    check_samples(out[0], G, N, steps, "chunked")
+    n_chunks = math.ceil((steps - 1) / chunk)
+    calls += (steps - 1) + 2 * n_chunks  # every update, and a first score and a jump per chunk
+    log(f"phase 3: chunked 4AA {steps} steps, offload every {chunk}: {steps} frames on the grid: ok")
+    return walks, calls
 
 
 def main() -> int:
@@ -363,6 +586,7 @@ def main() -> int:
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import conv_block as k2
     from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
+    from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda.build import build_all
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
@@ -378,7 +602,7 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    logs = build_all([k1.KERNEL.name, k2.KERNEL.name, k4.KERNEL.name])
+    logs = build_all([k.KERNEL.name for k in (k1, k2, k3, k4)])
     log(f"phase 1: built {list(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -386,16 +610,17 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
-    c_in = normalization_factors(SIGMA, config.average_squared_distance)[0]
-    models = {
-        cdt: E3Conv(dtype=cdt, device=dev, seed=0) for cdt in (torch.bfloat16, torch.float32)
-    }
-    for m in models.values():
+    c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
+    dtypes = (torch.bfloat16, torch.float32)
+    models = {cdt: E3Conv(dtype=cdt, device=dev, seed=0) for cdt in dtypes}
+    # the same weights (the same seed) with the whole-model kernel on
+    stack_models = {cdt: E3Conv(dtype=cdt, fused_stack=True, device=dev, seed=0) for cdt in dtypes}
+    for m in (*models.values(), *stack_models.values()):
         m.output_gain.data.fill_(1.0)
         m.requires_grad_(False)
     cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(SIGMA) / c_in
 
-    sizes = {"4AA": (44, 256), "5AA": (112, 128)}
+    sizes = {"4AA": (44, 256), "5AA": (112, 128), "2AA": (19, 256)}
     batches = {
         label: make_test_batch(
             num_graphs=G, max_nodes=N, nodes_per_graph=[N] * G, max_bonds=2 * N, scale=0.35,
@@ -407,7 +632,8 @@ def main() -> int:
     # ---- phase 2: each kernel against its plain version ----
     results = {"edge_features": [], "conv_block": []}
     gen = torch.Generator(device=dev).manual_seed(1)
-    for label, batch in batches.items():
+    for label in ("4AA", "5AA"):
+        batch = batches[label]
         G, N = batch.pos.shape[:2]
         pos = (batch.pos * c_in).contiguous()
         geo = (pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, cutoff, 32)
@@ -419,8 +645,8 @@ def main() -> int:
             abs_e, rel_e = map(max, zip(rel_err(ef, ef_p), rel_err(bf, bf_p)))
             assert adj_mismatch == 0, f"K1 {tag}: {adj_mismatch} adjacency entries differ"
             assert rel_e <= TOL[cdt], f"K1 {tag}: rel err {rel_e:.3g} > {TOL[cdt]}"
-            n_dense = int(ef[..., 3].sum())
-            n_pairs = n_dense + int(bf[..., 3].sum())
+            n_dense = int(ef[..., 3].sum(dtype=torch.float32))
+            n_pairs = n_dense + int(bf[..., 3].sum(dtype=torch.float32))
             k1_bytes = (
                 pos.numel() * 4 + batch.node_mask.numel() + batch.bond_src.numel() * 16
                 + batch.bond_mask.numel() + (ef.numel() + bf.numel()) * ef.element_size()
@@ -482,13 +708,27 @@ def main() -> int:
             del ef, bf, ef_p, bf_p
             torch.cuda.empty_cache()
 
-    # ---- phase 3: the main path, walk-jump at full flagship width ----
+    results["e3_stack"] = check_e3_stack(k1, k3, models, stack_models, dev, c_in, c_noise, cutoff)
+
+    # ---- phase 3: the main paths, walk-jump at full flagship width ----
+    # (a) the stack path through `Sampler.sample`
+    den_stack = Denoiser(stack_models[torch.bfloat16], config)
+    for k in (k1, k2, k3):
+        k.KERNEL.launches = 0
+    walks, stack_calls = stack_walks(den_stack, batches, dev, card)
+    launches = {"e3_stack": k3.KERNEL.launches}
+    log(f"phase 3: stack path launches {launches} over {stack_calls} denoiser calls; "
+        f"K1 {k1.KERNEL.launches}, K2 {k2.KERNEL.launches}")
+    assert launches["e3_stack"] == stack_calls, (launches, stack_calls)
+    assert k1.KERNEL.launches == 0 and k2.KERNEL.launches == 0
+
+    # (b) the layerwise path (4AA for comparison; 5AA is beyond the stack kernel)
     den = Denoiser(models[torch.bfloat16], config)
-    walks = {}
-    k1.KERNEL.launches = 0
-    k2.KERNEL.launches = 0
+    for k in (k1, k2, k3):
+        k.KERNEL.launches = 0
     score_calls = 0
-    for label, batch in batches.items():
+    for label in ("4AA", "5AA"):
+        batch = batches[label]
         G, N = batch.pos.shape[:2]
         steps = 101
         mcmc = BAOAB(MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=steps,
@@ -512,10 +752,12 @@ def main() -> int:
                             ms_per_step=dt * 1e3 / steps, ms_per_sample=ms_per_sample)
         log(f"phase 3: walk-jump {label} N={N} G={G} steps={steps}: {dt:.3f} s, "
             f"{ms_per_sample:.6f} ms/sample, {dt * 1e3 / steps:.3f} ms/step on {card}")
-    launches = {"edge_features": k1.KERNEL.launches, "conv_block": k2.KERNEL.launches}
-    log(f"phase 3: launches {launches} over {score_calls} score calls")
+    launches.update(edge_features=k1.KERNEL.launches, conv_block=k2.KERNEL.launches)
+    log(f"phase 3: layerwise path launches K1 {launches['edge_features']}, "
+        f"K2 {launches['conv_block']} over {score_calls} score calls")
     assert launches["edge_features"] == score_calls, launches
     assert launches["conv_block"] == 6 * score_calls, launches
+    assert k3.KERNEL.launches == 0
 
     # ---- phase 4: the output against references ----
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
@@ -524,31 +766,39 @@ def main() -> int:
     ref_model.load_state_dict(models[torch.float32].state_dict())
     ref_model.requires_grad_(False)
     with torch.no_grad():
-        s_card = Denoiser(models[torch.float32], config).score(small, SIGMA)
         s_cpu = Denoiser(ref_model, config).score(small.to("cpu"), SIGMA)
-    abs_e, rel_e = rel_err(s_card.cpu(), s_cpu)
-    log(f"phase 4: f32 score, kernel path on the card vs plain path on the CPU: "
-        f"max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol 1e-3)")
-    assert rel_e < 1e-3
-
     q, r = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator().manual_seed(5)))
     R = (q * torch.sign(torch.diagonal(r))).to(dev)
     if torch.det(R) < 0:
         R = -R
     shift = torch.tensor([0.3, -0.2, 0.5], device=dev)
     mask = small.node_mask[..., None].float()
-    for cdt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
-        d = Denoiser(models[cdt], config)
+    for path, by_dtype in (("layerwise", models), ("stack", stack_models)):
+        before = (k1.KERNEL.launches, k3.KERNEL.launches)
         with torch.no_grad():
-            s = d.score(small, SIGMA)
-            s_rot = d.score(small.replace_pos((small.pos @ R.T + shift) * mask), SIGMA)
-        err = ((s_rot - (s @ R.T - shift / SIGMA**2) * mask).abs().max() / s.abs().max()).item()
-        log(f"phase 4: E(3) check {str(cdt).split('.')[-1]}: "
-            f"|score(Ry+t) - (R score(y) - t/sigma^2)| / max|score| = {err:.3g} (tol {tol})")
-        assert err < tol
+            s_card = Denoiser(by_dtype[torch.float32], config).score(small, SIGMA)
+        abs_e, rel_e = rel_err(s_card.cpu(), s_cpu)
+        log(f"phase 4: f32 score, {path} kernel path on the card vs plain path on the CPU: "
+            f"max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol 1e-3)")
+        assert rel_e < 1e-3
+        for cdt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+            d = Denoiser(by_dtype[cdt], config)
+            with torch.no_grad():
+                s = d.score(small, SIGMA)
+                s_rot = d.score(small.replace_pos((small.pos @ R.T + shift) * mask), SIGMA)
+            err = ((s_rot - (s @ R.T - shift / SIGMA**2) * mask).abs().max() / s.abs().max()).item()
+            log(f"phase 4: E(3) check, {path} path, {str(cdt).split('.')[-1]}: "
+                f"|score(Ry+t) - (R score(y) - t/sigma^2)| / max|score| = {err:.3g} (tol {tol})")
+            assert err < tol
+        # five score calls, each through this path's kernels and not the other's
+        used = (k1.KERNEL.launches - before[0], k3.KERNEL.launches - before[1])
+        assert used == ((5, 0) if path == "layerwise" else (0, 5)), (path, used)
 
-    walk_profile = profile_walk(den, batches["4AA"], dev, steps=6)
-    del batches, den
+    check_walk_never_waits(den, batches["4AA"], dev, "layerwise 4AA")
+    check_walk_never_waits(den_stack, batches["4AA"], dev, "stack 4AA")
+    walk_profile = profile_walk(den, batches["4AA"], dev, 6, "layerwise 4AA")
+    stack_profile = profile_walk(den_stack, batches["4AA"], dev, 6, "stack 4AA")
+    del batches, den, den_stack
     torch.cuda.empty_cache()
 
     # ---- phase 5: training, the ConvBlock backward ----
@@ -565,10 +815,12 @@ def main() -> int:
     k2_main = main_row(results["conv_block"], N=44, dtype=str(torch.bfloat16), block="hidden")
     k4_main = main_row(results["conv_block_bwd"], label="train", dtype=str(torch.bfloat16),
                        block="hidden")
+    k3_main = main_row(results["e3_stack"], label="4AA", dtype=str(torch.bfloat16))
     kernels = []
     for name, main, replaces in (
         ("edge_features", k1_main, "jamun_tpu/ops/pallas/packed_conv.py:806"),
         ("conv_block", k2_main, "jamun_tpu/ops/pallas/packed_conv.py:1495"),
+        ("e3_stack", k3_main, "jamun_tpu/ops/pallas/e3_stack.py:367"),
         ("conv_block_bwd", k4_main, "jamun_tpu/ops/pallas/packed_conv.py:2220"),
     ):
         kernels.append(dict(
@@ -579,6 +831,7 @@ def main() -> int:
             bound_by=main["bound_by"], library_ms=None,
         ))
     report = dict(card=card, compare=results, walks=walks, walk_profile=walk_profile,
+                  stack_walk_profile=stack_profile,
                   launches=launches, train=train, train_grad_rel_err=grad_err)
     if out_path:
         with open(out_path, "w") as f:

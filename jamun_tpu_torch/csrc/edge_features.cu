@@ -19,34 +19,32 @@
 // wrote 72-byte strided rows and ran at 22x the bound); each thread
 // recomputes its pair's distance, which is cheaper than the traffic it saves.
 //
-// Formulas (as _geom_radial_rows): dist = sqrt(d2 + 1e-12),
-// sh = sqrt(3) * d / max(dist, 1e-12), step = cutoff / (NR + 1),
-// radial_k = exp(-((dist - (k + 1) * step) / step)^2) / 1.12,
-// adj = (dist < cutoff) & mask_i & mask_j & (i != j). Built with
-// --fmad=false, so the distance (and the cutoff test) rounds as the plain
-// version's does.
+// Formulas (as _geom_radial_rows) in edge_geometry.cuh;
+// adj = (dist < cutoff) & mask_i & mask_j & (i != j). The geometry uses
+// rounded intrinsics and the source is built with --fmad=false, so the
+// distance (and the cutoff test) rounds as the plain version's does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_geometry.cuh"
+
 namespace {
+
+using edge_geometry::pair_dist;
+using edge_geometry::radial_basis;
+using edge_geometry::sh_component;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // channel ch of an edge with vector (dx, dy, dz) and flag (adjacency or mask)
 __device__ float feature(int ch, float dx, float dy, float dz, float flag, float cutoff, int nr) {
-  const float kSqrt3 = 1.7320508075688772f;
-  float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
+  float dist = pair_dist(dx, dy, dz);
   if (ch == 3) return flag;
-  if (ch < 3) {
-    float d = ch == 0 ? dy : (ch == 1 ? dz : dx);
-    return kSqrt3 * d * (1.0f / fmaxf(dist, 1e-12f));
-  }
-  float step = cutoff / (float)(nr + 1);
-  float diff = (dist - (float)(ch - 3) * step) / step;
-  return expf(-(diff * diff)) * (1.0f / 1.12f);
+  if (ch < 3) return sh_component(ch == 0 ? dy : (ch == 1 ? dz : dx), dist);
+  return radial_basis(ch - 4, dist, cutoff, nr);
 }
 
 template <typename T>
@@ -72,8 +70,7 @@ __global__ void edge_features_kernel(const float* __restrict__ pos,
       float dx = pj[0] - pi[0], dy = pj[1] - pi[1], dz = pj[2] - pi[2];
       float flag = 0.0f;
       if (ch == 3) {
-        float dist = sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
-        flag = (dist < cutoff && i != j && node_mask[g * N + i] && node_mask[g * N + j])
+        flag = (pair_dist(dx, dy, dz) < cutoff && i != j && node_mask[g * N + i] && node_mask[g * N + j])
                    ? 1.0f : 0.0f;
       }
       store(ef + idx, feature(ch, dx, dy, dz, flag, cutoff, nr));

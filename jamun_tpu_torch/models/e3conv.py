@@ -5,8 +5,13 @@ configuration. Parameters carry the flax names (`ConvBlock_0`,
 `_HiddenLayer_k`, `EquivariantMLP_0`, ...), so `params.from_jax_params`
 maps a JAX param tree onto this module one to one.
 
-Two ways through the forward:
-  - the kernel path (the default): edge features once per forward
+Three ways through the forward:
+  - `fused_stack=True`, for calls that nothing differentiates (the walk):
+    the whole forward after the atom embedding in one launch
+    (`ops/cuda/e3_stack`, K3) at N <= 64 and one noise level. Under
+    autograd, at N > 64 or outside K3's shapes the call takes the layerwise
+    kernel path below, as JAX's `E3Conv` dispatches (`_stack_ok`).
+  - the layerwise kernel path (the default): edge features once per forward
     (`ops/cuda/edge_features`, K1), then every ConvBlock as one fused block
     (`ops/cuda/conv_block`, K2): the projector and each hidden layer. On the
     card these are the hand-written CUDA kernels, on the CPU their plain
@@ -35,6 +40,7 @@ from jamun_tpu_torch.models.noise_conditioning import (
 )
 from jamun_tpu_torch.ops.conv import ConvBlock
 from jamun_tpu_torch.ops.cuda import conv_block as k2
+from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
 from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data
 from jamun_tpu_torch.ops.irreps import Irreps
@@ -49,8 +55,11 @@ MAX_KERNEL_ATOMS = 128  # the layerwise kernels' range (N > 128: ROADMAP.md queu
 
 
 def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
-    """The l=1 component order (y, z, x) -> (x, y, z)."""
-    return f[..., [2, 0, 1]]
+    """The l=1 component order (y, z, x) -> (x, y, z). Built from slices: an
+    index list would become an index tensor copied from the host at every
+    call, and on the card that copy waits for the whole forward queued
+    before it, so the host could never run ahead of the device."""
+    return torch.cat([f[..., 2:3], f[..., 0:2]], dim=-1)
 
 
 class _HiddenLayer(nn.Module):
@@ -84,10 +93,13 @@ class E3Conv(nn.Module):
         dtype: Optional[torch.dtype] = None,
         neighbor_mode: str = "dense",
         plain: bool = False,
+        fused_stack: bool = False,
         device=None,
         seed: Optional[int] = None,
     ):
-        """`dtype` is the compute dtype (parameters stay f32); `device`
+        """`dtype` is the compute dtype (parameters stay f32); `fused_stack`
+        turns the whole-model kernel on for calls without a gradient (the
+        parameters are the same tree either way); `device`
         follows `utils.device.resolve_device` (the card unless "cpu");
         `seed` draws the parameters (flax's init distributions) from a CPU
         generator, so a seed gives the same weights on any device."""
@@ -110,6 +122,7 @@ class E3Conv(nn.Module):
         self.edge_attr_dim = edge_attr_dim
         self.dtype = dtype
         self.plain = plain
+        self.fused_stack = fused_stack
         self.bonded_dim = edge_attr_dim // 2
         self.radial_dim = (edge_attr_dim + 1) // 2
 
@@ -162,6 +175,65 @@ class E3Conv(nn.Module):
             and all(mi.ir.l <= 1 and mi.ir.p == 1 for mi in self.irreps_out)
         )
 
+    def _stack_ok(self, batch: GraphBatch, c_noise: torch.Tensor) -> bool:
+        """Whether this call runs the whole-model kernel: the flag is on,
+        nothing wants a gradient (the kernel is forward only; the counterpart
+        of JAX's `training=False`), one noise level, and a shape K3 takes
+        (`stack_supported`: N <= 64)."""
+        if not self.fused_stack or self.plain or c_noise.numel() != 1:
+            return False
+        if torch.is_grad_enabled() and (
+            batch.pos.requires_grad or any(p.requires_grad for p in self.parameters())
+        ):
+            return False
+        S, V = self.irreps_hidden.sv_shape()
+        S_emb = self.AtomEmbeddingWithResidueInformation_0.irreps_out.sv_shape()[0]
+        out_blocks = tuple((mi.mul, mi.ir.l, mi.ir.p) for mi in self.irreps_out)
+        return self.edge_attr_dim == 2 * k2.N_RADIAL and k3.stack_supported(
+            batch.pos.shape[1], S, V, S_emb, out_blocks
+        )
+
+    def _stack_weights(self, cdt):
+        """K3's operands from the modules' parameters: the projector's and
+        the stacked hidden blocks' `BlockWeights` and the head's weights."""
+        S, V = self.irreps_hidden.sv_shape()
+        bond0, bond1 = self.embed_bondedness[0], self.embed_bondedness[1]
+
+        def masters(blk):
+            conv = blk.Conv_0
+            return k2.block_master_weights(
+                conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
+                bond0, bond1, S=conv.S, V=conv.V,
+            )
+
+        hidden = [masters(layer.ConvBlock_0) for layer in self._hidden_layers()]
+        return (
+            k2.cast_block_weights(masters(self.ConvBlock_0), cdt),
+            k2.cast_block_weights(k3.stack_block_weights(hidden), cdt),
+            k3.pack_head_weights(self.EquivariantMLP_0, self.irreps_out, S, V, cdt),
+        )
+
+    def _stack_args(self, batch: GraphBatch, nf0, c_noise, radial_cutoff: float) -> tuple:
+        """The arguments of `e3conv_stack` (and of its plain version) for the
+        forward after the noise-scaled embedding nf0. Each layer's noise
+        scale and skip weight come from the layer's own predictor modules,
+        so this path cannot drift from the layerwise one."""
+        f32, cdt = torch.float32, self.dtype or torch.float32
+        layers = self._hidden_layers()
+        scales = torch.stack(
+            [layer.NoiseConditionalScaling_0._ScalePredictor_0(c_noise) for layer in layers]
+        )
+        skipw = torch.sigmoid(torch.stack(
+            [layer.NoiseConditionalSkipConnection_0._ScalePredictor_0(c_noise) for layer in layers]
+        ))
+        proj_w, layers_w, head_w = self._stack_weights(cdt)
+        return (
+            batch.pos.to(f32).contiguous(), batch.node_mask, batch.bond_src, batch.bond_dst,
+            batch.bond_mask, radial_cutoff, nf0.to(f32).contiguous(), proj_w, layers_w,
+            scales.to(f32).contiguous(), skipw.to(f32).contiguous(), head_w,
+            self.radial_dim, cdt,
+        )
+
     def forward(
         self, batch: GraphBatch, c_noise: torch.Tensor, radial_cutoff: float
     ) -> torch.Tensor:
@@ -171,8 +243,9 @@ class E3Conv(nn.Module):
         on_card = batch.pos.device.type == "cuda"
         if self.plain and on_card:
             raise ValueError("plain=True is the CPU reference path; the card runs the kernels")
+        stack = self._stack_ok(batch, c_noise)
         kernels = not self.plain and self.kernel_path_supported(N)
-        if on_card and not kernels:
+        if on_card and not (kernels or stack):
             raise NotImplementedError(
                 f"N={N}, edge_attr_dim={self.edge_attr_dim}: outside the layerwise "
                 f"kernels (N <= {MAX_KERNEL_ATOMS}, edge_attr_dim 64); N > 128 needs "
@@ -180,6 +253,10 @@ class E3Conv(nn.Module):
             )
         x = self.AtomEmbeddingWithResidueInformation_0(batch)
         x = self.NoiseConditionalScaling_0(x, c_noise)
+        mask = batch.node_mask[..., None].to(torch.float32)
+        if stack:
+            x = k3.e3conv_stack(*self._stack_args(batch, x, c_noise, float(radial_cutoff)))
+            return x * self.output_gain * mask
         if kernels:
             block = self._kernel_block(batch, float(radial_cutoff))
         else:
@@ -189,7 +266,7 @@ class E3Conv(nn.Module):
         for layer in self._hidden_layers():
             x = layer(x, c_noise, block)
         x = self._kernel_head(x) if kernels else self.EquivariantMLP_0(x)
-        return x.to(torch.float32) * self.output_gain * batch.node_mask[..., None].to(torch.float32)
+        return x.to(torch.float32) * self.output_gain * mask
 
     def _kernel_head(self, x: torch.Tensor) -> torch.Tensor:
         """The EquivariantMLP head with the rounding points of JAX's

@@ -2,8 +2,9 @@
 
 Each source compiles with `nvcc` for `sm_90a` into a shared library with a
 plain C interface, loaded with `ctypes`, at its first use. Libraries land in
-`jamun_tpu_torch/_build/`, named by a hash of the source, so an edited source
-rebuilds. `build_all()` starts one `nvcc` per source at once.
+`jamun_tpu_torch/_build/`, named by a hash of the source and of the headers
+(`csrc/*.cuh`) beside it, so an edited source or header rebuilds.
+`build_all()` starts one `nvcc` per source at once.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def _flags(source: Path) -> List[str]:
 
 
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_flags(source)).encode()).hexdigest()
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(_flags(source)).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
 

@@ -1,11 +1,13 @@
-"""Underdamped Langevin MCMC with the BAOAB splitting.
+"""Underdamped Langevin MCMC with the BAOAB and ABOBA splittings.
 
-Counterpart of `jamun_tpu/sampling/mcmc.py:114-287` (BAOAB, dense score). The
-JAX walk is one `lax.scan`; here it is a Python loop of steps. Semantics:
+Counterpart of `jamun_tpu/sampling/mcmc.py:114-322` (dense score). The JAX
+walk is one `lax.scan`; here it is a Python loop of steps. Semantics:
   - `steps` runs steps - 1 updates (the reference's `range(1, steps)`);
   - saved frames are the states at absolute steps i with
     i % save_every == 0 and i >= burn_in (the initial state when burn_in == 0);
-  - the score is evaluated once before the loop and carried across steps.
+  - BAOAB evaluates the score once before the loop and carries it across
+    steps, so its saved score is the score at the saved state; ABOBA
+    evaluates it at each step's midpoint, and saves that.
 Every Gaussian draw comes from the caller's `torch.Generator`, and a step
 takes its noise `R` as an argument, so a test can feed it numbers.
 """
@@ -18,7 +20,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["MCMCConfig", "BAOAB", "make_processed_score_fn", "initialize_velocity"]
+__all__ = ["MCMCConfig", "BAOAB", "ABOBA", "make_processed_score_fn", "initialize_velocity"]
 
 
 def make_processed_score_fn(
@@ -81,27 +83,14 @@ class MCMCConfig:
         return 1 + (total - self.first_save_step) // self.save_every_n_steps
 
 
-class BAOAB:
-    """BAOAB splitting (Leimkuhler-Matthews section 7.3)."""
+class _SplittingSampler:
+    """The walk loop shared by BAOAB and ABOBA. A carry is
+    (y, v, processed score, raw score)."""
 
     def __init__(self, config: MCMCConfig):
         self.config = config
         self.damp = math.exp(-config.friction)
         self.zeta2 = math.sqrt(1.0 - math.exp(-2.0 * config.friction))
-
-    def step(self, carry, R: torch.Tensor, processed):
-        """One update; carry = (y, v, processed score, raw score), R the
-        Gaussian draw for the O step."""
-        cfg = self.config
-        y, v, psi, _ = carry
-        d2 = cfg.delta / 2.0
-        v = v + cfg.u * d2 * psi  # B
-        y = y + d2 * v  # A
-        vhat = self.damp * v + self.zeta2 * math.sqrt(cfg.u) * R  # O
-        y = y + d2 * vhat  # A
-        psi, orig = processed(y)
-        v = vhat + d2 * psi  # B
-        return (y, v, psi, orig)
 
     def __call__(
         self,
@@ -119,7 +108,7 @@ class BAOAB:
         v = initialize_velocity(v_init, y, cfg.u, generator)
         if mask is not None:
             v = v * mask
-        carry = (y, v, *processed(y))
+        carry = self._init_carry(y, v, processed)
 
         total = max(cfg.steps - 1, 0)
         first, every = cfg.first_save_step, cfg.save_every_n_steps
@@ -130,10 +119,57 @@ class BAOAB:
                 carry = self.step(carry, R * mask if mask is not None else R, processed)
             if i >= first and (i - first) % every == 0:
                 ys.append(carry[0])
-                scores.append(carry[3])
+                scores.append(carry[3] if i > 0 else self._initial_score(carry, processed))
         if ys:
             y_traj, score_traj = torch.stack(ys), torch.stack(scores)
         else:
             y_traj = y.new_zeros((0,) + tuple(y.shape))
             score_traj = y.new_zeros((0,) + tuple(y.shape))
         return carry[0], carry[1], y_traj, score_traj
+
+
+class BAOAB(_SplittingSampler):
+    """BAOAB splitting (Leimkuhler-Matthews section 7.3)."""
+
+    def _init_carry(self, y, v, processed):
+        return (y, v, *processed(y))
+
+    def _initial_score(self, carry, processed):
+        return carry[3]
+
+    def step(self, carry, R: torch.Tensor, processed):
+        """One update; R is the Gaussian draw for the O step."""
+        cfg = self.config
+        y, v, psi, _ = carry
+        d2 = cfg.delta / 2.0
+        v = v + cfg.u * d2 * psi  # B
+        y = y + d2 * v  # A
+        vhat = self.damp * v + self.zeta2 * math.sqrt(cfg.u) * R  # O
+        y = y + d2 * vhat  # A
+        psi, orig = processed(y)
+        v = vhat + d2 * psi  # B
+        return (y, v, psi, orig)
+
+
+class ABOBA(_SplittingSampler):
+    """ABOBA splitting: the score is taken at the midpoint of each step, so
+    the saved score is not the score at the saved state."""
+
+    def _init_carry(self, y, v, processed):
+        return (y, v, None, None)
+
+    def _initial_score(self, carry, processed):
+        return processed(carry[0])[1]
+
+    def step(self, carry, R: torch.Tensor, processed):
+        """One update; R is the Gaussian draw for the O step."""
+        cfg = self.config
+        y, v, _, _ = carry
+        d2 = cfg.delta / 2.0
+        y = y + d2 * v  # A
+        psi, orig = processed(y)
+        v = v + cfg.u * d2 * psi  # B
+        vhat = self.damp * v + self.zeta2 * math.sqrt(cfg.u) * R  # O
+        v = vhat + d2 * psi  # B
+        y = y + d2 * v  # A
+        return (y, v, psi, orig)

@@ -18,6 +18,7 @@ import torch
 from jamun_tpu_torch.models.e3conv import E3Conv
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
+from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import edge_features as k1
 from jamun_tpu_torch.utils.testing import make_test_batch
 
@@ -115,3 +116,76 @@ def test_trainable_block_grads_match_cpu(cuda):
     assert set(grads[0]) == set(grads[1]) and len(grads[0]) == 16
     for name, ref in grads[1].items():
         assert _rel(grads[0][name], ref) <= TOL[torch.float32], name
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "nodes,hidden",
+    [([19, 17, 12], "24x0e + 8x1e"), ([44, 41, 44], "24x0e + 8x1e"), ([64, 60, 9], "24x0e + 8x1e"),
+     ([64, 57, 64], "120x0e + 32x1e")],
+    ids=["N19", "N44", "N64", "N64-flagship-width"],
+)
+def test_stack_kernel_matches_plain_twin_and_layerwise(cuda, cdt, nodes, hidden):
+    """K3 against its plain twin, and the stack model against the layerwise
+    kernel path (K1, K2, the layerwise head) on the same weights: f32 1e-4;
+    bf16 5e-2 (the head rounds at other points, x is carried in f32). N = 64
+    at the flagship width is the largest launch: 4 CTAs of 16 atoms."""
+    N = max(nodes)
+    batch = make_test_batch(num_graphs=3, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
+                            scale=0.35, device=cuda)
+    arch = dict(irreps_hidden=hidden, n_layers=2, dtype=cdt, device=cuda, seed=0)
+    stack, base = E3Conv(**arch, fused_stack=True), E3Conv(**arch)
+    for m in (stack, base):
+        m.requires_grad_(False).output_gain.fill_(1.0)
+    c_noise = torch.full((1,), -0.8, device=cuda)
+    nf0 = stack.NoiseConditionalScaling_0(stack.AtomEmbeddingWithResidueInformation_0(batch), c_noise)
+    args = stack._stack_args(batch, nf0, c_noise, 0.8)
+    n3 = k3.KERNEL.launches
+    got, want = k3.e3conv_stack(*args), k3.e3conv_stack_plain(*args)
+    assert got.shape == (3, N, 3) and torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL[cdt]
+    n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
+    whole = stack(batch, c_noise, 0.8)
+    assert (k3.KERNEL.launches - n3, k1.KERNEL.launches - n1, k2.KERNEL.launches - n2) == (2, 0, 0)
+    layerwise = base(batch, c_noise, 0.8)
+    assert (k1.KERNEL.launches - n1, k2.KERNEL.launches - n2) == (1, 3)
+    assert _rel(whole, layerwise) <= (1e-4 if cdt == torch.float32 else 5e-2)
+
+
+def test_stack_kernel_refuses_what_it_cannot_take(cuda):
+    """Outside its shapes the wrapper raises; it never takes the plain twin
+    for a tensor on the card."""
+    batch = make_test_batch(num_graphs=1, max_nodes=72, max_bonds=144, scale=0.5, device=cuda)
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0, fused_stack=True)
+    model.requires_grad_(False)
+    c_noise = torch.full((1,), -0.8, device=cuda)
+    nf0 = model.NoiseConditionalScaling_0(model.AtomEmbeddingWithResidueInformation_0(batch), c_noise)
+    n3 = k3.KERNEL.launches
+    with pytest.raises(NotImplementedError, match="outside the kernel"):
+        k3.e3conv_stack(*model._stack_args(batch, nf0, c_noise, 0.8))
+    assert not model._stack_ok(batch, c_noise)  # N > 64: the model takes the layerwise kernels
+    assert torch.isfinite(model(batch, c_noise, 0.8)).all() and k3.KERNEL.launches == n3
+
+
+@pytest.mark.parametrize("fused_stack", [True, False], ids=["stack", "layerwise"])
+def test_walk_never_makes_the_host_wait(cuda, fused_stack):
+    """A walk step queues its kernels without waiting for the device (sync
+    debug mode raises on a blocking copy or an `.item()`), on both paths."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    batch = make_test_batch(num_graphs=3, max_nodes=19, max_bonds=40, scale=0.35, device=cuda)
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0,
+                   fused_stack=fused_stack).requires_grad_(False)
+    den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.5))
+    sampler = SingleMeasurementSampler(BAOAB(MCMCConfig(delta=0.04, steps=3)), 0.04)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sampler.walk_jump(den, batch, batch.pos, gen)  # builds, loads and caches once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sampler.walk_jump(den, batch, batch.pos, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out["xhat_traj"]).all()
