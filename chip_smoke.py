@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught):
      events: the edge features and the ConvBlock at N = 44, G = 256 and
      N = 112, G = 128; the whole-model kernel at 4AA (N = 44, G = 256), 2AA
      (N = 19, G = 256) and one batch of sizes [44, 41], also against the
-     layerwise kernel path on the same weights;
+     layerwise kernel path on the same weights; the tiled ConvBlock (K5,
+     geometry rebuilt from the positions) at N = 256, G = 64 and on a ragged
+     batch whose N is no multiple of 8, projector and hidden block, with the
+     degree it counted held to its plain version's exactly, and against K2 at
+     N = 112;
   3. drive the main paths at full flagship width with random weights from a
      seed, launch counts zeroed just before each and read just after:
      (a) the stack path through the sampling loop, `Sampler.sample` ->
@@ -25,12 +29,17 @@ Phases (any failure exits non-zero; nothing is caught):
      jump: 4AA (N = 44, G = 256, 101 steps, the comparison) and 5AA (N = 112,
      G = 128, 101 steps, beyond the whole-model kernel); K1 once and K2 six
      times per score call, K3 not at all;
+     (c) the dense path above 128 atoms through `Sampler.sample`: N = 256,
+     G = 64, 101 BAOAB steps, and a shorter walk at N = 512, G = 16 with
+     `neighbor_mode="dense"`; K5 six times per denoiser call, K1, K2 and K3
+     not at all; the peak device memory of the N = 256 walk must stay below
+     what one [G, N, N, 36] bf16 tensor would take;
   4. check the output: finite, the expected shape, both kernel paths' f32
      score against the CPU plain path on a small input, and E(3)
-     equivariance of both; a short walk on each path with PyTorch's sync
+     equivariance of both, and the same for the K5 path at N = 256; a short walk on each path with PyTorch's sync
      debug mode set to raise (no step waits for the device); torch.profiler traces of a short 4AA walk on
      each path (device time by kernel, device busy share, device ops per
-     forward);
+     forward), the N = 256 walk included;
   5. training: K4 (the ConvBlock backward) against its plain version for
      the projector and a hidden block at the training shape (G = 32, N = 48,
      44 atoms) and at N = 112 (G = 32), bf16 and f32, timed; then the second
@@ -39,7 +48,11 @@ Phases (any failure exits non-zero; nothing is caught):
      validation, launch counts
      zeroed before and read after (K1 once and K2 six times per forward, K4
      six times per step), finite and falling loss; then the f32 gradients of
-     `training_loss` on the card's kernel path against the CPU plain path.
+     `training_loss` on the card's kernel path against the CPU plain path;
+     then training above 128 atoms: a few `Trainer.fit` steps at N = 256,
+     G = 4 in bf16, which take the plain path on the card (every kernel's
+     launch count stays 0), with ms/step and peak memory, and an EMA
+     validation, which takes K5.
 `--out FILE` writes every number as JSON. The line before the last is a
 JSON object of per-kernel numbers; the last line is {"ok": true, "device":
 {...}}.
@@ -303,6 +316,280 @@ def check_e3_stack(k1, k3, models, stack_models, dev, c_in: float, c_noise: floa
             del got, want, whole, layerwise
             torch.cuda.empty_cache()
     return rows
+
+
+def density_scale(n_atoms: int) -> float:
+    """The blob width of `make_test_batch` that keeps the atom density of the
+    4AA shape (N = 44 at scale 0.35) at n_atoms."""
+    return 0.35 * (n_atoms / 44.0) ** (1.0 / 3.0)
+
+
+def tiled_batch(n_atoms: int, num_graphs: int, dev, nodes_per_graph=None):
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    return make_test_batch(
+        num_graphs=num_graphs, max_nodes=n_atoms,
+        nodes_per_graph=nodes_per_graph or [n_atoms] * num_graphs, max_bonds=2 * n_atoms,
+        scale=density_scale(n_atoms), device=dev,
+    )
+
+
+def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutoff: float) -> list:
+    """Phase 2, K5: the tiled ConvBlock against its plain version at the
+    N = 256 walk shape and on a ragged batch (N = 203, no multiple of 8),
+    bf16 and f32, projector and hidden block, the degree it counted equal to
+    the plain version's on every atom; then against K2 on K1's features at
+    N = 112."""
+    shapes = {
+        "N256": tiled_batch(256, 64, dev),
+        "ragged": tiled_batch(203, 6, dev, [203, 197, 160, 131, 64, 9]),
+        "N112": batches["5AA"],
+    }
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for label, batch in shapes.items():
+        G, N = batch.pos.shape[:2]
+        B = batch.bond_src.shape[1]
+        geo = k5.tiled_geometry_inputs(
+            batch.pos * c_in, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
+            cutoff, 32,
+        )
+        real = batch.node_mask.sum(-1).float()
+        for cdt in (torch.bfloat16, torch.float32):
+            model = models[cdt]
+            for block_name, blk, S, V in (
+                ("projector", model.ConvBlock_0, 56, 0),
+                ("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32),
+            ):
+                tag = f"{block_name} {label} N={N} G={G} {str(cdt).split('.')[-1]}"
+                x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                conv = blk.Conv_0
+                w = k2.pack_block_weights(
+                    conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
+                    model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V, cdt=cdt,
+                )
+                smem = k5.KERNEL.fn("fused_block_tiled_smem")(N, B, S, V, w.Sc, w.Vg)
+                assert smem == k5.shared_memory_bytes(N, B, S, V, w.Sc, w.Vg), smem
+                got, deg = k5.fused_block_tiled(x, geo, w, return_degree=True)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all(), f"K5 {tag}: non-finite output"
+                if label == "N112":  # the same block through K1 and K2
+                    ef, bf = k1.edge_features(*geo[:7], cdt)
+                    want, _, deg_p = k2.fused_conv_block(
+                        x, ef, bf, batch.bond_src, batch.bond_dst, w, residuals=True
+                    )
+                    del ef, bf
+                    against = "K2 on K1's features"
+                else:
+                    want, deg_p = k5.fused_block_tiled_plain(x, geo, w, return_degree=True)
+                    against = "plain"
+                deg_mismatch = int((deg != deg_p).sum())
+                assert deg_mismatch == 0, f"K5 {tag}: the degree differs on {deg_mismatch} atoms"
+                abs_e, rel_e = rel_err(got, want)
+                assert rel_e <= TOL[cdt], f"K5 {tag} vs {against}: rel err {rel_e:.3g} > {TOL[cdt]}"
+                n_pairs = int(deg.sum(dtype=torch.float64))
+                n_bonds = int(batch.bond_mask.sum())
+                share = (n_pairs - n_bonds) / float((real * (real - 1)).sum())
+                Wd, Sc, Vg = 2 * S + 3 * V, w.Sc, w.Vg
+                flops = 2 * n_pairs * (32 * 64 + 64 * Wd) + 2 * G * N * (
+                    (S + V) * (Sc + Vg) + 3 * (S + 2 * V) * Vg + Sc * Sc + 3 * Vg * Vg
+                    + S * Sc + 3 * V * Vg
+                )
+                nbytes = sum(t.numel() * t.element_size() for t in (
+                    x, geo.pos, geo.node_mask, geo.bond_src, geo.bond_dst, geo.bond_mask, got,
+                    *w.tensors(),
+                ))
+                t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                timed = label != "ragged"
+                row = dict(
+                    shape=tag, against=against, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
+                    ms=cuda_time_ms(lambda: k5.fused_block_tiled(x, geo, w), 5) if timed else None,
+                    plain_ms=(cuda_time_ms(lambda: k5.fused_block_tiled_plain(x, geo, w), 1)
+                              if label == "N256" else None),
+                    bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    visited_pairs=n_pairs, share_inside_cutoff=share, flops=flops, bytes=nbytes,
+                    smem_bytes=smem, dtype=str(cdt), N=N, G=G, block=block_name, label=label,
+                )
+                rows.append(row)
+                times = f"kernel {row['ms']:.4f} ms, " if timed else ""
+                if row["plain_ms"] is not None:
+                    times += f"plain {row['plain_ms']:.4f} ms, "
+                log(f"phase 2: K5 {tag} vs {against}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
+                    f"(tol {TOL[cdt]}), degree equal on all atoms; {times}"
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs "
+                    f"({100 * share:.1f}% of the ordered pairs inside the cutoff), "
+                    f"{smem} bytes of shared memory per CTA")
+                del got, want, deg, deg_p
+                torch.cuda.empty_cache()
+    return rows
+
+
+def share_inside_cutoff(y: torch.Tensor, node_mask: torch.Tensor, den, sigma: float) -> float:
+    """The share of the ordered pairs of real atoms that the denoiser finds
+    inside its cutoff at positions y [G, N, 3] (mean-centred and scaled as
+    `Denoiser.xhat` does; self-pairs left out)."""
+    from jamun_tpu_torch.models.denoiser import normalization_factors
+    from jamun_tpu_torch.ops.geometry import mean_center
+
+    c_in = normalization_factors(sigma, den.config.average_squared_distance)[0]
+    scaled = mean_center(y, node_mask) * c_in
+    pair = node_mask[:, :, None] & node_mask[:, None, :]
+    pair &= ~torch.eye(y.shape[1], dtype=torch.bool, device=y.device)
+    inside = (torch.cdist(scaled, scaled) < den.effective_radial_cutoff(sigma) / c_in) & pair
+    return inside.sum().item() / pair.sum().item()
+
+
+def tiled_walks(denoisers: dict, dev, card: str, kernels: dict):
+    """Phase 3c: the dense path above 128 atoms through `Sampler.sample`,
+    BAOAB: N = 256, G = 64, 101 steps (the default model, whose "auto"
+    neighbour mode stays dense below 512 atoms) and N = 512, G = 16, 21
+    steps (`neighbor_mode="dense"`). K5's work follows the pairs inside the
+    cutoff, and a walk under random weights is not held together by a
+    trained score, so the share of pairs inside the cutoff is printed at the
+    first and the last saved frame. Returns the walks' numbers, the denoiser
+    calls made and the N = 256 batch."""
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.sampler import Sampler
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    walks, calls, batch256 = {}, 0, None
+    for label, n_atoms, num_graphs, steps in (("N256", 256, 64, 101), ("N512", 512, 16, 21)):
+        batch = tiled_batch(n_atoms, num_graphs, dev)
+        G, N = batch.pos.shape[:2]
+        batch256 = batch256 or batch
+        cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=steps, save_every_n_steps=1,
+                         score_fn_clip=100.0)
+        times = BatchTimes()
+        before = {name: k.KERNEL.launches for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = Sampler(callbacks=[times], device=dev).sample(
+            denoisers[label], SingleMeasurementSampler(BAOAB(cfg), SIGMA), 1, batch, seed=2,
+        )
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
+        calls += steps + 1  # initial score, steps - 1 updates, the final jump
+        assert used == {"edge_features": 0, "conv_block": 0, "e3_stack": 0,
+                        "fused_block_tiled": 6 * (steps + 1)}, (label, used)
+        check_samples(out[0], G, N, steps, label)
+        # what K1 would have written at every forward on the other dense path
+        ef_bytes_bf16 = G * N * N * 36 * 2
+        assert peak < ef_bytes_bf16, (label, peak, ef_bytes_bf16)
+        walk_s = sum(times.seconds)
+        shares = [
+            share_inside_cutoff(
+                torch.from_numpy(np.stack([entry["y_traj"][:, frame] for entry in out[0]])).to(dev),
+                batch.node_mask, denoisers[label], SIGMA,
+            )
+            for frame in (0, steps - 1)
+        ]
+        walks[label] = dict(
+            N=N, G=G, steps=steps, frames=steps, seconds=dt, walk_seconds=walk_s,
+            ms_per_step=walk_s * 1e3 / steps, ms_per_sample=walk_s * 1e3 / (G * steps),
+            peak_bytes_above_start=peak, edge_feature_bytes_bf16=ef_bytes_bf16,
+            share_inside_cutoff_first_frame=shares[0], share_inside_cutoff_last_frame=shares[1],
+        )
+        log(f"phase 3: tiled walk-jump {label} N={N} G={G} steps={steps} through Sampler.sample: "
+            f"walk {walk_s:.3f} s, with unbatching {dt:.3f} s, "
+            f"{walks[label]['ms_per_sample']:.6f} ms/sample, {walks[label]['ms_per_step']:.3f} "
+            f"ms/step on {card}; {100 * shares[0]:.2f}% of the ordered pairs inside the cutoff at "
+            f"the first frame, {100 * shares[1]:.2f}% at the last; "
+            f"K5 {used['fused_block_tiled']} launches, K1/K2/K3 none; peak "
+            f"device memory {peak / 2**20:.1f} MiB above the start (one [G, N, N, 36] bf16 "
+            f"tensor: {ef_bytes_bf16 / 2**20:.1f} MiB)")
+    return walks, calls, batch256
+
+
+def check_tiled_score(dense_models: dict, config, dev) -> dict:
+    """Phase 4 above 128 atoms: the f32 score of the K5 path at N = 256 on the
+    card against the plain path on the CPU, and E(3) equivariance of the K5
+    path in f32 and bf16."""
+    from jamun_tpu_torch.models.denoiser import Denoiser
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+
+    small = tiled_batch(256, 2, dev, [256, 251])
+    ref_model = E3Conv(dtype=None, device="cpu", plain=True, neighbor_mode="dense")
+    ref_model.load_state_dict(dense_models[torch.float32].state_dict())
+    ref_model.requires_grad_(False)
+    before = k5.KERNEL.launches
+    with torch.no_grad():
+        s_cpu = Denoiser(ref_model, config).score(small.to("cpu"), SIGMA)
+        s_card = Denoiser(dense_models[torch.float32], config).score(small, SIGMA)
+    abs_e, rel_e = rel_err(s_card.cpu(), s_cpu)
+    log(f"phase 4: f32 score at N=256, K5 path on the card vs plain path on the CPU: "
+        f"max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol 1e-3)")
+    assert rel_e < 1e-3
+    q, r = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator().manual_seed(5)))
+    R = (q * torch.sign(torch.diagonal(r))).to(dev)
+    if torch.det(R) < 0:
+        R = -R
+    shift = torch.tensor([0.3, -0.2, 0.5], device=dev)
+    mask = small.node_mask[..., None].float()
+    out = dict(score_rel_err=rel_e)
+    for cdt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        d = Denoiser(dense_models[cdt], config)
+        with torch.no_grad():
+            s = d.score(small, SIGMA)
+            s_rot = d.score(small.replace_pos((small.pos @ R.T + shift) * mask), SIGMA)
+        err = ((s_rot - (s @ R.T - shift / SIGMA**2) * mask).abs().max() / s.abs().max()).item()
+        log(f"phase 4: E(3) check at N=256, K5 path, {str(cdt).split('.')[-1]}: "
+            f"|score(Ry+t) - (R score(y) - t/sigma^2)| / max|score| = {err:.3g} (tol {tol})")
+        assert err < tol
+        out[f"e3_err_{str(cdt).split('.')[-1]}"] = err
+    assert k5.KERNEL.launches - before == 5 * 6  # five score calls, six blocks each
+    return out
+
+
+def train_above_128(dev, card: str, kernels: dict) -> dict:
+    """Phase 5d: training above 128 atoms. A call that wants a gradient there
+    takes the plain path on the card (no kernel launches); the EMA validation
+    wants none and takes K5."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    steps, G, N = 5, 4, 256
+    model = E3Conv(dtype=torch.bfloat16, neighbor_mode="dense", device=dev, seed=0)
+    den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.3,
+                                         add_fixed_noise=True))
+    batch = tiled_batch(N, G, dev)
+    trainer = Trainer(
+        TrainerConfig(max_steps=steps, log_every_n_steps=1, learning_rate=2.0e-3, seed=0),
+        den, ConstantSigma(SIGMA), device=dev,
+    )
+    before = {name: k.KERNEL.launches for name, k in kernels.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.fit([batch] * steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
+    assert state.step == steps and not any(used.values()), used
+    train = [m for _, m in trainer.metrics if "train/loss" in m]
+    losses = [m["train/loss"] for m in train]
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
+    t_at = [(i + 1) / m["train/steps_per_sec"] for i, m in enumerate(train)]
+    steady = (t_at[-1] - t_at[0]) * 1e3 / (steps - 1)
+    log(f"phase 5: train above 128 atoms, G={G} N={N} bf16, plain path on the card: losses "
+        + " ".join(f"{v:.5f}" for v in losses)
+        + f"; {steady:.3f} ms/step over steps 2-{steps}, peak device memory "
+        f"{peak / 2**30:.3f} GiB, kernel launches {used} on {card}")
+    # the validation forward wants no gradient: K5, six launches
+    val = Trainer(TrainerConfig(max_steps=0), den, ConstantSigma(SIGMA), device=dev)
+    val.fit([], [batch])
+    val_used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
+    val_loss = [m for _, m in val.metrics if "val/loss" in m][0]["val/loss"]
+    log(f"phase 5: validation at N={N}: loss {val_loss:.5f}, launches {val_used}")
+    assert math.isfinite(val_loss)
+    assert val_used == {**{name: 0 for name in kernels}, "fused_block_tiled": 6}, val_used
+    return dict(G=G, N=N, steps=steps, losses=losses, ms_per_step_2_to_end=steady,
+                peak_bytes=peak, launches=used, val_loss=val_loss, val_launches=val_used)
 
 
 def train_flagship(dev, card: str) -> dict:
@@ -588,6 +875,7 @@ def main() -> int:
     from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
     from jamun_tpu_torch.ops.cuda.build import build_all
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
     from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
@@ -602,7 +890,9 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    logs = build_all([k.KERNEL.name for k in (k1, k2, k3, k4)])
+    kernel_modules = {k.KERNEL.name: k for k in (k1, k2, k3, k4, k5)}
+    logs = build_all()
+    assert sorted(logs) == sorted(kernel_modules), sorted(logs)  # every source has its phase here
     log(f"phase 1: built {list(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -615,7 +905,9 @@ def main() -> int:
     models = {cdt: E3Conv(dtype=cdt, device=dev, seed=0) for cdt in dtypes}
     # the same weights (the same seed) with the whole-model kernel on
     stack_models = {cdt: E3Conv(dtype=cdt, fused_stack=True, device=dev, seed=0) for cdt in dtypes}
-    for m in (*models.values(), *stack_models.values()):
+    # the same weights again, dense at any size ("auto" goes sparse from 512 atoms on)
+    dense_models = {cdt: E3Conv(dtype=cdt, neighbor_mode="dense", device=dev, seed=0) for cdt in dtypes}
+    for m in (*models.values(), *stack_models.values(), *dense_models.values()):
         m.output_gain.data.fill_(1.0)
         m.requires_grad_(False)
     cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(SIGMA) / c_in
@@ -709,6 +1001,9 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     results["e3_stack"] = check_e3_stack(k1, k3, models, stack_models, dev, c_in, c_noise, cutoff)
+    results["fused_block_tiled"] = check_fused_block_tiled(
+        k1, k2, k5, models, batches, dev, c_in, cutoff
+    )
 
     # ---- phase 3: the main paths, walk-jump at full flagship width ----
     # (a) the stack path through `Sampler.sample`
@@ -759,6 +1054,23 @@ def main() -> int:
     assert launches["conv_block"] == 6 * score_calls, launches
     assert k3.KERNEL.launches == 0
 
+    # (c) the dense path above 128 atoms (K5), through `Sampler.sample`
+    forward_kernels = {name: kernel_modules[name] for name in
+                       ("edge_features", "conv_block", "e3_stack", "fused_block_tiled")}
+    den_tiled = Denoiser(models[torch.bfloat16], config)
+    for k in forward_kernels.values():
+        k.KERNEL.launches = 0
+    tiled, tiled_calls, batch256 = tiled_walks(
+        {"N256": den_tiled, "N512": Denoiser(dense_models[torch.bfloat16], config)}, dev, card,
+        forward_kernels,
+    )
+    walks.update(tiled)
+    launches["fused_block_tiled"] = k5.KERNEL.launches
+    log(f"phase 3: tiled path launches K5 {launches['fused_block_tiled']} over {tiled_calls} "
+        f"denoiser calls; K1 {k1.KERNEL.launches}, K2 {k2.KERNEL.launches}, K3 {k3.KERNEL.launches}")
+    assert launches["fused_block_tiled"] == 6 * tiled_calls, (launches, tiled_calls)
+    assert k1.KERNEL.launches == 0 and k2.KERNEL.launches == 0 and k3.KERNEL.launches == 0
+
     # ---- phase 4: the output against references ----
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
                             scale=0.35, device=dev)
@@ -794,11 +1106,14 @@ def main() -> int:
         used = (k1.KERNEL.launches - before[0], k3.KERNEL.launches - before[1])
         assert used == ((5, 0) if path == "layerwise" else (0, 5)), (path, used)
 
+    tiled_score = check_tiled_score(dense_models, config, dev)
     check_walk_never_waits(den, batches["4AA"], dev, "layerwise 4AA")
     check_walk_never_waits(den_stack, batches["4AA"], dev, "stack 4AA")
+    check_walk_never_waits(den_tiled, batch256, dev, "tiled N=256")
     walk_profile = profile_walk(den, batches["4AA"], dev, 6, "layerwise 4AA")
     stack_profile = profile_walk(den_stack, batches["4AA"], dev, 6, "stack 4AA")
-    del batches, den, den_stack
+    tiled_profile = profile_walk(den_tiled, batch256, dev, 6, "tiled N=256")
+    del batches, batch256, den, den_stack, den_tiled
     torch.cuda.empty_cache()
 
     # ---- phase 5: training, the ConvBlock backward ----
@@ -806,6 +1121,7 @@ def main() -> int:
     train = train_flagship(dev, card)
     launches["conv_block_bwd"] = train["launches"]["conv_block_bwd"]
     grad_err = check_train_gradients(dev)
+    train_tiled = train_above_128(dev, card, kernel_modules)
 
     # ---- the report ----
     def main_row(rows, **match):
@@ -816,12 +1132,15 @@ def main() -> int:
     k4_main = main_row(results["conv_block_bwd"], label="train", dtype=str(torch.bfloat16),
                        block="hidden")
     k3_main = main_row(results["e3_stack"], label="4AA", dtype=str(torch.bfloat16))
+    k5_main = main_row(results["fused_block_tiled"], label="N256", dtype=str(torch.bfloat16),
+                       block="hidden")
     kernels = []
     for name, main, replaces in (
         ("edge_features", k1_main, "jamun_tpu/ops/pallas/packed_conv.py:806"),
         ("conv_block", k2_main, "jamun_tpu/ops/pallas/packed_conv.py:1495"),
         ("e3_stack", k3_main, "jamun_tpu/ops/pallas/e3_stack.py:367"),
         ("conv_block_bwd", k4_main, "jamun_tpu/ops/pallas/packed_conv.py:2220"),
+        ("fused_block_tiled", k5_main, "jamun_tpu/ops/pallas/packed_conv.py:2819"),
     ):
         kernels.append(dict(
             name=name, route="cuda", source=f"jamun_tpu_torch/csrc/{name}.cu", replaces=replaces,
@@ -831,8 +1150,9 @@ def main() -> int:
             bound_by=main["bound_by"], library_ms=None,
         ))
     report = dict(card=card, compare=results, walks=walks, walk_profile=walk_profile,
-                  stack_walk_profile=stack_profile,
-                  launches=launches, train=train, train_grad_rel_err=grad_err)
+                  stack_walk_profile=stack_profile, tiled_walk_profile=tiled_profile,
+                  tiled_score=tiled_score, launches=launches, train=train,
+                  train_grad_rel_err=grad_err, train_above_128=train_tiled)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -5,23 +5,32 @@ configuration. Parameters carry the flax names (`ConvBlock_0`,
 `_HiddenLayer_k`, `EquivariantMLP_0`, ...), so `params.from_jax_params`
 maps a JAX param tree onto this module one to one.
 
-Three ways through the forward:
+The ways through the forward, picked once per call as JAX's `E3Conv` picks
+them (`jamun_tpu/models/e3conv.py:332-404`):
   - `fused_stack=True`, for calls that nothing differentiates (the walk):
     the whole forward after the atom embedding in one launch
     (`ops/cuda/e3_stack`, K3) at N <= 64 and one noise level. Under
     autograd, at N > 64 or outside K3's shapes the call takes the layerwise
-    kernel path below, as JAX's `E3Conv` dispatches (`_stack_ok`).
-  - the layerwise kernel path (the default): edge features once per forward
-    (`ops/cuda/edge_features`, K1), then every ConvBlock as one fused block
-    (`ops/cuda/conv_block`, K2): the projector and each hidden layer. On the
-    card these are the hand-written CUDA kernels, on the CPU their plain
-    twins. It covers N <= 128 with edge_attr_dim 64. Under autograd each
-    block's backward is K4 (`ops/cuda/conv_block_bwd`). The EquivariantMLP
-    head then runs in the compute dtype, as JAX's chained kernel path runs
-    it (`_transposed_head`).
-  - `plain=True` (CPU only): the module-level plain path on
-    `ops/graph.dense_edge_data`, the reference the kernel path is held to.
-Shapes outside the kernels raise NotImplementedError on the card.
+    kernel path below (`_stack_ok`).
+  - the layerwise kernel path (the default), every ConvBlock (the projector
+    and each hidden layer) as one fused block. On the card these are the
+    hand-written CUDA kernels, on the CPU their plain twins. Up to 128
+    atoms: edge features once per forward (`ops/cuda/edge_features`, K1),
+    then `ops/cuda/conv_block` (K2), under autograd with K4
+    (`ops/cuda/conv_block_bwd`) as each block's backward. Above 128 atoms:
+    `ops/cuda/fused_block_tiled` (K5), which rebuilds the pair geometry from
+    the positions, so K1 is not launched and no [G, N, N, *] tensor exists.
+    The EquivariantMLP head then runs in the compute dtype, as JAX's chained
+    kernel path runs it (`_transposed_head`).
+  - the plain path (library ops on `ops/graph.dense_edge_data`): a call that
+    wants a gradient above 128 atoms takes it wholesale, on either device,
+    as JAX's training dispatch sends such calls to XLA; position gradients
+    work there. `plain=True` forces it (CPU only): the reference the kernel
+    path is held to.
+`neighbor_mode="auto"` (the default) keeps the dense paths below JAX's
+thresholds (512 atoms, 256 for a call that wants a gradient) and raises
+where JAX would go sparse; `"dense"` runs the dense paths at any size.
+Widths outside the kernels raise NotImplementedError on the card.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from jamun_tpu_torch.models.noise_conditioning import (
 from jamun_tpu_torch.ops.conv import ConvBlock
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
+from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
 from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data
 from jamun_tpu_torch.ops.irreps import Irreps
@@ -49,9 +59,24 @@ from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
 from jamun_tpu_torch.ops.sh import spherical_harmonics
 from jamun_tpu_torch.utils.device import resolve_device
 
-__all__ = ["E3Conv", "irreps_to_vector", "MAX_KERNEL_ATOMS"]
+__all__ = ["E3Conv", "irreps_to_vector", "neighbor_mode_auto", "EDGE_FEATURE_ATOMS"]
 
-MAX_KERNEL_ATOMS = 128  # the layerwise kernels' range (N > 128: ROADMAP.md queue B #5)
+EDGE_FEATURE_ATOMS = 128  # up to here K1's edge features and K2 (K4); above, K5
+# "auto" neighbour mode: from these atom counts on JAX takes the sparse
+# capped-neighbour path (`jamun_tpu/models/e3conv.py:38-44`)
+_NBR_AUTO_TRAIN_N = 256
+_NBR_AUTO_SAMPLE_N = 512
+
+
+def neighbor_mode_auto(n_atoms: int, training: bool) -> bool:
+    """True when "auto" neighbour mode resolves to the sparse path."""
+    return n_atoms >= (_NBR_AUTO_TRAIN_N if training else _NBR_AUTO_SAMPLE_N)
+
+
+_SPARSE_NOT_PORTED = (
+    "{what}: the sparse capped-neighbour path is not ported (ROADMAP.md queue A item 7, "
+    "queue B #6/#7)"
+)
 
 
 def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
@@ -91,7 +116,7 @@ class E3Conv(nn.Module):
         use_residue_sequence_index: bool = False,
         tensor_product: str = "uvu",
         dtype: Optional[torch.dtype] = None,
-        neighbor_mode: str = "dense",
+        neighbor_mode: str = "auto",
         plain: bool = False,
         fused_stack: bool = False,
         device=None,
@@ -109,11 +134,10 @@ class E3Conv(nn.Module):
                 f"tensor_product={tensor_product!r}: only the separable uvu product is "
                 "ported (uvw and experimental: ROADMAP.md queue A item 11)"
             )
-        if neighbor_mode != "dense":
-            raise NotImplementedError(
-                f"neighbor_mode={neighbor_mode!r}: the sparse capped-neighbour path is "
-                "not ported (ROADMAP.md queue A item 7, queue B #6/#7)"
-            )
+        if neighbor_mode not in ("dense", "nbr", "auto"):
+            raise ValueError(f"neighbor_mode={neighbor_mode!r}")
+        if neighbor_mode == "nbr":
+            raise NotImplementedError(_SPARSE_NOT_PORTED.format(what='neighbor_mode="nbr"'))
         self.irreps_hidden, self.irreps_out = Irreps(irreps_hidden), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
         if self.irreps_hidden.sv_shape() is None or self.irreps_hidden.sv_shape()[1] == 0:
@@ -121,6 +145,7 @@ class E3Conv(nn.Module):
         self.n_layers = n_layers
         self.edge_attr_dim = edge_attr_dim
         self.dtype = dtype
+        self.neighbor_mode = neighbor_mode
         self.plain = plain
         self.fused_stack = fused_stack
         self.bonded_dim = edge_attr_dim // 2
@@ -165,14 +190,22 @@ class E3Conv(nn.Module):
         return [getattr(self, f"_HiddenLayer_{k}") for k in range(self.n_layers)]
 
     def kernel_path_supported(self, n_atoms: int) -> bool:
-        """The shapes K1 and K2 cover."""
+        """The shapes the layerwise kernels cover (K1 and K2 up to 128 atoms,
+        K5 above): the widths; the atom count only through K5's pair index."""
         S, V = self.irreps_hidden.sv_shape()
         S_emb = self.AtomEmbeddingWithResidueInformation_0.irreps_out.sv_shape()[0]
         return (
-            n_atoms <= MAX_KERNEL_ATOMS
+            n_atoms <= k5.MAX_ATOMS
             and self.edge_attr_dim == 2 * k2.N_RADIAL
             and max(2 * S + 3 * V, 2 * S_emb) <= k2.MAX_WIDTH
             and all(mi.ir.l <= 1 and mi.ir.p == 1 for mi in self.irreps_out)
+        )
+
+    def _wants_grad(self, batch: GraphBatch) -> bool:
+        """Whether autograd will differentiate this call (the counterpart of
+        JAX's `training=True`)."""
+        return torch.is_grad_enabled() and (
+            batch.pos.requires_grad or any(p.requires_grad for p in self.parameters())
         )
 
     def _stack_ok(self, batch: GraphBatch, c_noise: torch.Tensor) -> bool:
@@ -182,9 +215,7 @@ class E3Conv(nn.Module):
         (`stack_supported`: N <= 64)."""
         if not self.fused_stack or self.plain or c_noise.numel() != 1:
             return False
-        if torch.is_grad_enabled() and (
-            batch.pos.requires_grad or any(p.requires_grad for p in self.parameters())
-        ):
+        if self._wants_grad(batch):
             return False
         S, V = self.irreps_hidden.sv_shape()
         S_emb = self.AtomEmbeddingWithResidueInformation_0.irreps_out.sv_shape()[0]
@@ -243,13 +274,23 @@ class E3Conv(nn.Module):
         on_card = batch.pos.device.type == "cuda"
         if self.plain and on_card:
             raise ValueError("plain=True is the CPU reference path; the card runs the kernels")
+        wants_grad = self._wants_grad(batch)
+        if self.neighbor_mode == "auto" and neighbor_mode_auto(N, wants_grad):
+            raise NotImplementedError(_SPARSE_NOT_PORTED.format(
+                what=f'neighbor_mode="auto" at N={N} ({"with" if wants_grad else "without"} a '
+                     'gradient) resolves to the sparse path; neighbor_mode="dense" runs the '
+                     "dense one"
+            ))
         stack = self._stack_ok(batch, c_noise)
-        kernels = not self.plain and self.kernel_path_supported(N)
-        if on_card and not (kernels or stack):
+        supported = self.kernel_path_supported(N)
+        # the training dispatch: the tiled kernel is forward only, so a call
+        # that wants a gradient above 128 atoms takes the plain path wholesale
+        kernels = not self.plain and supported and not (wants_grad and N > EDGE_FEATURE_ATOMS)
+        if on_card and not supported:
             raise NotImplementedError(
-                f"N={N}, edge_attr_dim={self.edge_attr_dim}: outside the layerwise "
-                f"kernels (N <= {MAX_KERNEL_ATOMS}, edge_attr_dim 64); N > 128 needs "
-                "packed_fused_block_v2 (ROADMAP.md queue B #5)"
+                f"N={N}, edge_attr_dim={self.edge_attr_dim}, hidden {self.irreps_hidden}, "
+                f"output {self.irreps_out}: outside the layerwise kernels (edge_attr_dim 64, "
+                f"radial width <= {k2.MAX_WIDTH}, outputs l <= 1 of even parity)"
             )
         x = self.AtomEmbeddingWithResidueInformation_0(batch)
         x = self.NoiseConditionalScaling_0(x, c_noise)
@@ -301,15 +342,21 @@ class E3Conv(nn.Module):
         return torch.cat(parts, -1)
 
     def _kernel_block(self, batch: GraphBatch, radial_cutoff: float):
+        """The per-forward geometry every ConvBlock shares, in the regime of
+        this call's atom count: up to 128 atoms K1's edge features (for K2),
+        above that only the positions and bonds (K5 rebuilds the rest)."""
         cdt = self.dtype or torch.float32
-        ef, bf = edge_features(
-            batch.pos.to(torch.float32).contiguous(), batch.node_mask, batch.bond_src,
-            batch.bond_dst, batch.bond_mask, radial_cutoff, self.radial_dim, cdt,
-        )
+        pos = batch.pos.to(torch.float32).contiguous()
+        bonds = (batch.bond_src, batch.bond_dst, batch.bond_mask)
+        if pos.shape[1] <= EDGE_FEATURE_ATOMS:
+            ef, bf = edge_features(pos, batch.node_mask, *bonds, radial_cutoff, self.radial_dim, cdt)
+            geometry = k2.PairFeatures(ef, bf, batch.bond_src, batch.bond_dst)
+        else:
+            geometry = k5.tiled_geometry_inputs(
+                pos, batch.node_mask, *bonds, radial_cutoff, self.radial_dim
+            )
         bond0, bond1 = self.embed_bondedness[0], self.embed_bondedness[1]
-        return lambda blk, h: blk.fused(
-            h, ef, bf, batch.bond_src, batch.bond_dst, bond0, bond1, cdt
-        )
+        return lambda blk, h: blk.fused(h, geometry, bond0, bond1, cdt)
 
     def _plain_edges(self, batch: GraphBatch, radial_cutoff):
         def attr_fn(dist, bonded: bool):

@@ -7,24 +7,28 @@ then the post-linear. `ConvBlock` wraps it as
 IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
 
 `ConvBlock.forward` is the plain path. `ConvBlock.fused` runs the whole block
-through `ops/cuda/conv_block` (the hand-written kernels on the card, their
-plain twins on the CPU): `fused_conv_block` (K2) when no gradient is
-wanted, `conv_block_trainable` (K2 forward, K4 backward) when one is.
+through the hand-written kernels on the card (their plain twins on the CPU),
+in the regime its geometry argument names, as JAX's `ConvBlock._fused_block`
+does: on `PairFeatures` (up to 128 atoms) `fused_conv_block` (K2) when no
+gradient is wanted and `conv_block_trainable` (K2 forward, K4 backward) when
+one is; on `TiledGeometry` (any size) `fused_block_tiled` (K5), forward only.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from jamun_tpu_torch.ops.cuda.conv_block import (
+    PairFeatures,
     block_master_weights,
     cast_block_weights,
     conv_block_trainable,
     fused_conv_block,
 )
+from jamun_tpu_torch.ops.cuda.fused_block_tiled import TiledGeometry, fused_block_tiled
 from jamun_tpu_torch.ops.fast_uvu import fast_uvu_messages_dense, uvu_messages
 from jamun_tpu_torch.ops.gate import Gate
 from jamun_tpu_torch.ops.graph import EdgeData
@@ -105,18 +109,18 @@ class ConvBlock(nn.Module):
     def fused(
         self,
         x: torch.Tensor,
-        ef: torch.Tensor,
-        bf: torch.Tensor,
-        bond_src: torch.Tensor,
-        bond_dst: torch.Tensor,
+        geometry: Union[PairFeatures, TiledGeometry],
         bond0: torch.Tensor,
         bond1: torch.Tensor,
         compute_dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
-        """The whole block on the per-forward edge features of
-        `ops/cuda/edge_features.edge_features`. Returns f32 [G, N, Sc + 3Vg],
-        differentiable in x, the block's parameters and bond0/bond1 when
-        autograd asks for it."""
+        """The whole block on the per-forward geometry of either regime:
+        `PairFeatures` (the edge features of `ops/cuda/edge_features`, up to
+        128 atoms) or `TiledGeometry` (`tiled_geometry_inputs`, any size).
+        Returns f32 [G, N, Sc + 3Vg]. On `PairFeatures` it is differentiable
+        in x, the block's parameters and bond0/bond1 when autograd asks for
+        it; on `TiledGeometry` a wanted gradient raises (the model sends such
+        calls to the plain path)."""
         cdt = compute_dtype or x.dtype
         conv = self.Conv_0
         masters = block_master_weights(
@@ -124,8 +128,17 @@ class ConvBlock(nn.Module):
             bond0, bond1, S=conv.S, V=conv.V,
         )
         x = x.to(cdt).contiguous()
-        if torch.is_grad_enabled() and (
+        wants_grad = torch.is_grad_enabled() and (
             x.requires_grad or any(t.requires_grad for t in masters.tensors())
-        ):
-            return conv_block_trainable(x, ef, bf, bond_src, bond_dst, masters)
-        return fused_conv_block(x, ef, bf, bond_src, bond_dst, cast_block_weights(masters, cdt))
+        )
+        if isinstance(geometry, TiledGeometry):
+            if wants_grad:
+                raise NotImplementedError(
+                    "ConvBlock.fused: the tiled kernel is forward only (JAX's "
+                    "tiled_kernel_training, ROADMAP.md queue A item 6); a call that wants a "
+                    "gradient above 128 atoms takes the plain path"
+                )
+            return fused_block_tiled(x, geometry, cast_block_weights(masters, cdt))
+        if wants_grad:
+            return conv_block_trainable(x, *geometry, masters)
+        return fused_conv_block(x, *geometry, cast_block_weights(masters, cdt))

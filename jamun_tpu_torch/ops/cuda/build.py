@@ -18,11 +18,13 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC"]
+__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC", "SOURCES"]
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+# every kernel source of the port (K1, K2, K3, K4, K5)
+SOURCES = ("edge_features", "conv_block", "e3_stack", "conv_block_bwd", "fused_block_tiled")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -74,9 +76,9 @@ def _finish(proc, tmp, out: Path) -> str:
     return log
 
 
-def build_all(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named sources in parallel; returns nvcc's log per name
-    (empty when the library was already built)."""
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile the named sources (all of them unless told) in parallel;
+    returns nvcc's log per name (empty when the library was already built)."""
     names = list(names)
     started = [_start(CSRC / f"{n}.cu") for n in names]
     return {n: _finish(*s) for n, s in zip(names, started)}

@@ -29,7 +29,7 @@ from jamun_tpu_torch.ops.cuda.edge_features import EF_GEOM
 from jamun_tpu_torch.ops.fast_uvu import uvu_messages
 
 __all__ = [
-    "BlockWeights", "block_master_weights", "cast_block_weights", "pack_block_weights",
+    "BlockWeights", "PairFeatures", "block_master_weights", "cast_block_weights", "pack_block_weights",
     "fused_conv_block", "fused_conv_block_plain", "conv_block_residuals_plain",
     "conv_block_trainable", "linear_scales", "rounded_divisor", "KERNEL", "N_RADIAL", "MAX_WIDTH",
 ]
@@ -42,6 +42,16 @@ _ARGS = [_P] * 19 + [_I] * 7 + [_P]
 KERNEL = CudaKernel("conv_block", {"conv_block_f32": _ARGS, "conv_block_bf16": _ARGS})
 _ENTRY = {torch.float32: "conv_block_f32", torch.bfloat16: "conv_block_bf16"}
 _MATRICES = ("w1", "w2", "pl0", "pl1", "lin20", "lin21", "sk0", "sk1")
+
+
+class PairFeatures(NamedTuple):
+    """What every ConvBlock of one forward reads besides its input, up to 128
+    atoms: the edge features of `edge_features` and the bond lists."""
+
+    ef: torch.Tensor  # [G, N, N, 4 + n_radial] cdt
+    bf: torch.Tensor  # [G, B, 4 + n_radial] cdt
+    bond_src: torch.Tensor  # [G, B] int64
+    bond_dst: torch.Tensor  # [G, B] int64
 
 
 class BlockWeights(NamedTuple):

@@ -20,7 +20,9 @@ import torch
 
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 
-__all__ = ["edge_features", "edge_features_plain", "packed_rows", "KERNEL", "EF_GEOM"]
+__all__ = [
+    "edge_features", "edge_features_plain", "bond_features_plain", "packed_rows", "KERNEL", "EF_GEOM",
+]
 
 EF_GEOM = 4  # channels before the radial basis: shy, shz, shx, adj
 _SQRT3 = math.sqrt(3.0)
@@ -43,6 +45,16 @@ def _features(dx, dy, dz, flag, cutoff: float, n_radial: int, cdt) -> torch.Tens
     return torch.cat([sh, flag[..., None], radial], dim=-1).to(cdt)
 
 
+def bond_features_plain(pos, bond_src, bond_dst, bond_mask, cutoff: float, n_radial: int, cdt):
+    """bf [G, B, EC] of the bonds alone (pos f32, cutoff already rounded to
+    f32): also what the tiled kernel (`ops/cuda/fused_block_tiled`) rebuilds
+    per bond, and `packed_geometry_inputs`' bf."""
+    src = torch.gather(pos, 1, bond_src[..., None].expand(-1, -1, 3))
+    dst = torch.gather(pos, 1, bond_dst[..., None].expand(-1, -1, 3))
+    bx, by, bz = (src - dst).unbind(-1)
+    return _features(bx, by, bz, bond_mask.to(torch.float32), cutoff, n_radial, cdt)
+
+
 def edge_features_plain(
     pos, node_mask, bond_src, bond_dst, bond_mask, cutoff: float, n_radial: int, cdt
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,11 +70,7 @@ def edge_features_plain(
     adj = (dist < cutoff) & node_mask[:, :, None] & node_mask[:, None, :] & ~eye
     ef = _features(dx, dy, dz, adj.to(torch.float32), cutoff, n_radial, cdt)
 
-    src = torch.gather(pos, 1, bond_src[..., None].expand(-1, -1, 3))
-    dst = torch.gather(pos, 1, bond_dst[..., None].expand(-1, -1, 3))
-    bx, by, bz = (src - dst).unbind(-1)
-    bf = _features(bx, by, bz, bond_mask.to(torch.float32), cutoff, n_radial, cdt)
-    return ef, bf
+    return ef, bond_features_plain(pos, bond_src, bond_dst, bond_mask, cutoff, n_radial, cdt)
 
 
 def edge_features(

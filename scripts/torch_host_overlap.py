@@ -5,13 +5,15 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 For each call (the whole-model kernel's launch alone, the E3Conv forward and
 `Denoiser.score` on the stack path and on the layerwise path, at the 4AA walk
-shape N = 44, G = 256, flagship width, bf16) it runs the call 20 times and
+shape N = 44, G = 256, and the forward and `Denoiser.score` on the tiled path
+above 128 atoms, K5, at N = 256, G = 64; flagship width, bf16) it runs the
+call 20 times (5 on the tiled path) and
 prints the host's time per call up to the last enqueue and the total time per
 call after a synchronise. A call whose host time equals its total time makes
 the host wait for the device somewhere (a blocking copy, an `.item()`), so
 the host cannot queue the next forward while this one's kernels run; a call
 that overlaps shows a host time below the total. Then a 101-step BAOAB walk
-on each path, in ms per step. The first line is the card's name and power
+on each path (21 steps on the tiled path), in ms per step. The first line is the card's name and power
 limit.
 """
 
@@ -46,6 +48,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_host_overlap: no CUDA device", file=sys.stderr)
         return 2
+    from chip_smoke import tiled_batch
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
@@ -59,7 +62,7 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     )
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    build_all(["edge_features", "conv_block", "e3_stack"])
+    build_all(["edge_features", "conv_block", "e3_stack", "fused_block_tiled"])
     dev = torch.device("cuda")
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
@@ -86,16 +89,26 @@ def main() -> int:
     with torch.no_grad():
         for name, den in denoisers.items():
             host_and_total(lambda: den.score(batch, SIGMA), 20, f"{name} Denoiser.score")
-    sampler = SingleMeasurementSampler(
-        BAOAB(MCMCConfig(delta=0.04, steps=101, score_fn_clip=100.0)), SIGMA
-    )
-    for name, den in denoisers.items():
+    # the tiled path: the layerwise model above 128 atoms (K5 per block, no K1)
+    big = tiled_batch(256, 64, dev)
+    big_scaled = big.replace_pos((big.pos * c_in).contiguous())
+    layerwise = models["layerwise"]
+    host_and_total(lambda: layerwise(big_scaled, cn, cutoff), 5, "tiled N=256 E3Conv forward")
+    with torch.no_grad():
+        host_and_total(lambda: denoisers["layerwise"].score(big, SIGMA), 5,
+                       "tiled N=256 Denoiser.score")
+    walks = [(name, den, batch, 101) for name, den in denoisers.items()]
+    walks.append(("tiled N=256", denoisers["layerwise"], big, 21))
+    for name, den, walk_batch, steps in walks:
+        sampler = SingleMeasurementSampler(
+            BAOAB(MCMCConfig(delta=0.04, steps=steps, score_fn_clip=100.0)), SIGMA
+        )
         gen = torch.Generator(device=dev).manual_seed(3)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sampler.walk_jump(den, batch, batch.pos, gen)
+        sampler.walk_jump(den, walk_batch, walk_batch.pos, gen)
         torch.cuda.synchronize()
-        print(f"{name} walk: {(time.perf_counter() - t0) * 1e3 / 101:.3f} ms/step", flush=True)
+        print(f"{name} walk: {(time.perf_counter() - t0) * 1e3 / steps:.3f} ms/step", flush=True)
     return 0
 
 

@@ -20,6 +20,7 @@ from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import edge_features as k1
+from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 from jamun_tpu_torch.utils.testing import make_test_batch
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +59,98 @@ def test_kernels_match_plain_twins(cuda, cdt):
         args = (x, ef, bf, batch.bond_src, batch.bond_dst, w)
         assert _rel(k2.fused_conv_block(*args), k2.fused_conv_block_plain(*args)) <= TOL[cdt]
     assert (k1.KERNEL.launches - n1, k2.KERNEL.launches - n2) == (1, 2)
+
+
+def _tiled_case(cuda, cdt, nodes, scale):
+    """A batch, its K5 geometry, a narrow model and the (block, S, V) pairs."""
+    N = max(nodes)
+    batch = make_test_batch(num_graphs=len(nodes), max_nodes=N, nodes_per_graph=nodes,
+                            max_bonds=2 * N, scale=scale, device=cuda)
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    geo = k5.tiled_geometry_inputs(batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst,
+                                   batch.bond_mask, 0.8, 32)
+    blocks = ((model.ConvBlock_0, 56, 0), (model._HiddenLayer_0.ConvBlock_0, 24, 8))
+    return batch, model, geo, blocks
+
+
+def _block_weights(model, blk, S, V, cdt):
+    return k2.pack_block_weights(
+        blk.Conv_0.radial_nn, blk.Conv_0._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
+        model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V, cdt=cdt,
+    )
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "nodes", [[136, 131, 64], [256, 200], [203, 9, 160]], ids=["N136", "N256", "N203-not-8n"]
+)
+def test_tiled_block_matches_plain_twin(cuda, cdt, nodes):
+    """K5 against its plain twin above 128 atoms, at an N that is no multiple
+    of 8 too, projector and hidden block; the degree it counted is the
+    twin's on every atom (the same adjacency), and its shared memory is what
+    the wrapper reckons."""
+    batch, model, geo, blocks = _tiled_case(cuda, cdt, nodes, 0.6)
+    G, N = batch.pos.shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n5 = k5.KERNEL.launches
+    with torch.no_grad():
+        for blk, S, V in blocks:
+            w = _block_weights(model, blk, S, V, cdt)
+            x = torch.randn((G, N, S + 3 * V), generator=gen, device=cuda).to(cdt)
+            got, deg = k5.fused_block_tiled(x, geo, w, return_degree=True)
+            want, deg_p = k5.fused_block_tiled_plain(x, geo, w, return_degree=True)
+            assert torch.isfinite(got).all() and torch.equal(deg, deg_p) and deg.max() > 8
+            assert _rel(got, want) <= TOL[cdt]
+            smem = k5.KERNEL.fn("fused_block_tiled_smem")(N, 2 * N, S, V, w.Sc, w.Vg)
+            assert smem == k5.shared_memory_bytes(N, 2 * N, S, V, w.Sc, w.Vg)
+    assert k5.KERNEL.launches - n5 == 2
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
+    """K5 against K2 on K1's features at N = 112, where both run: the same
+    device code over the same pairs in the same order."""
+    batch, model, geo, blocks = _tiled_case(cuda, cdt, [112, 97, 40], 0.45)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ef, bf = k1.edge_features(*geo[:7], cdt)
+    with torch.no_grad():
+        for blk, S, V in blocks:
+            w = _block_weights(model, blk, S, V, cdt)
+            x = torch.randn((3, 112, S + 3 * V), generator=gen, device=cuda).to(cdt)
+            got, deg = k5.fused_block_tiled(x, geo, w, return_degree=True)
+            want, _, deg2 = k2.fused_conv_block(x, ef, bf, batch.bond_src, batch.bond_dst, w,
+                                                residuals=True)
+            assert torch.equal(deg, deg2)
+            assert _rel(got, want) <= 1e-6
+
+
+def test_model_above_128_atoms_takes_the_tiled_kernel(cuda):
+    """On the card the model runs N > 128: K5 once per block and K1 never
+    without a gradient, the plain path (no launch) with one; f32 output
+    against the CPU's plain path; "auto" refuses only where JAX goes sparse."""
+    batch = make_test_batch(num_graphs=2, max_nodes=136, nodes_per_graph=[136, 131],
+                            max_bonds=272, scale=0.6, device=cuda)
+    arch = dict(irreps_hidden="24x0e + 8x1e", n_layers=2, seed=0)
+    model = E3Conv(**arch, device=cuda).requires_grad_(False)
+    model.output_gain.fill_(1.0)
+    ref = E3Conv(**arch, device="cpu", plain=True).requires_grad_(False)
+    ref.load_state_dict(model.state_dict())
+    c_noise = torch.full((1,), -0.8, device=cuda)
+    counts = lambda: tuple(k.KERNEL.launches for k in (k1, k2, k3, k4, k5))  # noqa: E731
+    start = counts()
+    out = model(batch, c_noise, 0.8)
+    assert tuple(b - a for a, b in zip(start, counts())) == (0, 0, 0, 0, 3)
+    assert _rel(out.cpu(), ref(batch.to("cpu"), c_noise.cpu(), 0.8)) <= 1e-4
+    start = counts()
+    model.requires_grad_(True)
+    pos = batch.pos.clone().requires_grad_()
+    model(batch.replace_pos(pos), c_noise, 0.8).square().sum().backward()
+    assert counts() == start and float(pos.grad.abs().max()) > 0
+    big = make_test_batch(num_graphs=1, max_nodes=512, max_bonds=1024, scale=0.8, device=cuda)
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        model.requires_grad_(False)(big, c_noise, 0.8)
+    dense = E3Conv(**arch, neighbor_mode="dense", device=cuda).requires_grad_(False)
+    assert torch.isfinite(dense(big, c_noise, 0.8)).all()
 
 
 def _small(cuda, cdt):
@@ -109,8 +202,9 @@ def test_trainable_block_grads_match_cpu(cuda):
         b.zero_grad(set_to_none=True)
         bond = model.embed_bondedness.detach().to(dev)
         xd = x.to(dev).requires_grad_()
-        out = b.fused(xd, ef.to(dev), bf.to(dev), batch.bond_src.to(dev), batch.bond_dst.to(dev),
-                      bond[0], bond[1])
+        geometry = k2.PairFeatures(ef.to(dev), bf.to(dev), batch.bond_src.to(dev),
+                                   batch.bond_dst.to(dev))
+        out = b.fused(xd, geometry, bond[0], bond[1])
         (out * cot.to(dev)).sum().backward()
         grads.append({"x": xd.grad.cpu(), **{n: q.grad.cpu() for n, q in b.named_parameters()}})
     assert set(grads[0]) == set(grads[1]) and len(grads[0]) == 16
@@ -167,15 +261,17 @@ def test_stack_kernel_refuses_what_it_cannot_take(cuda):
     assert torch.isfinite(model(batch, c_noise, 0.8)).all() and k3.KERNEL.launches == n3
 
 
-@pytest.mark.parametrize("fused_stack", [True, False], ids=["stack", "layerwise"])
-def test_walk_never_makes_the_host_wait(cuda, fused_stack):
+@pytest.mark.parametrize("fused_stack,n_atoms", [(True, 19), (False, 19), (False, 136)],
+                         ids=["stack", "layerwise", "tiled"])
+def test_walk_never_makes_the_host_wait(cuda, fused_stack, n_atoms):
     """A walk step queues its kernels without waiting for the device (sync
-    debug mode raises on a blocking copy or an `.item()`), on both paths."""
+    debug mode raises on a blocking copy or an `.item()`), on every path."""
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
     from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
 
-    batch = make_test_batch(num_graphs=3, max_nodes=19, max_bonds=40, scale=0.35, device=cuda)
+    batch = make_test_batch(num_graphs=3, max_nodes=n_atoms, max_bonds=2 * n_atoms + 2,
+                            scale=0.35, device=cuda)
     model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0,
                    fused_stack=fused_stack).requires_grad_(False)
     den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.5))

@@ -118,7 +118,7 @@ def test_conv_block_plain_matches_tpu_kernel(irreps_in):
         got = fused_conv_block_plain(torch.from_numpy(x), ef, bf, tb.bond_src, tb.bond_dst, w)
         # the module path through the wrapper gives the same numbers
         via_module = tm.fused(
-            torch.from_numpy(x), ef, bf, tb.bond_src, tb.bond_dst,
+            torch.from_numpy(x), k2.PairFeatures(ef, bf, tb.bond_src, tb.bond_dst),
             torch.from_numpy(bond[0]), torch.from_numpy(bond[1]),
         )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=2e-5)
@@ -256,8 +256,8 @@ def test_trainable_block_grads_match_jax():
 
     ef, bf = _port_features(tb)
     xt = torch.from_numpy(x).requires_grad_()
-    out = tm.fused(xt, ef, bf, tb.bond_src, tb.bond_dst, torch.from_numpy(bond[0]),
-                   torch.from_numpy(bond[1]))
+    out = tm.fused(xt, k2.PairFeatures(ef, bf, tb.bond_src, tb.bond_dst),
+                   torch.from_numpy(bond[0]), torch.from_numpy(bond[1]))
     assert out.grad_fn is not None and "TrainableConvBlock" in type(out.grad_fn).__name__
     (out * torch.from_numpy(cot)).sum().backward()
 
