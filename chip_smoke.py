@@ -334,14 +334,17 @@ def tiled_batch(n_atoms: int, num_graphs: int, dev, nodes_per_graph=None):
     )
 
 
-def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutoff: float) -> list:
-    """Phase 2, K5: the tiled ConvBlock against its plain version at the
-    N = 256 walk shape and on a ragged batch (N = 203, no multiple of 8),
-    bf16 and f32, projector and hidden block, the degree it counted equal to
-    the plain version's on every atom; then against K2 on K1's features at
-    N = 112."""
-    shapes = {
+def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutoff: float,
+                            shapes=None) -> list:
+    """Phase 2, K5: the tiled ConvBlock against its plain version at both
+    walk shapes (N = 256, G = 64 and N = 512, G = 16) and on a ragged batch
+    (N = 203, no multiple of 8), bf16 and f32, projector and hidden block,
+    the degree it counted equal to the plain version's on every atom; then
+    against K2 on K1's features at N = 112. `shapes` (label -> batch) gives
+    other batches to hold it against its plain version on."""
+    shapes = shapes or {
         "N256": tiled_batch(256, 64, dev),
+        "N512": tiled_batch(512, 16, dev),
         "ragged": tiled_batch(203, 6, dev, [203, 197, 160, 131, 64, 9]),
         "N112": batches["5AA"],
     }
@@ -369,7 +372,6 @@ def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutof
                     model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V, cdt=cdt,
                 )
                 smem = k5.KERNEL.fn("fused_block_tiled_smem")(N, B, S, V, w.Sc, w.Vg)
-                assert smem == k5.shared_memory_bytes(N, B, S, V, w.Sc, w.Vg), smem
                 got, deg = k5.fused_block_tiled(x, geo, w, return_degree=True)
                 torch.cuda.synchronize()
                 assert torch.isfinite(got).all(), f"K5 {tag}: non-finite output"
@@ -406,7 +408,7 @@ def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutof
                     shape=tag, against=against, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                     ms=cuda_time_ms(lambda: k5.fused_block_tiled(x, geo, w), 5) if timed else None,
                     plain_ms=(cuda_time_ms(lambda: k5.fused_block_tiled_plain(x, geo, w), 1)
-                              if label == "N256" else None),
+                              if timed and against == "plain" else None),
                     bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                     visited_pairs=n_pairs, share_inside_cutoff=share, flops=flops, bytes=nbytes,
                     smem_bytes=smem, dtype=str(cdt), N=N, G=G, block=block_name, label=label,
@@ -447,13 +449,16 @@ def tiled_walks(denoisers: dict, dev, card: str, kernels: dict):
     steps (`neighbor_mode="dense"`). K5's work follows the pairs inside the
     cutoff, and a walk under random weights is not held together by a
     trained score, so the share of pairs inside the cutoff is printed at the
-    first and the last saved frame. Returns the walks' numbers, the denoiser
-    calls made and the N = 256 batch."""
+    first and the last saved frame, each with the time of one
+    `Denoiser.score` call on that fixed frame (a steady load, after the
+    walk's launches were read). Returns the walks' numbers, the denoiser
+    calls the walks made, K5's launches in them, and the N = 256 batch at
+    its start and with the positions of its walk's last frame."""
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
     from jamun_tpu_torch.sampling.sampler import Sampler
     from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
 
-    walks, calls, batch256 = {}, 0, None
+    walks, calls, launched, batch256, batch256_end = {}, 0, 0, None, None
     for label, n_atoms, num_graphs, steps in (("N256", 256, 64, 101), ("N512", 512, 16, 21)):
         batch = tiled_batch(n_atoms, num_graphs, dev)
         G, N = batch.pos.shape[:2]
@@ -473,6 +478,7 @@ def tiled_walks(denoisers: dict, dev, card: str, kernels: dict):
         peak = torch.cuda.max_memory_allocated() - held
         used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
         calls += steps + 1  # initial score, steps - 1 updates, the final jump
+        launched += used["fused_block_tiled"]
         assert used == {"edge_features": 0, "conv_block": 0, "e3_stack": 0,
                         "fused_block_tiled": 6 * (steps + 1)}, (label, used)
         check_samples(out[0], G, N, steps, label)
@@ -480,28 +486,34 @@ def tiled_walks(denoisers: dict, dev, card: str, kernels: dict):
         ef_bytes_bf16 = G * N * N * 36 * 2
         assert peak < ef_bytes_bf16, (label, peak, ef_bytes_bf16)
         walk_s = sum(times.seconds)
-        shares = [
-            share_inside_cutoff(
-                torch.from_numpy(np.stack([entry["y_traj"][:, frame] for entry in out[0]])).to(dev),
-                batch.node_mask, denoisers[label], SIGMA,
+        frames = [
+            batch.replace_pos(
+                torch.from_numpy(np.stack([entry["y_traj"][:, frame] for entry in out[0]])).to(dev)
             )
             for frame in (0, steps - 1)
         ]
+        shares = [share_inside_cutoff(f.pos, batch.node_mask, denoisers[label], SIGMA) for f in frames]
+        with torch.no_grad():
+            score_ms = [cuda_time_ms(lambda f=f: denoisers[label].score(f, SIGMA), 5) for f in frames]
+        if label == "N256":
+            batch256_end = frames[1]
         walks[label] = dict(
             N=N, G=G, steps=steps, frames=steps, seconds=dt, walk_seconds=walk_s,
             ms_per_step=walk_s * 1e3 / steps, ms_per_sample=walk_s * 1e3 / (G * steps),
             peak_bytes_above_start=peak, edge_feature_bytes_bf16=ef_bytes_bf16,
             share_inside_cutoff_first_frame=shares[0], share_inside_cutoff_last_frame=shares[1],
+            score_ms_first_frame=score_ms[0], score_ms_last_frame=score_ms[1],
         )
         log(f"phase 3: tiled walk-jump {label} N={N} G={G} steps={steps} through Sampler.sample: "
             f"walk {walk_s:.3f} s, with unbatching {dt:.3f} s, "
             f"{walks[label]['ms_per_sample']:.6f} ms/sample, {walks[label]['ms_per_step']:.3f} "
             f"ms/step on {card}; {100 * shares[0]:.2f}% of the ordered pairs inside the cutoff at "
-            f"the first frame, {100 * shares[1]:.2f}% at the last; "
+            f"the first frame (one score call there {score_ms[0]:.3f} ms), {100 * shares[1]:.2f}% at "
+            f"the last ({score_ms[1]:.3f} ms); "
             f"K5 {used['fused_block_tiled']} launches, K1/K2/K3 none; peak "
             f"device memory {peak / 2**20:.1f} MiB above the start (one [G, N, N, 36] bf16 "
             f"tensor: {ef_bytes_bf16 / 2**20:.1f} MiB)")
-    return walks, calls, batch256
+    return walks, calls, launched, batch256, batch256_end
 
 
 def check_tiled_score(dense_models: dict, config, dev) -> dict:
@@ -1060,16 +1072,21 @@ def main() -> int:
     den_tiled = Denoiser(models[torch.bfloat16], config)
     for k in forward_kernels.values():
         k.KERNEL.launches = 0
-    tiled, tiled_calls, batch256 = tiled_walks(
+    tiled, tiled_calls, tiled_launches, batch256, batch256_end = tiled_walks(
         {"N256": den_tiled, "N512": Denoiser(dense_models[torch.bfloat16], config)}, dev, card,
         forward_kernels,
     )
     walks.update(tiled)
-    launches["fused_block_tiled"] = k5.KERNEL.launches
+    launches["fused_block_tiled"] = tiled_launches
     log(f"phase 3: tiled path launches K5 {launches['fused_block_tiled']} over {tiled_calls} "
         f"denoiser calls; K1 {k1.KERNEL.launches}, K2 {k2.KERNEL.launches}, K3 {k3.KERNEL.launches}")
     assert launches["fused_block_tiled"] == 6 * tiled_calls, (launches, tiled_calls)
     assert k1.KERNEL.launches == 0 and k2.KERNEL.launches == 0 and k3.KERNEL.launches == 0
+    # K5 once more against its plain version, at the density the walk ended at
+    results["fused_block_tiled"] += check_fused_block_tiled(
+        k1, k2, k5, models, batches, dev, c_in, cutoff, shapes={"N256 walk end": batch256_end}
+    )
+    del batch256_end
 
     # ---- phase 4: the output against references ----
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,

@@ -26,7 +26,12 @@ them (`jamun_tpu/models/e3conv.py:332-404`):
     wants a gradient above 128 atoms takes it wholesale, on either device,
     as JAX's training dispatch sends such calls to XLA; position gradients
     work there. `plain=True` forces it (CPU only): the reference the kernel
-    path is held to.
+    path is held to. A call "wants a gradient" when autograd is on and the
+    positions or any parameter require one, so inference above 128 atoms
+    must run under `torch.no_grad()` (or with `requires_grad_(False)`):
+    otherwise it leaves K5 for this path and its [G, N, N, 704] messages per
+    layer. The samplers of `sampling/walkjump.py` turn autograd off
+    themselves.
 `neighbor_mode="auto"` (the default) keeps the dense paths below JAX's
 thresholds (512 atoms, 256 for a call that wants a gradient) and raises
 where JAX would go sparse; `"dense"` runs the dense paths at any size.

@@ -38,14 +38,13 @@ from jamun_tpu_torch.ops.cuda.edge_features import edge_features_plain
 
 __all__ = [
     "TiledGeometry", "tiled_geometry_inputs", "fused_block_tiled",
-    "fused_block_tiled_plain", "shared_memory_bytes", "KERNEL", "MAX_ATOMS", "MAX_GRAPHS",
-    "MAX_SHARED_BYTES",
+    "fused_block_tiled_plain", "KERNEL", "MAX_ATOMS", "MAX_GRAPHS", "MAX_SHARED_BYTES",
 ]
 
 MAX_ATOMS = (1 << 19) - 1  # the pair list's index field (`conv_block::MAX_INDEX`)
 MAX_GRAPHS = 65535  # one graph per step of the grid's second axis
 MAX_SHARED_BYTES = 232448  # shared memory one block may use on sm_90
-_TD, _PT, _H = 8, 32, 64  # dst atoms per CTA, pairs per tile, radial hidden width
+_PLAIN_PAIRS = 1 << 19  # dense pairs the plain version holds at a time
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 19 + [_F] + [_I] * 7 + [_P]
@@ -97,16 +96,15 @@ def tiled_geometry_inputs(
 
 
 def fused_block_tiled_plain(
-    x, geo: TiledGeometry, w: BlockWeights, return_degree: bool = False,
-    max_pairs: int = 1 << 19,
+    x, geo: TiledGeometry, w: BlockWeights, return_degree: bool = False
 ):
     """The plain PyTorch version of the kernel: the same function with the
     same rounding points, composed from K1's and K2's plain versions (edge
     features of every pair in the compute dtype, then the aggregation and the
     epilogue), so K5, K2 and both twins round alike. It does build
-    [G, N, N, *] tensors, `max_pairs` dense pairs' worth of graphs at a time."""
+    [G, N, N, *] tensors, `_PLAIN_PAIRS` dense pairs' worth of graphs at a time."""
     G, N, _ = x.shape
-    step = max(1, max_pairs // max(N * N, 1))
+    step = max(1, _PLAIN_PAIRS // max(N * N, 1))
     outs, degs = [], []
     for g0 in range(0, G, step):
         sl = slice(g0, g0 + step)
@@ -121,19 +119,6 @@ def fused_block_tiled_plain(
     return (out, torch.cat(degs)) if return_degree else out
 
 
-def shared_memory_bytes(N: int, B: int, S: int, V: int, Sc: int, Vg: int) -> int:
-    """The dynamic shared memory of one CTA (`conv_block::scratch_words` plus
-    the positions, the mask and a tile's distances): it grows with N and B
-    through the pair list of TD * N + B entries."""
-    nt = max(64, -(-(2 * S + 3 * V) // 32) * 32)
-    floats = (
-        N_RADIAL * _H + _H * _PT + _PT * N_RADIAL + _PT * 3 + _TD + _TD * 3 * nt
-        + _TD * (Sc + Vg) + _TD * 3 * Vg + _TD * Sc + _TD * 3 * Vg
-    )
-    ints = 2 * _PT + _TD * N + B + 1
-    return 4 * (floats + ints + 4 * N + _PT)
-
-
 def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: bool = False):
     """One ConvBlock from positions -> f32 [G, N, Sc + 3Vg]. CPU tensors take
     the plain version; CUDA tensors launch the kernel. With
@@ -141,7 +126,9 @@ def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: boo
     pairs and bonds per destination atom).
 
     Any N below 2^19 that fits a CTA's shared memory goes, N <= 128 and N not
-    divisible by 8 included. The TPU kernel's bounds (`N % 8 == 0`, a dst
+    divisible by 8 included; the shared memory grows with N and B through the
+    pair list of 8 N + B entries, the kernel's library reckons it
+    (`fused_block_tiled_smem`) and what a block cannot hold raises. The TPU kernel's bounds (`N % 8 == 0`, a dst
     block that divides N, `S >= 32`, `V == 0 or V >= 16`) come from Mosaic's
     tiling and are not copied."""
     _refuse_position_gradient(geo.pos)
@@ -156,7 +143,7 @@ def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: boo
     B = geo.bond_src.shape[1]
     S, V, Sc, Vg = w.S, w.V, w.Sc, w.Vg
     W = 2 * S + 3 * V
-    smem = shared_memory_bytes(N, B, S, V, Sc, Vg)
+    smem = KERNEL.fn("fused_block_tiled_smem")(N, B, S, V, Sc, Vg)
     if (
         W > MAX_WIDTH or geo.n_radial != N_RADIAL or N > MAX_ATOMS or B > MAX_ATOMS
         or G > MAX_GRAPHS or smem > MAX_SHARED_BYTES

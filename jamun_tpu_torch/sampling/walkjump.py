@@ -71,7 +71,10 @@ class _HostFrames:
 
 @dataclasses.dataclass
 class SingleMeasurementSampler:
-    """Single-measurement walk-jump sampler."""
+    """Single-measurement walk-jump sampler. The walk and the jump run with
+    autograd off, so no denoiser call in them wants a gradient whatever the
+    parameters' `requires_grad` says, and the model stays on its forward-only
+    kernels (the stack kernel, and the tiled kernel above 128 atoms)."""
 
     mcmc: _SplittingSampler
     sigma: float

@@ -11,6 +11,8 @@ numpy seeds and cross over with `from_jax_params`. Each tolerance is written
 beside its check; all are relative to the reference's largest value.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -191,7 +193,7 @@ def test_geometry_refuses_position_gradients(grad_mode):
 
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_tiled_twin_matches_conv_block_twin(cdt):
+def test_tiled_twin_matches_conv_block_twin(cdt, monkeypatch):
     """K5's twin against K2's twin on K1's twin (`fused_conv_block_plain` on
     `edge_features_plain`): the same rounding points, so bit for bit in f32
     and bf16, also when the twin walks the graphs in chunks; and the degree
@@ -208,7 +210,8 @@ def test_tiled_twin_matches_conv_block_twin(cdt):
         want = k2.fused_conv_block_plain(xt, ef, bf, tb.bond_src, tb.bond_dst, w)
         _, deg_want = k2.conv_block_residuals_plain(xt, ef, bf, tb.bond_src, tb.bond_dst, w)
         got, deg = k5.fused_block_tiled_plain(xt, geo, w, return_degree=True)
-        chunked = k5.fused_block_tiled_plain(xt, geo, w, max_pairs=1)  # one graph at a time
+        monkeypatch.setattr(k5, "_PLAIN_PAIRS", 1)  # one graph at a time
+        chunked = k5.fused_block_tiled_plain(xt, geo, w)
     assert got.dtype == torch.float32 and float(want.abs().max()) > 0.1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(chunked, want, rtol=0, atol=0)
@@ -216,19 +219,15 @@ def test_tiled_twin_matches_conv_block_twin(cdt):
 
 
 def test_shared_memory_and_limits():
-    """The CTA's shared memory grows with N and B through the pair list; the
-    flagship block fits at N = 512 with 1100 bonds and stops fitting long
-    before the pair index runs out."""
-    flagship = (120, 32, 120, 32)
-    at_512 = k5.shared_memory_bytes(512, 1100, *flagship)
-    assert at_512 == 4 * (
-        32 * 64 + 64 * 32 + 32 * 32 + 96 + 8 + 8 * 3 * 352 + 8 * 152 + 8 * 96 + 8 * 120 + 8 * 96
-        + 64 + 8 * 512 + 1100 + 1 + 4 * 512 + 32
-    )
-    assert at_512 < k5.MAX_SHARED_BYTES // 2
-    assert k5.shared_memory_bytes(512, 1100, 56, 0, 120, 32) < at_512  # the projector: 128 threads
-    assert k5.shared_memory_bytes(4096, 8192, *flagship) > k5.MAX_SHARED_BYTES
-    assert k5.MAX_ATOMS == 2**19 - 1 and k5.KERNEL.name == "fused_block_tiled"
+    """The limits the wrapper holds a launch to: the pair list's index field,
+    the grid's graph axis and a block's shared memory, which the kernel's
+    library reckons itself (the list of 8 N + B entries grows it)."""
+    assert k5.MAX_ATOMS == 2**19 - 1 and k5.MAX_GRAPHS == 65535
+    assert k5.MAX_SHARED_BYTES == 227 * 1024
+    assert k5.KERNEL.name == "fused_block_tiled" and k5.KERNEL.source.name == "fused_block_tiled.cu"
+    assert k5.KERNEL.entries["fused_block_tiled_smem"] == [ctypes.c_int] * 6
+    assert "fused_block_tiled_smem" in k5.KERNEL.source.read_text()
+    assert 4 * (8 * 8192 + 8192) > k5.MAX_SHARED_BYTES  # the list alone at N = 8192
 
 
 # ---- the model above 128 atoms ----
@@ -419,6 +418,25 @@ def test_trainer_fit_takes_a_batch_above_128(monkeypatch):
     logged = {k: v for step, m in trainer.metrics for k, v in m.items() if step == 1}
     assert np.isfinite(logged["train/loss"]) and np.isfinite(logged["val/loss"])
     assert logged["train/grad_norm"] > 0
+
+
+def test_walk_with_trainable_parameters_stays_on_the_tiled_kernel(monkeypatch):
+    """`Sampler.sample` at N = 136 with a model whose parameters still ask for
+    a gradient: the walk and the jump run with autograd off, so every
+    denoiser call takes K5 (three blocks each) and none the plain path."""
+    from jamun_tpu_torch.sampling.sampler import Sampler
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    spy = _Spy(monkeypatch)
+    tb = make_test_batch(**BIG, device="cpu")
+    model = E3Conv(**ARCH, device="cpu", seed=0)
+    model.output_gain.data.fill_(1.0)
+    assert all(p.requires_grad for p in model.parameters()) and torch.is_grad_enabled()
+    den = Denoiser(model, DenoiserConfig(1.0, 0.3))
+    cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=3, score_fn_clip=100.0)
+    out = Sampler(device="cpu").sample(den, SingleMeasurementSampler(BAOAB(cfg), SIGMA), 1, tb, seed=2)
+    assert spy.take() == {"K5": 3 * (3 + 1)}  # the initial score, two updates, the final jump
+    assert all(np.isfinite(entry["sample"]).all() for entry in out[0])
 
 
 def test_baoab_step_n136_matches_jax(big):
