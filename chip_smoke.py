@@ -16,7 +16,13 @@ Phases (any failure exits non-zero; nothing is caught):
      geometry rebuilt from the positions) at N = 256, G = 64 and on a ragged
      batch whose N is no multiple of 8, projector and hidden block, with the
      degree it counted held to its plain version's exactly, and against K2 at
-     N = 112;
+     N = 112; the sparse path's kernels on `bench.py`'s chain geometry
+     (N = 512, G = 8 with the list of one forward and with the skin-1.0
+     Verlet list, N = 1024, G = 2, a ragged N = 203): the edge features on a
+     cached list (K7), mask and indices exactly, and the messages (K6) for
+     the projector and a hidden block, on the model's attributes and on
+     K7's radial half, the degree exactly; both once more at the load the
+     cached N = 512 walk of phase 3d ends at;
   3. drive the main paths at full flagship width with random weights from a
      seed, launch counts zeroed just before each and read just after:
      (a) the stack path through the sampling loop, `Sampler.sample` ->
@@ -34,12 +40,23 @@ Phases (any failure exits non-zero; nothing is caught):
      `neighbor_mode="dense"`; K5 six times per denoiser call, K1, K2 and K3
      not at all; the peak device memory of the N = 256 walk must stay below
      what one [G, N, N, 36] bf16 tensor would take;
+     (d) the sparse path through `Sampler.sample` with the default
+     `neighbor_mode="auto"`: N = 512, G = 8, 101 BAOAB steps on Verlet
+     lists (`neighbor_skin=1.0`) with `nbr_geom_kernel` off and on, and
+     N = 1024, G = 2, 101 steps with the list of each forward; K6 six times
+     per denoiser call, K7 once per cached score call of the
+     `nbr_geom_kernel` walk and never otherwise, K1, K2, K3, K5 never; the
+     rebuild count, one list build timed, the overflow `Sampler` reported,
+     the kept slots and one score call on the first and the last frame;
   4. check the output: finite, the expected shape, both kernel paths' f32
      score against the CPU plain path on a small input, and E(3)
-     equivariance of both, and the same for the K5 path at N = 256; a short walk on each path with PyTorch's sync
-     debug mode set to raise (no step waits for the device); torch.profiler traces of a short 4AA walk on
-     each path (device time by kernel, device busy share, device ops per
-     forward), the N = 256 walk included;
+     equivariance of both, the same for the K5 path at N = 256 and for the
+     sparse path (K6) at N = 512, G = 2; a short walk on each path with
+     PyTorch's sync debug mode set to raise (no step waits for the device),
+     the sparse path's cached and uncached walks included; torch.profiler
+     traces of a short 4AA walk on each path (device time by kernel, device
+     busy share, device ops per forward), the N = 256 walk and the cached
+     N = 512 sparse walk included;
   5. training: K4 (the ConvBlock backward) against its plain version for
      the projector and a hidden block at the training shape (G = 32, N = 48,
      44 atoms) and at N = 112 (G = 32), bf16 and f32, timed; then the second
@@ -52,7 +69,10 @@ Phases (any failure exits non-zero; nothing is caught):
      then training above 128 atoms: a few `Trainer.fit` steps at N = 256,
      G = 4 in bf16, which take the plain path on the card (every kernel's
      launch count stays 0), with ms/step and peak memory, and an EMA
-     validation, which takes K5.
+     validation, which takes K5; then a few `Trainer.fit` steps with the
+     default "auto" at N = 256, G = 4 (chain positions), which take the
+     plain sparse path (every launch count 0, a finite loss, the cap's
+     overflow logged).
 `--out FILE` writes every number as JSON. The line before the last is a
 JSON object of per-kernel numbers; the last line is {"ok": true, "device":
 {...}}.
@@ -60,6 +80,7 @@ JSON object of per-kernel numbers; the last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -557,6 +578,315 @@ def check_tiled_score(dense_models: dict, config, dev) -> dict:
     return out
 
 
+NBR_SKIN = 1.0  # nm of the walk's coordinates: `bench.py`'s Verlet skin on the sparse path
+
+
+def chain_batch(n_atoms: int, num_graphs: int, dev, nodes_per_graph=None):
+    """`bench.py`'s sparse shape (`bench.py:259-281`): chain-bonded graphs of
+    `make_test_batch` at worm-like-chain positions (`make_chain_positions`,
+    seed 0); the positions of padding atoms are zero."""
+    from jamun_tpu_torch.utils.testing import make_chain_positions, make_test_batch
+
+    batch = make_test_batch(
+        num_graphs=num_graphs, max_nodes=n_atoms,
+        nodes_per_graph=nodes_per_graph or [n_atoms] * num_graphs, max_bonds=2 * n_atoms,
+        scale=0.35, device=dev,
+    )
+    pos = torch.from_numpy(make_chain_positions(num_graphs, n_atoms, seed=0)).to(dev)
+    return batch.replace_pos(pos * batch.node_mask[..., None])
+
+
+def check_nbr_kernels(k6, k7, models, dev, c_in: float, cutoff: float, shapes=None) -> dict:
+    """Phase 2, K6 and K7 against their plain versions, bf16 and f32, on
+    `bench.py`'s chain geometry: N = 512, G = 8 with the list of one forward
+    and with the skin-1.0 Verlet list, N = 1024, G = 2, and a ragged batch
+    (N = 203). K7 on each list; K6 for the projector and a hidden block on
+    the model's edge attributes (A = 64), and on the cached N = 512 list also
+    on K7's radial half (A = 32, the bondedness block folded into b1). The
+    degree, the mask and the kept slots' indices must be exactly equal. The
+    bounds count the kept slots only (the data's work, not K's). `shapes`
+    (label -> (batch, cached)) gives other batches to hold them on."""
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+
+    shapes = shapes or {
+        "N512": (chain_batch(512, 8, dev), False),
+        "N512 cached": (chain_batch(512, 8, dev), True),
+        "N1024": (chain_batch(1024, 2, dev), False),
+        "ragged": (chain_batch(203, 3, dev, [203, 190, 150]), False),
+    }
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = {"nbr_conv": [], "nbr_edge_features": []}
+    for label, (batch, cached) in shapes.items():
+        G, N = batch.pos.shape[:2]
+        scaled = batch.replace_pos((batch.pos * c_in).contiguous())
+        list_cutoff = cutoff + NBR_SKIN * c_in if cached else cutoff
+        idx, superset, overflow = capped_neighbor_lists(scaled.pos, batch.node_mask, list_cutoff, 32)
+        K, slots = idx.shape[-1], idx.numel()
+        in_list = int(superset.sum())
+        for cdt in (torch.bfloat16, torch.float32):
+            dt = str(cdt).split(".")[-1]
+            tag = f"{label} N={N} G={G} {dt}"
+            model = models[cdt]
+            args7 = (scaled.pos, idx, superset, cutoff, 32, cdt)
+            got7 = k7.nbr_edge_features(*args7)
+            want7 = k7.nbr_edge_features_plain(*args7)
+            torch.cuda.synchronize()
+            mismatch = int((got7[2] != want7[2]).sum()) + int((got7[3] != want7[3]).sum())
+            assert mismatch == 0, f"K7 {tag}: {mismatch} mask or index entries differ"
+            abs_e, rel_e = map(max, zip(rel_err(got7[0], want7[0]), rel_err(got7[1], want7[1])))
+            assert rel_e <= TOL[cdt], f"K7 {tag}: rel err {rel_e:.3g} > {TOL[cdt]}"
+            kept = int(got7[2].sum(dtype=torch.float64))
+            esz = got7[0].element_size()
+            k7_bytes = scaled.pos.numel() * 4 + slots * (8 + 1) + slots * ((4 + 32) * esz + 4 + 8)
+            k7_flops = slots * (32 * 7 + 30)  # per slot: 32 Gaussians, the distance, the harmonics
+            t_ops, t_bytes = k7_flops / PEAK_FLOPS[torch.float32] * 1e3, k7_bytes / PEAK_BYTES_PER_S * 1e3
+            row = dict(
+                shape=tag, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
+                ms=cuda_time_ms(lambda: k7.nbr_edge_features(*args7), 20),
+                plain_ms=cuda_time_ms(lambda: k7.nbr_edge_features_plain(*args7), 3),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                slots=slots, in_list=in_list, kept=kept, bytes=k7_bytes, dtype=str(cdt), N=N, G=G,
+                label=label,
+            )
+            rows["nbr_edge_features"].append(row)
+            log(f"phase 2: K7 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}), "
+                f"mask and indices equal; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); {slots} slots, {in_list} in the "
+                f"list, {kept} kept ({100 * kept / slots:.1f}%), overflow {overflow.tolist()}")
+
+            edges, _ = model._sparse_edges(scaled, cutoff, (idx, superset) if cached else None, True)
+            variants = [("A64", edges)]
+            if cached:  # K7's features, as the `nbr_geom_kernel` walk feeds K6
+                variants.append(("A32", dataclasses.replace(
+                    edges, sh_nbr=got7[0], attr_nbr=got7[1], nbr_mask=got7[2], nbr_idx=got7[3],
+                )))
+            for variant, ed in variants:
+                for block_name, blk, S, V in (
+                    ("projector", model.ConvBlock_0, 56, 0),
+                    ("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32),
+                ):
+                    x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                    args6 = blk.Conv_0.nbr_kernel_args(x, ed)
+                    got, deg = k6.nbr_uvu_conv(*args6)
+                    want, deg_p = k6.nbr_uvu_conv_plain(*args6)
+                    torch.cuda.synchronize()
+                    name = f"K6 {block_name} {variant} {tag}"
+                    assert torch.isfinite(got).all(), f"{name}: non-finite output"
+                    deg_mismatch = int((deg != deg_p).sum())
+                    assert deg_mismatch == 0, f"{name}: the degree differs on {deg_mismatch} atoms"
+                    abs_e, rel_e = rel_err(got, want)
+                    assert rel_e <= TOL[cdt], f"{name}: rel err {rel_e:.3g} > {TOL[cdt]}"
+                    A, Wd = args6[2].shape[-1], 2 * S + 3 * V
+                    n_kept = int(deg.sum(dtype=torch.float64))
+                    flops = 2 * n_kept * (A * 64 + 64 * Wd)
+                    nbytes = (
+                        x.numel() * x.element_size() + args6[4].numel() * 4
+                        + n_kept * ((4 + A) * args6[1].element_size() + 8)
+                        + sum(t.numel() * t.element_size() for t in args6[5:9])
+                        + got.numel() * 4 + deg.numel() * 4
+                    )
+                    t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+                    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                    row = dict(
+                        shape=f"{block_name} {variant} {tag}", max_abs_err=abs_e, max_rel_err=rel_e,
+                        tol=TOL[cdt], ms=cuda_time_ms(lambda: k6.nbr_uvu_conv(*args6), 10),
+                        plain_ms=cuda_time_ms(lambda: k6.nbr_uvu_conv_plain(*args6), 2),
+                        bound_ms=max(t_ops, t_bytes),
+                        bound_by="operations" if t_ops >= t_bytes else "bytes",
+                        kept_slots=n_kept, slots=slots, flops=flops, bytes=nbytes, dtype=str(cdt),
+                        N=N, G=G, block=block_name, variant=variant, label=label,
+                    )
+                    rows["nbr_conv"].append(row)
+                    log(f"phase 2: {name}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
+                        f"(tol {TOL[cdt]}), degree equal on all atoms; kernel {row['ms']:.4f} ms, "
+                        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                        f"({row['bound_by']}), {n_kept} kept slots of {slots}")
+                    del got, want, deg, deg_p
+            del got7, want7, edges, variants
+            torch.cuda.empty_cache()
+    return rows
+
+
+def sparse_walks(den, den_geom, dev, card: str, kernels: dict):
+    """Phase 3d: the sparse path through `Sampler.sample` at full flagship
+    width with the default `neighbor_mode="auto"`: N = 512, G = 8, 101 BAOAB
+    steps on the skin-1.0 Verlet list with `nbr_geom_kernel` off and on, and
+    N = 1024, G = 2, 101 steps with the list built at every forward. Every
+    launch count is set to 0 just before each walk and read just after: K6
+    six times per denoiser call; K7 once per cached score call of the
+    `nbr_geom_kernel` walk (the final jump builds its own list) and never
+    otherwise; K1, K2, K3, K5 never. Returns the walks' numbers, the
+    launches of K6 and K7 in them, and the cached N = 512 batch at the
+    positions of its walk's last frame."""
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.sampler import Sampler
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    walks, launched, end_frame = {}, {"nbr_conv": 0, "nbr_edge_features": 0}, None
+    steps = 101
+    cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=steps, save_every_n_steps=1,
+                     score_fn_clip=100.0)
+    for label, d, n_atoms, num_graphs, skin in (
+        ("N512_cached", den, 512, 8, NBR_SKIN),
+        ("N512_cached_geom", den_geom, 512, 8, NBR_SKIN),
+        ("N1024", den, 1024, 2, 0.0),
+    ):
+        batch = chain_batch(n_atoms, num_graphs, dev)
+        G, N = batch.pos.shape[:2]
+        made = []  # the walk's NeighborCachedScore, for its rebuild count
+        make = d.make_neighbor_cached_score
+        d.make_neighbor_cached_score = lambda *a, make=make, **k: made.append(make(*a, **k)) or made[-1]
+        times = BatchTimes()
+        for k in kernels.values():
+            k.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = Sampler(callbacks=[times], device=dev).sample(
+            d, SingleMeasurementSampler(BAOAB(cfg), SIGMA, neighbor_skin=skin), 1, batch, seed=2,
+        )
+        dt = time.perf_counter() - t0
+        used = {name: k.KERNEL.launches for name, k in kernels.items()}
+        del d.make_neighbor_cached_score
+        want = dict.fromkeys(kernels, 0)
+        want["nbr_conv"] = 6 * (steps + 1)  # initial score, steps - 1 updates, the final jump
+        want["nbr_edge_features"] = steps if d is den_geom else 0
+        assert used == want, (label, used, want)
+        for name in launched:
+            launched[name] += used[name]
+        check_samples(out[0], G, N, steps, label)
+        overflow = times.overflow[0]
+        assert overflow is not None, label  # the sparse path reports its cap's dropped edges
+        rebuilds = int(made[0].rebuilds) if made else None
+        walk_s = sum(times.seconds)
+        # the load drifts along a walk under random weights: the kept slots
+        # and one score call (its own list) on the first and the last frame
+        frames = [
+            batch.replace_pos(
+                torch.from_numpy(np.stack([entry["y_traj"][:, frame] for entry in out[0]])).to(dev)
+            )
+            for frame in (0, steps - 1)
+        ]
+        kept = [kept_slots(f, d, SIGMA) for f in frames]
+        end_frame = end_frame or frames[1]
+        with torch.no_grad():
+            score_ms = [cuda_time_ms(lambda f=f: d.score(f, SIGMA), 5) for f in frames]
+        walks[label] = dict(
+            N=N, G=G, steps=steps, skin=skin, nbr_geom_kernel=d is den_geom, seconds=dt,
+            walk_seconds=walk_s, ms_per_step=walk_s * 1e3 / steps,
+            ms_per_sample=walk_s * 1e3 / (G * steps), rebuilds=rebuilds, overflow=overflow,
+            launches=used, kept_slots_first_frame=kept[0], kept_slots_last_frame=kept[1],
+            score_ms_first_frame=score_ms[0], score_ms_last_frame=score_ms[1],
+        )
+        if made:
+            with torch.no_grad():
+                walks[label]["rebuild_ms"] = cuda_time_ms(lambda: made[0].rebuild(batch.pos), 20)
+        log(f"phase 3: sparse walk-jump {label} N={N} G={G} steps={steps} skin={skin} "
+            f"nbr_geom_kernel={d is den_geom} through Sampler.sample: walk {walk_s:.3f} s, with "
+            f"unbatching {dt:.3f} s, {walks[label]['ms_per_sample']:.6f} ms/sample, "
+            f"{walks[label]['ms_per_step']:.3f} ms/step on {card}; rebuilds {rebuilds}"
+            + (f" (one list build {walks[label]['rebuild_ms']:.4f} ms)" if made else "")
+            + f"; overflow reported {overflow}; kept slots {kept[0]} at the first frame (one "
+            f"score call there {score_ms[0]:.3f} ms), {kept[1]} at the last ({score_ms[1]:.3f} "
+            f"ms); launches K6 {used['nbr_conv']}, K7 {used['nbr_edge_features']}, others none")
+    return walks, launched, end_frame
+
+
+def kept_slots(batch, den, sigma: float) -> int:
+    """The slots the sparse path keeps at these positions: the capped list
+    of one forward on the geometry `Denoiser.xhat` gives the arch."""
+    from jamun_tpu_torch.models.denoiser import normalization_factors
+    from jamun_tpu_torch.ops.geometry import mean_center
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+
+    c_in = normalization_factors(sigma, den.config.average_squared_distance)[0]
+    pos = mean_center(batch.pos, batch.node_mask) * c_in
+    cutoff = den.effective_radial_cutoff(sigma) / c_in
+    return int(capped_neighbor_lists(pos, batch.node_mask, cutoff, den.arch.neighbor_cap)[1].sum())
+
+
+def check_sparse_score(models: dict, config, dev) -> dict:
+    """Phase 4 on the sparse path: the f32 score at N = 512, G = 2 (chain
+    positions, "auto") on the card against the plain sparse path on the CPU,
+    and E(3) equivariance in f32 and bf16."""
+    from jamun_tpu_torch.models.denoiser import Denoiser
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+
+    small = chain_batch(512, 2, dev)
+    ref_model = E3Conv(dtype=None, device="cpu", plain=True)
+    ref_model.load_state_dict(models[torch.float32].state_dict())
+    ref_model.requires_grad_(False)
+    before = k6.KERNEL.launches
+    with torch.no_grad():
+        s_cpu = Denoiser(ref_model, config).score(small.to("cpu"), SIGMA)
+        s_card = Denoiser(models[torch.float32], config).score(small, SIGMA)
+    abs_e, rel_e = rel_err(s_card.cpu(), s_cpu)
+    log(f"phase 4: f32 score at N=512, sparse path, K6 on the card vs plain path on the CPU: "
+        f"max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol 1e-3)")
+    assert rel_e < 1e-3
+    q, r = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator().manual_seed(5)))
+    R = (q * torch.sign(torch.diagonal(r))).to(dev)
+    if torch.det(R) < 0:
+        R = -R
+    shift = torch.tensor([0.3, -0.2, 0.5], device=dev)
+    mask = small.node_mask[..., None].float()
+    out = dict(score_rel_err=rel_e)
+    for cdt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        d = Denoiser(models[cdt], config)
+        with torch.no_grad():
+            s = d.score(small, SIGMA)
+            s_rot = d.score(small.replace_pos((small.pos @ R.T + shift) * mask), SIGMA)
+        err = ((s_rot - (s @ R.T - shift / SIGMA**2) * mask).abs().max() / s.abs().max()).item()
+        log(f"phase 4: E(3) check at N=512, sparse path, {str(cdt).split('.')[-1]}: "
+            f"|score(Ry+t) - (R score(y) - t/sigma^2)| / max|score| = {err:.3g} (tol {tol})")
+        assert err < tol
+        out[f"e3_err_{str(cdt).split('.')[-1]}"] = err
+    assert k6.KERNEL.launches - before == 5 * 6  # five score calls, six blocks each
+    return out
+
+
+def train_sparse(dev, card: str, kernels: dict) -> dict:
+    """Phase 5e: training with the default `neighbor_mode="auto"` at N = 256,
+    G = 4 (chain positions), which resolves to the sparse path for a call
+    that wants a gradient: the plain sparse path on the card, every kernel's
+    launch count 0, a finite loss, the cap's overflow in the logged aux."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    steps, G, N = 5, 4, 256
+    model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
+    den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.5,
+                                         add_fixed_noise=True))
+    batch = chain_batch(N, G, dev)
+    trainer = Trainer(
+        TrainerConfig(max_steps=steps, log_every_n_steps=1, learning_rate=2.0e-3, seed=0),
+        den, ConstantSigma(SIGMA), device=dev,
+    )
+    for k in kernels.values():
+        k.KERNEL.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.fit([batch] * steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    used = {name: k.KERNEL.launches for name, k in kernels.items()}
+    assert state.step == steps and not any(used.values()), used
+    train = [m for _, m in trainer.metrics if "train/loss" in m]
+    losses = [m["train/loss"] for m in train]
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
+    overflow = [m["train/neighbor_overflow_max"] for m in train]
+    t_at = [(i + 1) / m["train/steps_per_sec"] for i, m in enumerate(train)]
+    steady = (t_at[-1] - t_at[0]) * 1e3 / (steps - 1)
+    log(f"phase 5: train on the sparse path, G={G} N={N} bf16, \"auto\", plain path on the card: "
+        "losses " + " ".join(f"{v:.5f}" for v in losses)
+        + f"; {steady:.3f} ms/step over steps 2-{steps}, peak device memory "
+        f"{peak / 2**30:.3f} GiB, neighbor_overflow_max {overflow}, kernel launches {used} on {card}")
+    return dict(G=G, N=N, steps=steps, losses=losses, ms_per_step_2_to_end=steady,
+                peak_bytes=peak, launches=used, neighbor_overflow_max=overflow)
+
+
 def train_above_128(dev, card: str, kernels: dict) -> dict:
     """Phase 5d: training above 128 atoms. A call that wants a gradient there
     takes the plain path on the card (no kernel launches); the EMA validation
@@ -738,16 +1068,16 @@ def check_train_gradients(dev) -> float:
     return errs[worst]
 
 
-def check_walk_never_waits(den, batch, dev, label: str) -> None:
+def check_walk_never_waits(den, batch, dev, label: str, skin: float = 0.0) -> None:
     """A short walk under PyTorch's sync debug mode set to raise: no step may
     make the host wait for the device (a copy from pageable host memory, an
     `.item()`), or the host could not queue the next forward while the
-    kernels of this one run."""
+    kernels of this one run. `skin` > 0 walks on Verlet lists."""
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
     from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
 
     sampler = SingleMeasurementSampler(
-        BAOAB(MCMCConfig(delta=0.04, steps=4, score_fn_clip=100.0)), SIGMA
+        BAOAB(MCMCConfig(delta=0.04, steps=4, score_fn_clip=100.0)), SIGMA, neighbor_skin=skin
     )
     g = torch.Generator(device=dev).manual_seed(6)
     torch.cuda.synchronize()
@@ -760,7 +1090,7 @@ def check_walk_never_waits(den, batch, dev, label: str) -> None:
     log(f"phase 4: {label} walk: no step makes the host wait for the device")
 
 
-def profile_walk(den, batch, dev, steps: int, label: str) -> dict:
+def profile_walk(den, batch, dev, steps: int, label: str, skin: float = 0.0) -> dict:
     """torch.profiler over a short walk (steps + 1 denoiser forwards)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -768,7 +1098,7 @@ def profile_walk(den, batch, dev, steps: int, label: str) -> dict:
     from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
 
     sampler = SingleMeasurementSampler(
-        BAOAB(MCMCConfig(delta=0.04, steps=steps, score_fn_clip=100.0)), SIGMA
+        BAOAB(MCMCConfig(delta=0.04, steps=steps, score_fn_clip=100.0)), SIGMA, neighbor_skin=skin
     )
     g = torch.Generator(device=dev).manual_seed(3)
     torch.cuda.synchronize()
@@ -784,13 +1114,15 @@ def profile_walk(den, batch, dev, steps: int, label: str) -> dict:
 
 
 class BatchTimes:
-    """Sampler callback: the seconds each sample batch took."""
+    """Sampler callback: the seconds each sample batch took, and the
+    overflow the sampler reported for it."""
 
     def __init__(self):
-        self.seconds = []
+        self.seconds, self.overflow = [], []
 
     def on_after_sample_batch(self, sample, sampler, elapsed_seconds, neighbor_overflow):
         self.seconds.append(elapsed_seconds)
+        self.overflow.append(neighbor_overflow)
 
 
 def check_samples(samples: list, G: int, N: int, frames: int, label: str) -> None:
@@ -888,6 +1220,8 @@ def main() -> int:
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+    from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+    from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
     from jamun_tpu_torch.ops.cuda.build import build_all
     from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
     from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
@@ -902,7 +1236,7 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    kernel_modules = {k.KERNEL.name: k for k in (k1, k2, k3, k4, k5)}
+    kernel_modules = {k.KERNEL.name: k for k in (k1, k2, k3, k4, k5, k6, k7)}
     logs = build_all()
     assert sorted(logs) == sorted(kernel_modules), sorted(logs)  # every source has its phase here
     log(f"phase 1: built {list(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -1016,6 +1350,7 @@ def main() -> int:
     results["fused_block_tiled"] = check_fused_block_tiled(
         k1, k2, k5, models, batches, dev, c_in, cutoff
     )
+    results.update(check_nbr_kernels(k6, k7, models, dev, c_in, cutoff))
 
     # ---- phase 3: the main paths, walk-jump at full flagship width ----
     # (a) the stack path through `Sampler.sample`
@@ -1088,6 +1423,25 @@ def main() -> int:
     )
     del batch256_end
 
+    # (d) the sparse path ("auto" from 512 atoms on, no gradient): K6, and K7
+    # with `nbr_geom_kernel`, through `Sampler.sample`
+    geom_model = E3Conv(dtype=torch.bfloat16, nbr_geom_kernel=True, device=dev, seed=0)
+    geom_model.output_gain.data.fill_(1.0)
+    geom_model.requires_grad_(False)
+    den_sparse = Denoiser(models[torch.bfloat16], config)
+    sparse, sparse_launches, batch512_end = sparse_walks(
+        den_sparse, Denoiser(geom_model, config), dev, card, kernel_modules
+    )
+    walks.update(sparse)
+    launches.update(sparse_launches)
+    # K6 and K7 once more against their plain versions, at the load the
+    # cached N = 512 walk ends at
+    for name, rows in check_nbr_kernels(
+        k6, k7, models, dev, c_in, cutoff, shapes={"N512 walk end": (batch512_end, True)},
+    ).items():
+        results[name] += rows
+    del geom_model, batch512_end
+
     # ---- phase 4: the output against references ----
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
                             scale=0.35, device=dev)
@@ -1124,13 +1478,18 @@ def main() -> int:
         assert used == ((5, 0) if path == "layerwise" else (0, 5)), (path, used)
 
     tiled_score = check_tiled_score(dense_models, config, dev)
+    sparse_score = check_sparse_score(models, config, dev)
+    batch512 = chain_batch(512, 8, dev)
     check_walk_never_waits(den, batches["4AA"], dev, "layerwise 4AA")
     check_walk_never_waits(den_stack, batches["4AA"], dev, "stack 4AA")
     check_walk_never_waits(den_tiled, batch256, dev, "tiled N=256")
+    check_walk_never_waits(den_sparse, batch512, dev, "sparse N=512 cached", skin=NBR_SKIN)
+    check_walk_never_waits(den_sparse, batch512, dev, "sparse N=512 uncached")
     walk_profile = profile_walk(den, batches["4AA"], dev, 6, "layerwise 4AA")
     stack_profile = profile_walk(den_stack, batches["4AA"], dev, 6, "stack 4AA")
     tiled_profile = profile_walk(den_tiled, batch256, dev, 6, "tiled N=256")
-    del batches, batch256, den, den_stack, den_tiled
+    sparse_profile = profile_walk(den_sparse, batch512, dev, 6, "sparse N=512 cached", NBR_SKIN)
+    del batches, batch256, batch512, den, den_stack, den_tiled, den_sparse
     torch.cuda.empty_cache()
 
     # ---- phase 5: training, the ConvBlock backward ----
@@ -1139,6 +1498,7 @@ def main() -> int:
     launches["conv_block_bwd"] = train["launches"]["conv_block_bwd"]
     grad_err = check_train_gradients(dev)
     train_tiled = train_above_128(dev, card, kernel_modules)
+    train_nbr = train_sparse(dev, card, kernel_modules)
 
     # ---- the report ----
     def main_row(rows, **match):
@@ -1151,6 +1511,9 @@ def main() -> int:
     k3_main = main_row(results["e3_stack"], label="4AA", dtype=str(torch.bfloat16))
     k5_main = main_row(results["fused_block_tiled"], label="N256", dtype=str(torch.bfloat16),
                        block="hidden")
+    k6_main = main_row(results["nbr_conv"], label="N512 cached", dtype=str(torch.bfloat16),
+                       block="hidden", variant="A64")
+    k7_main = main_row(results["nbr_edge_features"], label="N512 cached", dtype=str(torch.bfloat16))
     kernels = []
     for name, main, replaces in (
         ("edge_features", k1_main, "jamun_tpu/ops/pallas/packed_conv.py:806"),
@@ -1158,6 +1521,8 @@ def main() -> int:
         ("e3_stack", k3_main, "jamun_tpu/ops/pallas/e3_stack.py:367"),
         ("conv_block_bwd", k4_main, "jamun_tpu/ops/pallas/packed_conv.py:2220"),
         ("fused_block_tiled", k5_main, "jamun_tpu/ops/pallas/packed_conv.py:2819"),
+        ("nbr_conv", k6_main, "jamun_tpu/ops/pallas/nbr_conv.py:371"),
+        ("nbr_edge_features", k7_main, "jamun_tpu/ops/pallas/nbr_conv.py:559"),
     ):
         kernels.append(dict(
             name=name, route="cuda", source=f"jamun_tpu_torch/csrc/{name}.cu", replaces=replaces,
@@ -1168,8 +1533,9 @@ def main() -> int:
         ))
     report = dict(card=card, compare=results, walks=walks, walk_profile=walk_profile,
                   stack_walk_profile=stack_profile, tiled_walk_profile=tiled_profile,
-                  tiled_score=tiled_score, launches=launches, train=train,
-                  train_grad_rel_err=grad_err, train_above_128=train_tiled)
+                  sparse_walk_profile=sparse_profile, tiled_score=tiled_score,
+                  sparse_score=sparse_score, launches=launches, train=train,
+                  train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

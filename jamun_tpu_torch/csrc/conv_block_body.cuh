@@ -1,6 +1,8 @@
 // Device code of one separable ConvBlock (l <= 1, uvu) for a CTA that owns
 // td destination atoms of one graph, shared by the per-layer kernel
-// (conv_block.cu) and the whole-model kernel (e3_stack.cu).
+// (conv_block.cu), the whole-model kernel (e3_stack.cu), the tiled kernel
+// (fused_block_tiled.cu) and, up to the messages, the sparse messages kernel
+// (nbr_conv.cu).
 //
 // The caller lists the visited pairs of its atoms (dense pairs inside the
 // cutoff and bonds, dst-major) and stages each tile of PT pairs: source
@@ -143,12 +145,12 @@ inline int threads_for(int W) {
   return t < 64 ? 64 : t;
 }
 
-// stage the first radial layer, clear the accumulators and load the
-// thread's layer-2 column (thread tid owns radial channel tid < W)
-template <typename T>
+// stage the first radial layer (A input rows), clear the accumulators and
+// load the thread's layer-2 column (thread tid owns radial channel tid < W)
+template <typename T, int A = NR>
 __device__ __forceinline__ void load_weights(const Scratch& s, const Weights& w, int W, int td,
                                              int tid, int nt, float (&w2r)[H], float& b2c) {
-  for (int k = tid; k < NR * H; k += nt) s.w1s[k] = ld((const T*)w.w1 + k);
+  for (int k = tid; k < A * H; k += nt) s.w1s[k] = ld((const T*)w.w1 + k);
   for (int k = tid; k < td * 3 * nt; k += nt) s.acc[k] = 0.0f;
   const bool has_c = tid < W;
 #pragma unroll
@@ -157,9 +159,10 @@ __device__ __forceinline__ void load_weights(const Scratch& s, const Weights& w,
   b2c = has_c ? w.b2[tid] : 0.0f;
 }
 
-// radial layer 1 of a tile: h = silu(r @ w1 + b1), rounded to T; `tile`
-// points at the tile's np list entries
-template <typename T>
+// radial layer 1 of a tile: h = silu(r @ w1 + b1), rounded to T, over A
+// input features per pair (rs [PT][A], w1s [A][H]); `tile` points at the
+// tile's np list entries
+template <typename T, int A = NR>
 __device__ __forceinline__ void radial_layer1(const Scratch& s, const Weights& w, const int* tile,
                                               int np, int tid, int nt) {
   for (int o = tid; o < PT * H; o += nt) {
@@ -169,7 +172,7 @@ __device__ __forceinline__ void radial_layer1(const Scratch& s, const Weights& w
       h = entry_is_bond(tile[q]) ? w.b1b[m] : w.b1d[m];
       float sum = 0.0f;
 #pragma unroll 8
-      for (int k = 0; k < NR; ++k) sum += s.rs[q * NR + k] * s.w1s[k * H + m];
+      for (int k = 0; k < A; ++k) sum += s.rs[q * A + k] * s.w1s[k * H + m];
       h = rnd<T>((h + sum) * sigmoidf(h + sum));
     }
     s.hs[m * PT + q] = h;

@@ -13,20 +13,25 @@ sigma is a Python float (one noise level per walk, one per training batch),
 so the factors are host scalars and the forward makes no host-device round
 trip for them. The training side (`add_noise` ... `training_loss`) is the
 counterpart of `jamun_tpu/models/denoiser.py:230-324`; its noise comes from
-an explicit `torch.Generator`.
+an explicit `torch.Generator`. The sparse path's helpers
+(`sparse_neighbors_active`, `neighbor_overflow`,
+`make_neighbor_cached_score`) are those of
+`jamun_tpu/models/denoiser.py:150-226`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from jamun_tpu_torch.models.e3conv import irreps_to_vector
+from jamun_tpu_torch.models.e3conv import irreps_to_vector, neighbor_mode_auto
 from jamun_tpu_torch.ops.geometry import kabsch_align, mean_center
 from jamun_tpu_torch.ops.graph import GraphBatch
+from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+from jamun_tpu_torch.sampling.mcmc import NeighborCachedScore
 
 __all__ = ["DenoiserConfig", "Denoiser", "normalization_factors", "loss_weight", "masked_graph_mean"]
 
@@ -70,28 +75,86 @@ class Denoiser:
     def effective_radial_cutoff(self, sigma: float) -> float:
         return math.sqrt(self.config.max_radius**2 + 6.0 * float(sigma) ** 2)
 
-    def xhat_normalized(self, y: GraphBatch, sigma: float) -> torch.Tensor:
+    def xhat_normalized(
+        self, y: GraphBatch, sigma: float, with_telemetry: bool = False, nbr_cache=None
+    ):
+        """`with_telemetry=True` also returns the arch's telemetry dict
+        ("neighbor_overflow" [G] where the sparse path built its lists);
+        `nbr_cache` is a Verlet list for the sparse path
+        (`make_neighbor_cached_score`)."""
         D = y.pos.shape[-1]
         c_in, c_skip, c_out, c_noise = normalization_factors(
             sigma, self.config.average_squared_distance, D
         )
         radial_cutoff = self.effective_radial_cutoff(sigma) / c_in
         c_noise_t = torch.full((1,), c_noise, dtype=torch.float32, device=y.pos.device)
-        g_out = self.arch(y.replace_pos(y.pos * c_in), c_noise_t, radial_cutoff)
+        g_out = self.arch(
+            y.replace_pos(y.pos * c_in), c_noise_t, radial_cutoff, nbr_cache=nbr_cache,
+            with_telemetry=with_telemetry,
+        )
+        if with_telemetry:
+            g_out, tel = g_out
+            return c_skip * y.pos + c_out * irreps_to_vector(g_out), tel
         return c_skip * y.pos + c_out * irreps_to_vector(g_out)
 
-    def xhat(self, y: GraphBatch, sigma: float) -> torch.Tensor:
+    def xhat(self, y: GraphBatch, sigma: float, with_telemetry: bool = False, nbr_cache=None):
         pos = y.pos
         if self.config.mean_center:
             pos = mean_center(pos, y.node_mask)
-        xhat_pos = self.xhat_normalized(y.replace_pos(pos), sigma)
+        xhat_pos = self.xhat_normalized(y.replace_pos(pos), sigma, with_telemetry, nbr_cache)
+        tel = {}
+        if with_telemetry:
+            xhat_pos, tel = xhat_pos
         if self.config.mean_center:
             xhat_pos = mean_center(xhat_pos, y.node_mask)
-        return xhat_pos
+        return (xhat_pos, tel) if with_telemetry else xhat_pos
 
     def score(self, y: GraphBatch, sigma: float) -> torch.Tensor:
         """score(y, sigma) = (xhat(y) - y) / sigma^2."""
         return (self.xhat(y, sigma) - y.pos) / float(sigma) ** 2
+
+    # ---- the sparse path's telemetry and Verlet lists (sampling side) ----
+
+    def sparse_neighbors_active(self, n_atoms: int, training: bool = False) -> bool:
+        """Whether the arch takes the sparse capped-K path at this size (the
+        only path that drops edges)."""
+        mode = self.arch.neighbor_mode
+        return mode == "nbr" or (mode == "auto" and neighbor_mode_auto(n_atoms, training))
+
+    def _scaled_cutoff(self, sigma: float, D: int):
+        c_in = normalization_factors(sigma, self.config.average_squared_distance, D)[0]
+        return c_in, self.effective_radial_cutoff(sigma) / c_in
+
+    def neighbor_overflow(self, y: GraphBatch, sigma: float) -> torch.Tensor:
+        """[G]: the in-cutoff edges the sparse path's cap drops at these
+        positions, on the geometry the arch sees (c_in-scaled positions
+        against cutoff / c_in). Callers gate on `sparse_neighbors_active`."""
+        c_in, cutoff = self._scaled_cutoff(sigma, y.pos.shape[-1])
+        pos = mean_center(y.pos, y.node_mask) if self.config.mean_center else y.pos
+        return capped_neighbor_lists(pos * c_in, y.node_mask, cutoff, self.arch.neighbor_cap)[2]
+
+    def make_neighbor_cached_score(
+        self, batch: GraphBatch, sigma: float, skin: float
+    ) -> Optional[NeighborCachedScore]:
+        """The walk's Verlet-cached score (`sampling/mcmc.NeighborCachedScore`):
+        the capped list within cutoff + skin (skin in the walk's nm), built on
+        the arch's geometry, rebuilt when some atom moved more than skin / 2.
+        None when skin <= 0 or the arch runs dense at this size."""
+        if skin <= 0 or not self.sparse_neighbors_active(batch.pos.shape[1]):
+            return None
+        c_in, cutoff = self._scaled_cutoff(sigma, batch.pos.shape[-1])
+
+        def rebuild(y):
+            idx, superset, _ = capped_neighbor_lists(
+                y * c_in, batch.node_mask, cutoff + skin * c_in, self.arch.neighbor_cap
+            )
+            return idx, superset
+
+        def score(y, cache):
+            xhat = self.xhat(batch.replace_pos(y), sigma, nbr_cache=cache)
+            return (xhat - y) / float(sigma) ** 2
+
+        return NeighborCachedScore(rebuild=rebuild, score=score, threshold=skin / 2.0)
 
     # ---- training path ----
 
@@ -115,9 +178,11 @@ class Denoiser:
         return x.replace_pos(pos)
 
     def noise_and_denoise(
-        self, x: GraphBatch, sigma: float, generator: torch.Generator, align_noisy_input: bool
+        self, x: GraphBatch, sigma: float, generator: torch.Generator, align_noisy_input: bool,
+        with_telemetry: bool = False,
     ):
-        """(xhat, the noisy y, the centred clean x)."""
+        """(xhat, the noisy y, the centred clean x), and the arch's telemetry
+        with `with_telemetry`."""
         if self.config.mean_center:
             x = x.replace_pos(mean_center(x.pos, x.node_mask))
         y = self.add_noise(x, sigma, generator)
@@ -125,6 +190,9 @@ class Denoiser:
             y = y.replace_pos(mean_center(y.pos, y.node_mask))
         if align_noisy_input:
             y = y.replace_pos(kabsch_align(y.pos, x.pos, x.node_mask))
+        if with_telemetry:
+            xhat_pos, tel = self.xhat(y, sigma, with_telemetry=True)
+            return xhat_pos, y, x, tel
         return self.xhat(y, sigma), y, x
 
     def compute_loss(
@@ -150,20 +218,33 @@ class Denoiser:
         }
 
     def noise_and_compute_loss(
-        self, x: GraphBatch, sigma: float, generator: torch.Generator, align_noisy_input: bool
+        self, x: GraphBatch, sigma: float, generator: torch.Generator, align_noisy_input: bool,
+        with_telemetry: bool = False,
     ):
-        xhat_pos, _, x_centered = self.noise_and_denoise(x, sigma, generator, align_noisy_input)
-        return self.compute_loss(x_centered, xhat_pos, sigma)
+        """(per-graph loss, aux), and the arch's telemetry with
+        `with_telemetry`."""
+        out = self.noise_and_denoise(x, sigma, generator, align_noisy_input, with_telemetry)
+        per_graph, aux = self.compute_loss(out[2], out[0], sigma)
+        return (per_graph, aux, out[3]) if with_telemetry else (per_graph, aux)
 
     def training_loss(
         self, x: GraphBatch, sigma: float, generator: torch.Generator
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The scalar loss averaged over valid graphs (`graph_mask`), and the
-        aux metrics averaged the same way (plus "loss")."""
-        per_graph, aux = self.noise_and_compute_loss(
-            x, sigma, generator, self.config.align_noisy_input_during_training
+        aux metrics averaged the same way (plus "loss"). On the sparse path
+        the aux also holds the cap's dropped edges per graph,
+        "neighbor_overflow_mean" over the valid graphs and
+        "neighbor_overflow_max", which the Trainer logs."""
+        per_graph, aux, tel = self.noise_and_compute_loss(
+            x, sigma, generator, self.config.align_noisy_input_during_training, True
         )
-        return masked_graph_mean(per_graph, aux, x.graph_mask)
+        loss, aux = masked_graph_mean(per_graph, aux, x.graph_mask)
+        ov = tel.get("neighbor_overflow")
+        if ov is not None:
+            ovf, gm = ov.to(loss.dtype), x.graph_mask
+            aux["neighbor_overflow_mean"] = (ovf * gm).sum() / torch.clamp(gm.sum(), min=1)
+            aux["neighbor_overflow_max"] = torch.where(gm, ovf, torch.zeros_like(ovf)).max()
+        return loss, aux
 
 
 def masked_graph_mean(per_graph: torch.Tensor, aux: Dict[str, torch.Tensor], graph_mask):

@@ -32,14 +32,29 @@ them (`jamun_tpu/models/e3conv.py:332-404`):
     otherwise it leaves K5 for this path and its [G, N, N, 704] messages per
     layer. The samplers of `sampling/walkjump.py` turn autograd off
     themselves.
-`neighbor_mode="auto"` (the default) keeps the dense paths below JAX's
-thresholds (512 atoms, 256 for a call that wants a gradient) and raises
-where JAX would go sparse; `"dense"` runs the dense paths at any size.
-Widths outside the kernels raise NotImplementedError on the card.
+  - the sparse capped-neighbour path (`jamun_tpu/models/e3conv.py:203-305`),
+    for `neighbor_mode="nbr"`, and for `"auto"` (the default) from JAX's
+    thresholds on (512 atoms, 256 for a call that wants a gradient): the
+    K = `neighbor_cap` nearest sources inside the cutoff per atom
+    (`ops/neighbors.py`), or the caller's Verlet-cached list (`nbr_cache`,
+    from `sampling/mcmc.NeighborCachedScore`) with the true-cutoff mask
+    recomputed. Every ConvBlock runs the standard block, and the head is the
+    plain `EquivariantMLP_0` (JAX's `chained` is off there). A call without
+    a gradient takes its messages from K6 (`ops/cuda/nbr_conv`) six times
+    per forward; with `nbr_geom_kernel=True` and a cache, the edge features
+    come from K7 (`ops/cuda/nbr_edge_features`) once per forward (JAX's
+    `JAMUN_NBR_GEOM_KERNEL=1`). A call that wants a gradient runs the plain
+    sparse path (`fast_uvu_messages_nbr` under autograd) on either device,
+    as JAX sends `training=True` to XLA. `with_telemetry=True` also returns
+    {"neighbor_overflow": [G]}, the in-cutoff edges the cap dropped (not
+    counted on a cached list), in place of flax's `sow`.
+`"dense"` runs the dense paths at any size. Widths outside the kernels
+raise NotImplementedError on the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -57,9 +72,11 @@ from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
+from jamun_tpu_torch.ops.cuda.nbr_edge_features import nbr_edge_features
 from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data
 from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.mlp import EquivariantMLP
+from jamun_tpu_torch.ops.neighbors import neighbor_edge_data
 from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
 from jamun_tpu_torch.ops.sh import spherical_harmonics
 from jamun_tpu_torch.utils.device import resolve_device
@@ -76,12 +93,6 @@ _NBR_AUTO_SAMPLE_N = 512
 def neighbor_mode_auto(n_atoms: int, training: bool) -> bool:
     """True when "auto" neighbour mode resolves to the sparse path."""
     return n_atoms >= (_NBR_AUTO_TRAIN_N if training else _NBR_AUTO_SAMPLE_N)
-
-
-_SPARSE_NOT_PORTED = (
-    "{what}: the sparse capped-neighbour path is not ported (ROADMAP.md queue A item 7, "
-    "queue B #6/#7)"
-)
 
 
 def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
@@ -122,6 +133,8 @@ class E3Conv(nn.Module):
         tensor_product: str = "uvu",
         dtype: Optional[torch.dtype] = None,
         neighbor_mode: str = "auto",
+        neighbor_cap: int = 32,
+        nbr_geom_kernel: bool = False,
         plain: bool = False,
         fused_stack: bool = False,
         device=None,
@@ -129,7 +142,9 @@ class E3Conv(nn.Module):
     ):
         """`dtype` is the compute dtype (parameters stay f32); `fused_stack`
         turns the whole-model kernel on for calls without a gradient (the
-        parameters are the same tree either way); `device`
+        parameters are the same tree either way); `neighbor_cap` is K of the
+        sparse path, `nbr_geom_kernel` its K7 switch (cached lists, calls
+        without a gradient; off by default, as in JAX); `device`
         follows `utils.device.resolve_device` (the card unless "cpu");
         `seed` draws the parameters (flax's init distributions) from a CPU
         generator, so a seed gives the same weights on any device."""
@@ -141,8 +156,6 @@ class E3Conv(nn.Module):
             )
         if neighbor_mode not in ("dense", "nbr", "auto"):
             raise ValueError(f"neighbor_mode={neighbor_mode!r}")
-        if neighbor_mode == "nbr":
-            raise NotImplementedError(_SPARSE_NOT_PORTED.format(what='neighbor_mode="nbr"'))
         self.irreps_hidden, self.irreps_out = Irreps(irreps_hidden), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
         if self.irreps_hidden.sv_shape() is None or self.irreps_hidden.sv_shape()[1] == 0:
@@ -151,6 +164,8 @@ class E3Conv(nn.Module):
         self.edge_attr_dim = edge_attr_dim
         self.dtype = dtype
         self.neighbor_mode = neighbor_mode
+        self.neighbor_cap = neighbor_cap
+        self.nbr_geom_kernel = nbr_geom_kernel
         self.plain = plain
         self.fused_stack = fused_stack
         self.bonded_dim = edge_attr_dim // 2
@@ -271,21 +286,81 @@ class E3Conv(nn.Module):
         )
 
     def forward(
-        self, batch: GraphBatch, c_noise: torch.Tensor, radial_cutoff: float
-    ) -> torch.Tensor:
-        """batch.pos are the scaled noisy positions (c_in * y); c_noise [1].
-        Returns the per-atom output irreps [G, N, irreps_out.dim]."""
+        self,
+        batch: GraphBatch,
+        c_noise: torch.Tensor,
+        radial_cutoff: float,
+        nbr_cache=None,
+        with_telemetry: bool = False,
+    ):
+        """batch.pos are the scaled noisy positions (c_in * y); c_noise [1];
+        `nbr_cache` = (nbr_idx, superset_mask), a Verlet list of the walk,
+        read only on the sparse path. Returns the per-atom output irreps
+        [G, N, irreps_out.dim], and with `with_telemetry` also a dict
+        ({"neighbor_overflow": [G]} where the sparse path built its lists)."""
         N = batch.pos.shape[1]
         on_card = batch.pos.device.type == "cuda"
         if self.plain and on_card:
             raise ValueError("plain=True is the CPU reference path; the card runs the kernels")
         wants_grad = self._wants_grad(batch)
-        if self.neighbor_mode == "auto" and neighbor_mode_auto(N, wants_grad):
-            raise NotImplementedError(_SPARSE_NOT_PORTED.format(
-                what=f'neighbor_mode="auto" at N={N} ({"with" if wants_grad else "without"} a '
-                     'gradient) resolves to the sparse path; neighbor_mode="dense" runs the '
-                     "dense one"
-            ))
+        tel = {}
+        if self.neighbor_mode == "nbr" or (
+            self.neighbor_mode == "auto" and neighbor_mode_auto(N, wants_grad)
+        ):
+            out, overflow = self._sparse_forward(batch, c_noise, radial_cutoff, nbr_cache, wants_grad)
+            if overflow is not None:
+                tel["neighbor_overflow"] = overflow
+        else:
+            out = self._dense_forward(batch, c_noise, radial_cutoff, wants_grad)
+        return (out, tel) if with_telemetry else out
+
+    def _embed(self, batch: GraphBatch, c_noise: torch.Tensor) -> torch.Tensor:
+        x = self.AtomEmbeddingWithResidueInformation_0(batch)
+        return self.NoiseConditionalScaling_0(x, c_noise)
+
+    def _sparse_forward(self, batch, c_noise, radial_cutoff, nbr_cache, wants_grad):
+        """The sparse capped-neighbour path; returns (output, overflow or
+        None)."""
+        kernel = not self.plain and not wants_grad
+        edges, overflow = self._sparse_edges(batch, radial_cutoff, nbr_cache, kernel)
+        block = lambda blk, h: blk(h, edges, kernel)  # noqa: E731
+        x = block(self.ConvBlock_0, self._embed(batch, c_noise))
+        for layer in self._hidden_layers():
+            x = layer(x, c_noise, block)
+        x = self.EquivariantMLP_0(x)
+        mask = batch.node_mask[..., None].to(torch.float32)
+        return x.to(torch.float32) * self.output_gain * mask, overflow
+
+    def _sparse_edges(self, batch: GraphBatch, radial_cutoff, nbr_cache, kernel: bool):
+        """The kept edges of one forward: K7's features on a cached list
+        when `nbr_geom_kernel` asks for them on the kernel path (the
+        radial half of the attributes, the bondedness-0 block left for
+        `Conv` to fold), else `neighbor_edge_data`. Returns (EdgeData,
+        overflow or None)."""
+        bond0 = self.embed_bondedness[0]
+        bonds = (batch.bond_src, batch.bond_dst, batch.bond_mask)
+        sh_fn = functools.partial(spherical_harmonics, self.irreps_sh)
+        attr_fn = self._attr_fn(radial_cutoff)
+        if kernel and self.nbr_geom_kernel and nbr_cache is not None:
+            cdt = self.dtype or torch.float32
+            sh, rad, mask, idx = nbr_edge_features(
+                batch.pos.to(torch.float32).contiguous(), nbr_cache[0], nbr_cache[1],
+                float(radial_cutoff), self.radial_dim, cdt,
+            )
+            edges = dense_edge_data(
+                batch.pos, batch.node_mask, *bonds, radial_cutoff, sh_fn, attr_fn, dense=False
+            )
+            return dataclasses.replace(
+                edges, nbr_idx=idx, nbr_mask=mask, sh_nbr=sh, attr_nbr=rad, bond0_embed=bond0
+            ), None
+        return neighbor_edge_data(
+            batch.pos, batch.node_mask, *bonds, radial_cutoff, sh_fn, attr_fn,
+            cap=self.neighbor_cap, bond0_embed=bond0, cache=nbr_cache,
+        )
+
+    def _dense_forward(self, batch, c_noise, radial_cutoff, wants_grad):
+        N = batch.pos.shape[1]
+        on_card = batch.pos.device.type == "cuda"
         stack = self._stack_ok(batch, c_noise)
         supported = self.kernel_path_supported(N)
         # the training dispatch: the tiled kernel is forward only, so a call
@@ -297,8 +372,7 @@ class E3Conv(nn.Module):
                 f"output {self.irreps_out}: outside the layerwise kernels (edge_attr_dim 64, "
                 f"radial width <= {k2.MAX_WIDTH}, outputs l <= 1 of even parity)"
             )
-        x = self.AtomEmbeddingWithResidueInformation_0(batch)
-        x = self.NoiseConditionalScaling_0(x, c_noise)
+        x = self._embed(batch, c_noise)
         mask = batch.node_mask[..., None].to(torch.float32)
         if stack:
             x = k3.e3conv_stack(*self._stack_args(batch, x, c_noise, float(radial_cutoff)))
@@ -363,14 +437,21 @@ class E3Conv(nn.Module):
         bond0, bond1 = self.embed_bondedness[0], self.embed_bondedness[1]
         return lambda blk, h: blk.fused(h, geometry, bond0, bond1, cdt)
 
-    def _plain_edges(self, batch: GraphBatch, radial_cutoff):
+    def _attr_fn(self, radial_cutoff):
+        """attr_fn(dist, bonded) -> [..., edge_attr_dim]: the bondedness
+        embedding beside the radial basis."""
+
         def attr_fn(dist, bonded: bool):
             radial = soft_one_hot_linspace(dist, 0.0, radial_cutoff, self.radial_dim)
             bond = self.embed_bondedness[1 if bonded else 0].to(dist.dtype)
             return torch.cat([bond.expand(dist.shape + (self.bonded_dim,)), radial], dim=-1)
 
+        return attr_fn
+
+    def _plain_edges(self, batch: GraphBatch, radial_cutoff):
         return dense_edge_data(
             batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
-            radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh), attr_fn,
+            radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh),
+            self._attr_fn(radial_cutoff),
         )
 

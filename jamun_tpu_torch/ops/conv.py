@@ -6,6 +6,13 @@ radial-MLP weights; mean over the combined degree of dense pairs and bonds;
 then the post-linear. `ConvBlock` wraps it as
 IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
 
+On the sparse capped-neighbour path (`EdgeData.nbr_idx` set, from
+`ops/neighbors.py`) the messages of the kept edges come from K6
+(`ops/cuda/nbr_conv`) when the caller asks for the kernel (a forward without
+a gradient; its plain twin on the CPU), and from `fast_uvu_messages_nbr` on
+the radial MLP otherwise; bonds, the mean and the post-linear follow as on
+the dense path (`jamun_tpu/ops/conv.py:198-265`).
+
 `ConvBlock.forward` is the plain path. `ConvBlock.fused` runs the whole block
 through the hand-written kernels on the card (their plain twins on the CPU),
 in the regime its geometry argument names, as JAX's `ConvBlock._fused_block`
@@ -29,7 +36,12 @@ from jamun_tpu_torch.ops.cuda.conv_block import (
     fused_conv_block,
 )
 from jamun_tpu_torch.ops.cuda.fused_block_tiled import TiledGeometry, fused_block_tiled
-from jamun_tpu_torch.ops.fast_uvu import fast_uvu_messages_dense, uvu_messages
+from jamun_tpu_torch.ops.cuda.nbr_conv import nbr_uvu_conv
+from jamun_tpu_torch.ops.fast_uvu import (
+    fast_uvu_messages_dense,
+    fast_uvu_messages_nbr,
+    uvu_messages,
+)
 from jamun_tpu_torch.ops.gate import Gate
 from jamun_tpu_torch.ops.graph import EdgeData
 from jamun_tpu_torch.ops.irreps import Irreps
@@ -67,14 +79,28 @@ class Conv(nn.Module):
         self.radial_nn = ScalarMLP(edge_attr_dim, 2 * self.S + 3 * self.V, [edge_attr_dim])
         self._post_linear = IrrepsLinear(dtp, self.irreps_out)
 
-    def forward(self, x: torch.Tensor, edges: EdgeData) -> torch.Tensor:
-        """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]."""
+    def forward(self, x: torch.Tensor, edges: EdgeData, nbr_kernel: bool = False) -> torch.Tensor:
+        """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]. `nbr_kernel`:
+        on the sparse path, take the messages from K6 (no gradient flows
+        through it)."""
         S, V = self.S, self.V
         cdt = self.dtype or x.dtype
         out_dtype = x.dtype
         x = x.to(cdt)
-        w_dense = self.radial_nn(edges.attr_dense.to(cdt))
-        out, deg = fast_uvu_messages_dense(x, edges.sh_dense, w_dense, edges.adj, S, V)
+        if edges.nbr_idx is None:
+            w_dense = self.radial_nn(edges.attr_dense.to(cdt))
+            out, deg = fast_uvu_messages_dense(x, edges.sh_dense, w_dense, edges.adj, S, V)
+        elif nbr_kernel:
+            out, deg = nbr_uvu_conv(*self.nbr_kernel_args(x, edges))
+        else:
+            if edges.attr_nbr.shape[-1] != self.radial_nn.layer(0).kernel.shape[0]:
+                raise RuntimeError(
+                    "radial-only neighbour features (nbr_edge_features) need the K6 path"
+                )
+            w_nbr = self.radial_nn(edges.attr_nbr.to(cdt))
+            out, deg = fast_uvu_messages_nbr(
+                x, edges.sh_nbr, w_nbr, edges.nbr_idx, edges.nbr_mask, S, V
+            )
         out, deg = out.to(out_dtype), deg.to(torch.float32)
 
         w_bond = self.radial_nn(edges.attr_bond.to(cdt))
@@ -86,6 +112,26 @@ class Conv(nn.Module):
         deg = deg.scatter_add(1, edges.bond_dst, edges.bond_mask.to(torch.float32))
         out = out / torch.clamp(deg, min=1.0)[..., None].to(out_dtype)
         return self._post_linear(out)
+
+    def nbr_kernel_args(self, x: torch.Tensor, edges: EdgeData) -> tuple:
+        """K6's arguments for the kept edges of `edges`, x in the compute
+        dtype: the radial MLP's weights in the kernel's operand types. With
+        radial-only attributes (`nbr_edge_features`) the constant
+        bondedness-0 block of the first layer folds into its bias in f32, as
+        JAX's `Conv` does (`jamun_tpu/ops/conv.py:212-224`)."""
+        f32, cdt = torch.float32, x.dtype
+        d0, d1 = self.radial_nn.layer(0), self.radial_nn.layer(1)
+        w1, b1 = d0.kernel, d0.bias.to(f32)
+        nb = w1.shape[0] - edges.attr_nbr.shape[-1]
+        if nb:
+            b1 = b1 + edges.bond0_embed.to(f32) @ w1[:nb].to(f32)
+            w1 = w1[nb:]
+        return (
+            x.contiguous(), edges.sh_nbr.to(cdt).contiguous(), edges.attr_nbr.to(cdt).contiguous(),
+            edges.nbr_idx.contiguous(), edges.nbr_mask.to(f32).contiguous(),
+            w1.to(cdt).contiguous(), b1.contiguous(), d1.kernel.to(cdt).contiguous(),
+            d1.bias.to(f32).contiguous(), self.S, self.V,
+        )
 
 
 class ConvBlock(nn.Module):
@@ -101,9 +147,9 @@ class ConvBlock(nn.Module):
         self.IrrepsLinear_0 = IrrepsLinear(self.irreps_in, self.gate.irreps_out)
         self.IrrepsLinear_1 = IrrepsLinear(self.gate.irreps_out, self.gate.irreps_out)
 
-    def forward(self, x: torch.Tensor, edges: EdgeData) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, edges: EdgeData, nbr_kernel: bool = False) -> torch.Tensor:
         skip = self.IrrepsLinear_0(x)
-        y = self.IrrepsLinear_1(self.gate(self.Conv_0(x, edges)))
+        y = self.IrrepsLinear_1(self.gate(self.Conv_0(x, edges, nbr_kernel)))
         return y + skip
 
     def fused(

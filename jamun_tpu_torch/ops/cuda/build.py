@@ -23,15 +23,18 @@ __all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC", "SOURCES"]
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-# every kernel source of the port (K1, K2, K3, K4, K5)
-SOURCES = ("edge_features", "conv_block", "e3_stack", "conv_block_bwd", "fused_block_tiled")
+# every kernel source of the port (K1, K2, K3, K4, K5, K6, K7)
+SOURCES = (
+    "edge_features", "conv_block", "e3_stack", "conv_block_bwd", "fused_block_tiled",
+    "nbr_conv", "nbr_edge_features",
+)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
 # per source: the edge features keep separate multiplies and adds, so the
 # cutoff test sees the same distance as the plain version's
-EXTRA_FLAGS = {"edge_features": ["--fmad=false"]}
+EXTRA_FLAGS = {"edge_features": ["--fmad=false"], "nbr_edge_features": ["--fmad=false"]}
 
 
 def _nvcc() -> str:

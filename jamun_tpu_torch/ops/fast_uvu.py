@@ -18,7 +18,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["uvu_messages", "fast_uvu_messages_dense"]
+from jamun_tpu_torch.ops.neighbors import gather_neighbors
+
+__all__ = ["uvu_messages", "fast_uvu_messages_dense", "fast_uvu_messages_nbr"]
 
 _INV_SQRT3 = 1.0 / math.sqrt(3.0)
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -61,3 +63,22 @@ def fast_uvu_messages_dense(
     msg = uvu_messages(x[:, None], sh_dense, weights, S, V)
     adj = adj.to(weights.dtype)
     return (msg * adj[..., None]).sum(dim=2), adj.sum(dim=-1)
+
+
+def fast_uvu_messages_nbr(
+    x: torch.Tensor,  # [G, N_src, S + 3V]
+    sh_nbr: torch.Tensor,  # [G, N, K, 4]
+    weights: torch.Tensor,  # [G, N, K, 2S + 3V]
+    nbr_idx: torch.Tensor,  # [G, N, K] -> source index
+    nbr_mask: torch.Tensor,  # [G, N, K]
+    S: int,
+    V: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sparse counterpart of `fast_uvu_messages_dense` (JAX's
+    `fast_uvu_messages_nbr`): the source axis is the gathered K-neighbour
+    axis of `ops/neighbors.py`. Returns the masked sums [G, N, 4S + 7V] and
+    the degree [G, N]; differentiable (the gather's backward is a
+    scatter-add over the N K rows)."""
+    msg = uvu_messages(gather_neighbors(x, nbr_idx), sh_nbr, weights, S, V)
+    m = nbr_mask.to(weights.dtype)
+    return (msg * m[..., None]).sum(dim=2), m.sum(dim=-1)

@@ -1,13 +1,15 @@
 """Padded batch and edge containers (counterpart of `jamun_tpu/ops/graph.py`).
 
 Graphs are padded to [G, N] dense tensors. The radial edge set is a masked
-N x N distance test recomputed from positions on every forward; bonded edges
-are a small padded edge list [G, B].
+N x N distance test recomputed from positions on every forward, or, on the
+sparse path, a capped list of K neighbours per atom (`ops/neighbors.py`);
+bonded edges are a small padded edge list [G, B].
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -42,16 +44,25 @@ class GraphBatch:
 
 @dataclasses.dataclass(frozen=True)
 class EdgeData:
-    """Edge features shared by all conv layers of one forward (plain path)."""
+    """Edge features shared by all conv layers of one forward (plain path).
+    The dense fields are None on the sparse path, which fills the per-
+    neighbour fields instead (`jamun_tpu/ops/graph.py:98-104`)."""
 
-    sh_dense: torch.Tensor  # [G, N, N, 4] (dst, src)
-    attr_dense: torch.Tensor  # [G, N, N, A]
-    adj: torch.Tensor  # [G, N, N] float; adj[g, i, j] = 1 for an edge src j -> dst i
+    sh_dense: Optional[torch.Tensor]  # [G, N, N, 4] (dst, src)
+    attr_dense: Optional[torch.Tensor]  # [G, N, N, A]
+    adj: Optional[torch.Tensor]  # [G, N, N] float; adj[g, i, j] = 1 for an edge src j -> dst i
     sh_bond: torch.Tensor  # [G, B, 4]
     attr_bond: torch.Tensor  # [G, B, A]
     bond_src: torch.Tensor  # [G, B]
     bond_dst: torch.Tensor  # [G, B]
     bond_mask: torch.Tensor  # [G, B] float
+    # the sparse capped-neighbour path: slot k of dst atom i holds source
+    # nbr_idx[g, i, k] when nbr_mask[g, i, k] is 1
+    nbr_idx: Optional[torch.Tensor] = None  # [G, N, K] int64
+    nbr_mask: Optional[torch.Tensor] = None  # [G, N, K] float
+    sh_nbr: Optional[torch.Tensor] = None  # [G, N, K, 4]
+    attr_nbr: Optional[torch.Tensor] = None  # [G, N, K, A], or the radial half only
+    bond0_embed: Optional[torch.Tensor] = None  # [A // 2] bondedness-0 row (folded with a radial-only attr)
 
 
 def dense_edge_data(
@@ -63,8 +74,9 @@ def dense_edge_data(
     radial_cutoff,
     sh_fn,
     attr_fn,
+    dense: bool = True,
 ) -> EdgeData:
-    """Build EdgeData from positions.
+    """Build EdgeData from positions (the bonds alone with `dense=False`).
 
     sh_fn(edge_vec [..., 3]) -> [..., 4]; attr_fn(edge_len [...], bonded) -> [..., A].
     The radial edge set (bondedness 0) is the distance-cutoff graph over all
@@ -72,20 +84,23 @@ def dense_edge_data(
     additional edge set (bondedness 1), so a bonded pair in cutoff contributes
     two messages. Edge vector = pos[src] - pos[dst].
     """
-    N = pos.shape[1]
-    edge_vec = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i(dst), j(src)]
-    dist = torch.linalg.vector_norm(edge_vec + 1e-12, dim=-1)
-    eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
-    pair_mask = node_mask[:, :, None] & node_mask[:, None, :] & ~eye
-    adj = ((dist < radial_cutoff) & pair_mask).to(pos.dtype)
+    sh_dense = attr_dense = adj = None
+    if dense:
+        N = pos.shape[1]
+        edge_vec = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i(dst), j(src)]
+        dist = torch.linalg.vector_norm(edge_vec + 1e-12, dim=-1)
+        eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
+        pair_mask = node_mask[:, :, None] & node_mask[:, None, :] & ~eye
+        adj = ((dist < radial_cutoff) & pair_mask).to(pos.dtype)
+        sh_dense, attr_dense = sh_fn(edge_vec), attr_fn(dist, bonded=False)
 
     src = torch.gather(pos, 1, bond_src[..., None].expand(-1, -1, 3))
     dst = torch.gather(pos, 1, bond_dst[..., None].expand(-1, -1, 3))
     bvec = src - dst
     bdist = torch.linalg.vector_norm(bvec + 1e-12, dim=-1)
     return EdgeData(
-        sh_dense=sh_fn(edge_vec),
-        attr_dense=attr_fn(dist, bonded=False),
+        sh_dense=sh_dense,
+        attr_dense=attr_dense,
         adj=adj,
         sh_bond=sh_fn(bvec),
         attr_bond=attr_fn(bdist, bonded=True),

@@ -25,5 +25,7 @@ def spherical_harmonics(irreps_sh, vectors: torch.Tensor, eps: float = 1e-12) ->
         raise NotImplementedError(f"only {SH_IRREPS} is ported, got {irreps_sh}")
     norm = torch.linalg.vector_norm(vectors, dim=-1, keepdim=True)
     n = vectors / torch.clamp(norm, min=eps)
-    y1 = _SQRT3 * n[..., [1, 2, 0]]
+    # (y, z, x) from slices: an index list would be copied from the host at
+    # every call, and on the card that copy waits for the work queued before it
+    y1 = _SQRT3 * torch.cat([n[..., 1:3], n[..., 0:1]], dim=-1)
     return torch.cat([torch.ones_like(y1[..., :1]), y1], dim=-1)

@@ -10,6 +10,15 @@ walk is one `lax.scan`; here it is a Python loop of steps. Semantics:
     evaluates it at each step's midpoint, and saves that.
 Every Gaussian draw comes from the caller's `torch.Generator`, and a step
 takes its noise `R` as an argument, so a test can feed it numbers.
+
+With a `NeighborCachedScore` (the sparse path's Verlet lists,
+`jamun_tpu/sampling/mcmc.py:38-100`) the walk carries (cache, y_ref) in a
+`VerletListScore` and rebuilds the list when some atom moved more than the
+threshold since the last build. JAX rebuilds under `lax.cond`; reading that
+flag on the host here would make every step wait for the forward before it,
+so the rebuild is computed on the device at every step and the list and
+y_ref are selected with `torch.where` on the device flag: the same
+semantics, no host wait.
 """
 
 from __future__ import annotations
@@ -20,7 +29,48 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["MCMCConfig", "BAOAB", "ABOBA", "make_processed_score_fn", "initialize_velocity"]
+__all__ = [
+    "MCMCConfig", "BAOAB", "ABOBA", "NeighborCachedScore", "VerletListScore",
+    "make_processed_score_fn", "initialize_velocity",
+]
+
+
+@dataclasses.dataclass
+class NeighborCachedScore:
+    """Verlet-list score of the sparse path: `rebuild(y)` builds the capped
+    list within cutoff + skin, `score(y, cache)` evaluates the denoiser's
+    score on it (geometry from y, membership from the cache, the true-cutoff
+    mask recomputed), and the walk rebuilds when the largest per-atom
+    displacement since the last build exceeds `threshold` (skin / 2).
+    `rebuilds` is set by the walk: a device tensor counting the rebuilds
+    after the first build."""
+
+    rebuild: Callable  # y [G, N, 3] -> cache
+    score: Callable  # (y, cache) -> score [G, N, 3]
+    threshold: float
+    rebuilds: Optional[torch.Tensor] = None
+
+
+class VerletListScore:
+    """The walk's (cache, y_ref) carry around a `NeighborCachedScore`, as a
+    score function y -> raw score. Built at the walk's start position; each
+    call rebuilds on the device and keeps the new list only where the
+    displacement trigger fired (`torch.where` on a device flag: no host
+    read)."""
+
+    def __init__(self, cached: NeighborCachedScore, y0: torch.Tensor):
+        self.cached = cached
+        self.thr2 = float(cached.threshold) ** 2
+        self.cache, self.y_ref = tuple(cached.rebuild(y0)), y0
+        cached.rebuilds = torch.zeros((), dtype=torch.int64, device=y0.device)
+
+    def __call__(self, y: torch.Tensor) -> torch.Tensor:
+        fire = ((y - self.y_ref) ** 2).sum(-1).max() > self.thr2
+        fresh = self.cached.rebuild(y)
+        self.cache = tuple(torch.where(fire, f, c) for f, c in zip(fresh, self.cache))
+        self.y_ref = torch.where(fire, y, self.y_ref)
+        self.cached.rebuilds += fire
+        return self.cached.score(y, self.cache)
 
 
 def make_processed_score_fn(
@@ -99,11 +149,16 @@ class _SplittingSampler:
         generator: torch.Generator,
         v_init: Union[str, torch.Tensor] = "zero",
         mask: Optional[torch.Tensor] = None,
+        cached_score: Optional[NeighborCachedScore] = None,
     ):
         """Run the walk from positions y [..., 3]; mask multiplies the
-        velocity and every noise draw (node padding). Returns
-        (y, v, y_traj, score_traj), trajectories stacked on a new axis 0."""
+        velocity and every noise draw (node padding); `cached_score` puts the
+        score on Verlet lists carried through the walk (score_fn is then not
+        called). Returns (y, v, y_traj, score_traj), trajectories stacked on
+        a new axis 0."""
         cfg = self.config
+        if cached_score is not None:
+            score_fn = VerletListScore(cached_score, y)
         processed = make_processed_score_fn(score_fn, cfg.inverse_temperature, cfg.score_fn_clip)
         v = initialize_velocity(v_init, y, cfg.u, generator)
         if mask is not None:

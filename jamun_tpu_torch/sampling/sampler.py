@@ -60,7 +60,11 @@ class Sampler:
     `on_after_sample_batch(sample, sampler, elapsed_seconds,
     neighbor_overflow)`, `on_sample_end(sampler)` and
     `update_sampler(batch_sampler, batch_idx)` (see `sampling/callbacks.py`).
-    `device` follows `utils.device.resolve_device`: the card unless "cpu"."""
+    `device` follows `utils.device.resolve_device`: the card unless "cpu".
+    Where the denoiser runs the sparse path, `neighbor_overflow` is
+    {"mean", "max"} over the valid graphs of the in-cutoff edges its cap
+    drops at the batch's end positions (one host read per batch, as in
+    JAX); None where it runs dense, which drops no edge."""
 
     callbacks: Sequence[Any] = ()
     num_devices: Optional[int] = None
@@ -103,6 +107,8 @@ class Sampler:
             return pos + batch_sampler.sigma * noise * mask
 
         y_init, v_init = fresh_start(), "gaussian"
+        sparse = denoiser.sparse_neighbors_active(pos.shape[1], training=False)
+        graph_mask, sigma = init_graphs.graph_mask.cpu().numpy(), batch_sampler.sigma
         self._call("on_sample_start", sampler=self)
         all_samples: List[List[Dict[str, Any]]] = []
         for batch_idx in range(num_batches):
@@ -123,6 +129,18 @@ class Sampler:
             else:
                 y_init, v_init = fresh_start(), "gaussian"
 
+            overflow = None
+            if sparse:
+                with torch.no_grad():
+                    ov = denoiser.neighbor_overflow(
+                        init_graphs.replace_pos(out["y"]), sigma
+                    ).cpu().numpy()
+                ov = ov[graph_mask]
+                overflow = {
+                    "mean": float(ov.mean()) if ov.size else 0.0,
+                    "max": int(ov.max()) if ov.size else 0,
+                }
+
             samples = unbatch_samples(out, init_graphs)
             all_samples.append(samples)
             self._call(
@@ -130,7 +148,7 @@ class Sampler:
                 sample=samples,
                 sampler=self,
                 elapsed_seconds=elapsed,
-                neighbor_overflow=None,  # the dense path drops no edge
+                neighbor_overflow=overflow,
             )
         self._call("on_sample_end", sampler=self)
         return all_samples

@@ -81,25 +81,33 @@ class SingleMeasurementSampler:
     jump_chunk_size: int = 0  # frames per denoiser call of the unfused jump (0: all at once)
     fused_jump: bool = True  # take the trajectory jump from the walk's scores (BAOAB)
     offload_chunk_steps: int = 0  # > 0: `sample_chunked` drains frames to the host every N updates
-    neighbor_skin: float = 0.0  # the sparse path's cached neighbour lists: not ported
-
-    def __post_init__(self):
-        if self.neighbor_skin > 0:
-            raise NotImplementedError(
-                "neighbor_skin > 0 needs the sparse capped-neighbour path "
-                "(NeighborCachedScore: ROADMAP.md queue A item 7)"
-            )
+    # > 0: Verlet-cached neighbour lists on the sparse path (nm of the walk's
+    # coordinates): the walk carries a list built within cutoff + skin and
+    # rebuilds it when some atom moved more than skin / 2, instead of
+    # building it at every score call; no effect where the model runs dense
+    neighbor_skin: float = 0.0
 
     @torch.no_grad()
     def walk(self, denoiser, init_graphs: GraphBatch, y_init: torch.Tensor,
              generator: torch.Generator, v_init="gaussian"):
+        """The Langevin walk; with a Verlet list the output also holds
+        "neighbor_rebuilds", the walk's rebuilds after the first build (a
+        device tensor)."""
         mask = init_graphs.node_mask[..., None].to(y_init.dtype)
 
         def score_fn(y):
             return denoiser.score(init_graphs.replace_pos(y), self.sigma)
 
-        y, v, y_traj, score_traj = self.mcmc(y_init, score_fn, generator, v_init=v_init, mask=mask)
-        return {"y": y, "v": v, "y_traj": y_traj, "score_traj": score_traj}
+        cached = None
+        if self.neighbor_skin > 0:
+            cached = denoiser.make_neighbor_cached_score(init_graphs, self.sigma, self.neighbor_skin)
+        y, v, y_traj, score_traj = self.mcmc(
+            y_init, score_fn, generator, v_init=v_init, mask=mask, cached_score=cached
+        )
+        out = {"y": y, "v": v, "y_traj": y_traj, "score_traj": score_traj}
+        if cached is not None:
+            out["neighbor_rebuilds"] = cached.rebuilds
+        return out
 
     @torch.no_grad()
     def walk_jump(self, denoiser, init_graphs: GraphBatch, y_init: torch.Tensor,

@@ -11,6 +11,7 @@ in its last bits can round an intermediate to the neighbouring bf16 value).
 """
 
 import copy
+import dataclasses
 
 import pytest
 import torch
@@ -21,6 +22,8 @@ from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import edge_features as k1
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
 from jamun_tpu_torch.utils.testing import make_test_batch
 
 pytestmark = pytest.mark.cuda
@@ -127,7 +130,7 @@ def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
 def test_model_above_128_atoms_takes_the_tiled_kernel(cuda):
     """On the card the model runs N > 128: K5 once per block and K1 never
     without a gradient, the plain path (no launch) with one; f32 output
-    against the CPU's plain path; "auto" refuses only where JAX goes sparse."""
+    against the CPU's plain path; "auto" goes sparse (K6) where JAX does."""
     batch = make_test_batch(num_graphs=2, max_nodes=136, nodes_per_graph=[136, 131],
                             max_bonds=272, scale=0.6, device=cuda)
     arch = dict(irreps_hidden="24x0e + 8x1e", n_layers=2, seed=0)
@@ -147,10 +150,51 @@ def test_model_above_128_atoms_takes_the_tiled_kernel(cuda):
     model(batch.replace_pos(pos), c_noise, 0.8).square().sum().backward()
     assert counts() == start and float(pos.grad.abs().max()) > 0
     big = make_test_batch(num_graphs=1, max_nodes=512, max_bonds=1024, scale=0.8, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        model.requires_grad_(False)(big, c_noise, 0.8)
+    start, n6 = counts(), k6.KERNEL.launches
+    out, tel = model.requires_grad_(False)(big, c_noise, 0.8, with_telemetry=True)
+    # "auto" at 512 atoms goes sparse: K6 once per block, no dense kernel
+    assert counts() == start and k6.KERNEL.launches - n6 == 3 and "neighbor_overflow" in tel
+    assert torch.isfinite(out).all()
     dense = E3Conv(**arch, neighbor_mode="dense", device=cuda).requires_grad_(False)
     assert torch.isfinite(dense(big, c_noise, 0.8)).all()
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sparse_kernels_match_plain_twins(cuda, cdt):
+    """K7 and K6 against their plain versions on a chain at N = 203 (a
+    Verlet list built within cutoff + 0.3): K7's mask and folded indices
+    exactly, K6's degree exactly, the rest within the dtype's tolerance, for
+    the projector and a hidden block, on the model's attributes (A = 64) and
+    on K7's radial half (A = 32)."""
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+    from jamun_tpu_torch.utils.testing import make_chain_positions
+
+    batch = make_test_batch(num_graphs=2, max_nodes=203, nodes_per_graph=[203, 150],
+                            max_bonds=406, device=cuda)
+    pos = torch.from_numpy(make_chain_positions(2, 203, seed=0)).to(cuda)
+    batch = batch.replace_pos(pos * batch.node_mask[..., None])
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda,
+                   seed=0).requires_grad_(False)
+    cutoff = 0.45
+    idx, sup, _ = capped_neighbor_lists(batch.pos, batch.node_mask, cutoff + 0.3, 32)
+    n6, n7 = k6.KERNEL.launches, k7.KERNEL.launches
+    got7 = k7.nbr_edge_features(batch.pos, idx, sup, cutoff, 32, cdt)
+    want7 = k7.nbr_edge_features_plain(batch.pos, idx, sup, cutoff, 32, cdt)
+    assert torch.equal(got7[2], want7[2]) and torch.equal(got7[3], want7[3])
+    assert _rel(got7[0], want7[0]) <= TOL[cdt] and _rel(got7[1], want7[1]) <= TOL[cdt]
+    assert 0 < int(got7[2].sum()) < int(sup.sum())
+    edges, _ = model._sparse_edges(batch, cutoff, (idx, sup), True)
+    radial_half = dataclasses.replace(edges, sh_nbr=got7[0], attr_nbr=got7[1],
+                                      nbr_mask=got7[2], nbr_idx=got7[3])
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for blk, (S, V) in ((model.ConvBlock_0, (56, 0)), (model._HiddenLayer_0.ConvBlock_0, (24, 8))):
+        for ed in (edges, radial_half):
+            x = torch.randn((2, 203, S + 3 * V), generator=gen, device=cuda).to(cdt)
+            args = blk.Conv_0.nbr_kernel_args(x, ed)
+            got, deg = k6.nbr_uvu_conv(*args)
+            want, deg_p = k6.nbr_uvu_conv_plain(*args)
+            assert torch.equal(deg, deg_p) and _rel(got, want) <= TOL[cdt]
+    assert (k6.KERNEL.launches - n6, k7.KERNEL.launches - n7) == (4, 1)
 
 
 def _small(cuda, cdt):
@@ -261,9 +305,10 @@ def test_stack_kernel_refuses_what_it_cannot_take(cuda):
     assert torch.isfinite(model(batch, c_noise, 0.8)).all() and k3.KERNEL.launches == n3
 
 
-@pytest.mark.parametrize("fused_stack,n_atoms", [(True, 19), (False, 19), (False, 136)],
-                         ids=["stack", "layerwise", "tiled"])
-def test_walk_never_makes_the_host_wait(cuda, fused_stack, n_atoms):
+@pytest.mark.parametrize("fused_stack,n_atoms,skin", [
+    (True, 19, 0.0), (False, 19, 0.0), (False, 136, 0.0), (False, 512, 0.0), (False, 512, 1.0),
+], ids=["stack", "layerwise", "tiled", "sparse", "sparse_cached"])
+def test_walk_never_makes_the_host_wait(cuda, fused_stack, n_atoms, skin):
     """A walk step queues its kernels without waiting for the device (sync
     debug mode raises on a blocking copy or an `.item()`), on every path."""
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
@@ -275,7 +320,8 @@ def test_walk_never_makes_the_host_wait(cuda, fused_stack, n_atoms):
     model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0,
                    fused_stack=fused_stack).requires_grad_(False)
     den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.5))
-    sampler = SingleMeasurementSampler(BAOAB(MCMCConfig(delta=0.04, steps=3)), 0.04)
+    sampler = SingleMeasurementSampler(BAOAB(MCMCConfig(delta=0.04, steps=3)), 0.04,
+                                       neighbor_skin=skin)
     gen = torch.Generator(device=cuda).manual_seed(0)
     sampler.walk_jump(den, batch, batch.pos, gen)  # builds, loads and caches once
     torch.cuda.synchronize()

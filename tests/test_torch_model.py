@@ -177,8 +177,15 @@ def test_device_rule_and_unported_shapes():
             make_test_batch(2, 8)
     with pytest.raises(NotImplementedError, match="queue A item 11"):
         E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="uvw", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        E3Conv(**ARCH, neighbor_mode="nbr", device="cpu")
+    # the sparse capped-neighbour path is ported: "nbr" runs at any size and
+    # reports the edges its cap drops
+    nbr = E3Conv(**ARCH, neighbor_mode="nbr", neighbor_cap=4, device="cpu", seed=0)
+    assert (nbr.neighbor_mode, nbr.neighbor_cap, nbr.nbr_geom_kernel) == ("nbr", 4, False)
+    with torch.no_grad():
+        out, tel = nbr(make_test_batch(2, 8, device="cpu"), torch.tensor([-0.8]), 1.0,
+                       with_telemetry=True)
+    assert out.shape == (2, 8, 3) and torch.isfinite(out).all()
+    assert tel["neighbor_overflow"].shape == (2,) and int(tel["neighbor_overflow"].min()) > 0
 
 
 def test_kernel_path_head_matches_jax_bf16():

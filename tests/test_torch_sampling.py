@@ -298,8 +298,16 @@ def test_unported_options_and_device_rule():
         Sampler(atom_sharded=True, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 12"):
         Sampler(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        SingleMeasurementSampler(BAOAB(MCMCConfig()), SIGMA, neighbor_skin=0.1)
+    # the Verlet lists of the sparse path are ported: a skin is accepted, and
+    # a model on the dense path builds no list to cache
+    smp = SingleMeasurementSampler(BAOAB(MCMCConfig(steps=3)), SIGMA, neighbor_skin=0.1)
+    assert smp.neighbor_skin == 0.1
+    tb = make_test_batch(1, 8, device="cpu")
+    den = Denoiser(E3Conv(irreps_hidden="4x0e + 2x1e", n_layers=1, device="cpu", seed=0),
+                   DenoiserConfig(1.0, 0.5))
+    assert den.make_neighbor_cached_score(tb, SIGMA, 0.1) is None
+    out = smp.walk(den, tb, tb.pos, torch.Generator().manual_seed(0))
+    assert "neighbor_rebuilds" not in out and out["y_traj"].shape == (3, 1, 8, 3)
     assert Sampler(num_devices=1, device="cpu").device == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -344,7 +344,8 @@ def test_dispatch_by_regime(monkeypatch):
 def test_auto_neighbor_mode_follows_jax():
     """`"auto"` is the default and resolves as JAX's `neighbor_mode_auto`
     (256 atoms with a gradient, 512 without); where it goes sparse the port
-    raises naming its roadmap item, and `"dense"` runs at any size."""
+    runs the sparse path (its telemetry reports the cap's dropped edges),
+    and `"dense"` runs the dense path at any size."""
     from jamun_tpu.models.e3conv import neighbor_mode_auto as j_auto
 
     for n in (128, 255, 256, 511, 512, 1024):
@@ -355,14 +356,17 @@ def test_auto_neighbor_mode_follows_jax():
     auto = E3Conv(**tiny, device="cpu", seed=0)
     assert auto.neighbor_mode == "auto" == JE3Conv.neighbor_mode
     at = lambda n: make_test_batch(num_graphs=1, max_nodes=n, max_bonds=8, scale=2.0, device="cpu")  # noqa: E731
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        auto(at(256), c, 1.0)  # parameters want a gradient: the training threshold
+    # parameters want a gradient: the training threshold, the plain sparse path
+    out, tel = auto(at(256), c, 1.0, with_telemetry=True)
+    assert out.shape == (1, 256, 3) and "neighbor_overflow" in tel and out.requires_grad
     auto.requires_grad_(False)
-    assert auto(at(256), c, 1.0).shape == (1, 256, 3)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        auto(at(512), c, 1.0)
+    out, tel = auto(at(256), c, 1.0, with_telemetry=True)
+    assert out.shape == (1, 256, 3) and tel == {}  # dense below 512 without a gradient
+    out, tel = auto(at(512), c, 1.0, with_telemetry=True)
+    assert torch.isfinite(out).all() and tel["neighbor_overflow"].shape == (1,)
     dense = E3Conv(**tiny, neighbor_mode="dense", device="cpu", seed=0).requires_grad_(False)
-    assert torch.isfinite(dense(at(512), c, 1.0)).all()
+    out, tel = dense(at(512), c, 1.0, with_telemetry=True)
+    assert torch.isfinite(out).all() and tel == {}
     with pytest.raises(ValueError, match="neighbor_mode"):
         E3Conv(**tiny, neighbor_mode="sparse", device="cpu")
 
