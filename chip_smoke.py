@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught):
      geometry rebuilt from the positions) at N = 256, G = 64 and on a ragged
      batch whose N is no multiple of 8, projector and hidden block, with the
      degree it counted held to its plain version's exactly, and against K2 at
-     N = 112; the sparse path's kernels on `bench.py`'s chain geometry
+     N = 112; the dense messages from the positions (K8 and K9) at the
+     hidden width at 4AA, 5AA and N = 256, G = 16, and K8 at the projector's
+     width, the degree exactly and K9 equal to K8 bit for bit; K2's layer
+     mode on the hidden block's Conv at 4AA and 5AA; the sparse path's
+     kernels on `bench.py`'s chain geometry
      (N = 512, G = 8 with the list of one forward and with the skin-1.0
      Verlet list, N = 1024, G = 2, a ragged N = 203): the edge features on a
      cached list (K7), mask and indices exactly, and the messages (K6) for
@@ -48,15 +52,24 @@ Phases (any failure exits non-zero; nothing is caught):
      `nbr_geom_kernel` walk and never otherwise, K1, K2, K3, K5 never; the
      rebuild count, one list build timed, the overflow `Sampler` reported,
      the kept slots and one score call on the first and the last frame;
+     (e) walk-jump with `E3Conv(pallas_variant="plane")` through
+     `Sampler.sample`, BAOAB, 101 steps at 4AA (N = 44, G = 256) and 5AA
+     (N = 112, G = 128): K9 five times per denoiser call (the projector, at
+     V = 0, runs the plain path), every other kernel never;
+     (f) `Conv` calls that reach K8 (irreps_out 32x1e at the hidden width;
+     V = 0 without the bondedness-1 row) and K2's layer mode, with their
+     launch counts, against the plain path on the card;
   4. check the output: finite, the expected shape, both kernel paths' f32
      score against the CPU plain path on a small input, and E(3)
-     equivariance of both, the same for the K5 path at N = 256 and for the
-     sparse path (K6) at N = 512, G = 2; a short walk on each path with
-     PyTorch's sync debug mode set to raise (no step waits for the device),
-     the sparse path's cached and uncached walks included; torch.profiler
+     equivariance of both, the same for the K5 path at N = 256, for the
+     sparse path (K6) at N = 512, G = 2 and for the plane path (K9); a short
+     walk on each path with PyTorch's sync debug mode set to raise (no step
+     waits for the device), the sparse path's cached and uncached walks and
+     the plane walk included, and three `Trainer.fit` steps from host
+     batches with a mirror flip and a fixed noise draw; torch.profiler
      traces of a short 4AA walk on each path (device time by kernel, device
-     busy share, device ops per forward), the N = 256 walk and the cached
-     N = 512 sparse walk included;
+     busy share, device ops per forward), the N = 256 walk, the cached
+     N = 512 sparse walk and the plane walk included;
   5. training: K4 (the ConvBlock backward) against its plain version for
      the projector and a hidden block at the training shape (G = 32, N = 48,
      44 atoms) and at N = 112 (G = 32), bf16 and f32, timed; then the second
@@ -487,7 +500,7 @@ def tiled_walks(denoisers: dict, dev, card: str, kernels: dict):
         cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=steps, save_every_n_steps=1,
                          score_fn_clip=100.0)
         times = BatchTimes()
-        before = {name: k.KERNEL.launches for name, k in kernels.items()}
+        before = {name: k.launches for name, k in kernels.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -497,11 +510,11 @@ def tiled_walks(denoisers: dict, dev, card: str, kernels: dict):
         )
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - held
-        used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
+        used = {name: k.launches - before[name] for name, k in kernels.items()}
         calls += steps + 1  # initial score, steps - 1 updates, the final jump
         launched += used["fused_block_tiled"]
-        assert used == {"edge_features": 0, "conv_block": 0, "e3_stack": 0,
-                        "fused_block_tiled": 6 * (steps + 1)}, (label, used)
+        assert used == {**dict.fromkeys(kernels, 0), "fused_block_tiled": 6 * (steps + 1)}, (
+            label, used)
         check_samples(out[0], G, N, steps, label)
         # what K1 would have written at every forward on the other dense path
         ef_bytes_bf16 = G * N * N * 36 * 2
@@ -738,14 +751,14 @@ def sparse_walks(den, den_geom, dev, card: str, kernels: dict):
         d.make_neighbor_cached_score = lambda *a, make=make, **k: made.append(make(*a, **k)) or made[-1]
         times = BatchTimes()
         for k in kernels.values():
-            k.KERNEL.launches = 0
+            k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = Sampler(callbacks=[times], device=dev).sample(
             d, SingleMeasurementSampler(BAOAB(cfg), SIGMA, neighbor_skin=skin), 1, batch, seed=2,
         )
         dt = time.perf_counter() - t0
-        used = {name: k.KERNEL.launches for name, k in kernels.items()}
+        used = {name: k.launches for name, k in kernels.items()}
         del d.make_neighbor_cached_score
         want = dict.fromkeys(kernels, 0)
         want["nbr_conv"] = 6 * (steps + 1)  # initial score, steps - 1 updates, the final jump
@@ -865,13 +878,13 @@ def train_sparse(dev, card: str, kernels: dict) -> dict:
         den, ConstantSigma(SIGMA), device=dev,
     )
     for k in kernels.values():
-        k.KERNEL.launches = 0
+        k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = trainer.fit([batch] * steps)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    used = {name: k.KERNEL.launches for name, k in kernels.items()}
+    used = {name: k.launches for name, k in kernels.items()}
     assert state.step == steps and not any(used.values()), used
     train = [m for _, m in trainer.metrics if "train/loss" in m]
     losses = [m["train/loss"] for m in train]
@@ -905,13 +918,13 @@ def train_above_128(dev, card: str, kernels: dict) -> dict:
         TrainerConfig(max_steps=steps, log_every_n_steps=1, learning_rate=2.0e-3, seed=0),
         den, ConstantSigma(SIGMA), device=dev,
     )
-    before = {name: k.KERNEL.launches for name, k in kernels.items()}
+    before = {name: k.launches for name, k in kernels.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = trainer.fit([batch] * steps)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
+    used = {name: k.launches - before[name] for name, k in kernels.items()}
     assert state.step == steps and not any(used.values()), used
     train = [m for _, m in trainer.metrics if "train/loss" in m]
     losses = [m["train/loss"] for m in train]
@@ -925,7 +938,7 @@ def train_above_128(dev, card: str, kernels: dict) -> dict:
     # the validation forward wants no gradient: K5, six launches
     val = Trainer(TrainerConfig(max_steps=0), den, ConstantSigma(SIGMA), device=dev)
     val.fit([], [batch])
-    val_used = {name: k.KERNEL.launches - before[name] for name, k in kernels.items()}
+    val_used = {name: k.launches - before[name] for name, k in kernels.items()}
     val_loss = [m for _, m in val.metrics if "val/loss" in m][0]["val/loss"]
     log(f"phase 5: validation at N={N}: loss {val_loss:.5f}, launches {val_used}")
     assert math.isfinite(val_loss)
@@ -1206,6 +1219,328 @@ def stack_walks(den, batches: dict, dev, card: str):
     return walks, calls
 
 
+def dense_conv_cost(x, pos, n_pairs: int, out, deg, weights, cdt):
+    """(flops, bytes) K8 and K9 need on these inputs: the radial MLP and the
+    messages of the visited pairs; x, the positions and mask, the weights,
+    the output and the degree once each."""
+    G, N, F = x.shape
+    W = weights[2].shape[-1]
+    flops = 2 * n_pairs * (32 * 64 + 64 * W)
+    nbytes = (
+        x.numel() * x.element_size() + pos.numel() * 4 + G * N
+        + sum(t.numel() * t.element_size() for t in weights)
+        + out.numel() * 4 + deg.numel() * 4
+    )
+    return flops, nbytes
+
+
+def check_dense_conv(k89, models, batches, dev, c_in: float, cutoff: float, shapes=None) -> list:
+    """Phase 2, K8 and K9: the dense messages from the positions against
+    their plain versions, bf16 and f32, at the flagship hidden width
+    (S = 120, V = 32) at 4AA (N = 44, G = 256), 5AA (N = 112, G = 128) and
+    N = 256, G = 16, and K8 at the projector's width (S = 56, V = 0) at 4AA
+    and 5AA. The degree must equal the plain version's on every atom, and
+    K9 must equal K8 bit for bit. The bounds count the visited pairs only."""
+    shapes = shapes or {"4AA": batches["4AA"], "5AA": batches["5AA"], "N256": tiled_batch(256, 16, dev)}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for label, batch in shapes.items():
+        G, N = batch.pos.shape[:2]
+        pos = (batch.pos * c_in).contiguous()
+        for cdt in (torch.bfloat16, torch.float32):
+            model = models[cdt]
+            bond0 = model.embed_bondedness[0]
+            blocks = [("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32)]
+            if label != "N256":
+                blocks.append(("projector", model.ConvBlock_0, 56, 0))
+            for block_name, blk, S, V in blocks:
+                tag = f"{block_name} {label} N={N} G={G} {str(cdt).split('.')[-1]}"
+                d0, d1 = blk.Conv_0.radial_nn.layer(0), blk.Conv_0.radial_nn.layer(1)
+                x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                args = (pos, batch.node_mask, x, d0.kernel, d0.bias, d1.kernel, d1.bias, bond0,
+                        cutoff, S, V)
+                got, deg = k89.packed_uvu_conv_dense(*args)
+                want, deg_p = k89.packed_uvu_conv_dense_plain(*args)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all(), f"K8 {tag}: non-finite output"
+                deg_mismatch = int((deg != deg_p).sum())
+                assert deg_mismatch == 0, f"K8 {tag}: the degree differs on {deg_mismatch} atoms"
+                abs_e, rel_e = rel_err(got, want)
+                assert rel_e <= TOL[cdt], f"K8 {tag}: rel err {rel_e:.3g} > {TOL[cdt]}"
+                n_pairs = int(deg.sum(dtype=torch.float64))
+                weights = k89.dense_weights(d0.kernel, d0.bias, d1.kernel, d1.bias, bond0, cdt)
+                flops, nbytes = dense_conv_cost(x, pos, n_pairs, got, deg, weights, cdt)
+                t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                real = batch.node_mask.sum(-1).double()
+                common = dict(
+                    max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
+                    plain_ms=cuda_time_ms(lambda: k89.packed_uvu_conv_dense_plain(*args), 1),
+                    bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    visited_pairs=n_pairs, share_inside_cutoff=n_pairs / float((real * (real - 1)).sum()),
+                    flops=flops, bytes=nbytes, dtype=str(cdt), N=N, G=G, block=block_name, label=label,
+                )
+                rows.append(dict(kernel="packed_uvu_conv_dense", shape=f"K8 {tag}",
+                                 ms=cuda_time_ms(lambda: k89.packed_uvu_conv_dense(*args), 10), **common))
+                msg = f"K8 {rows[-1]['ms']:.4f} ms"
+                if V:
+                    got9, deg9 = k89.fused_uvu_conv_dense(*args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got9, got) and torch.equal(deg9, deg), f"K9 {tag}: differs from K8"
+                    rows.append(dict(kernel="fused_uvu_conv_dense", shape=f"K9 {tag}",
+                                     ms=cuda_time_ms(lambda: k89.fused_uvu_conv_dense(*args), 10),
+                                     **common))
+                    msg += f", K9 {rows[-1]['ms']:.4f} ms (equal to K8 bit for bit)"
+                log(f"phase 2: K8/K9 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}), "
+                    f"degree equal on all atoms; {msg}, plain {common['plain_ms']:.4f} ms, bound "
+                    f"{common['bound_ms']:.4f} ms ({common['bound_by']}), {n_pairs} visited pairs "
+                    f"({100 * common['share_inside_cutoff']:.1f}% of the ordered pairs)")
+                del got, want, deg, deg_p
+                torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv_layer(k1, k2, models, batches, dev, c_in: float, cutoff: float) -> list:
+    """Phase 2, K2's layer mode against its plain version on the flagship
+    hidden block's Conv_0 (irreps_out 120x0e + 32x0e + 32x1e, the fused
+    layer's shape) at 4AA and 5AA, bf16 and f32, on K1's features."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows = []
+    for label in ("4AA", "5AA"):
+        batch = batches[label]
+        G, N = batch.pos.shape[:2]
+        pos = (batch.pos * c_in).contiguous()
+        geo = (pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, cutoff, 32)
+        for cdt in (torch.bfloat16, torch.float32):
+            tag = f"hidden {label} N={N} G={G} {str(cdt).split('.')[-1]}"
+            model = models[cdt]
+            conv = model._HiddenLayer_0.ConvBlock_0.Conv_0
+            ef, bf = k1.edge_features(*geo, cdt)
+            w = k2.layer_weights(conv.radial_nn, conv._post_linear, model.embed_bondedness[0],
+                                 model.embed_bondedness[1], S=120, V=32, cdt=cdt)
+            x = torch.randn((G, N, 216), generator=gen, device=dev).to(cdt)
+            args = (x, ef, bf, batch.bond_src, batch.bond_dst, w)
+            got = k2.conv_layer(*args)
+            want = k2.conv_layer_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), f"K2 layer {tag}: non-finite output"
+            abs_e, rel_e = rel_err(got, want)
+            assert rel_e <= TOL[cdt], f"K2 layer {tag}: rel err {rel_e:.3g} > {TOL[cdt]}"
+            n_dense = int(ef[..., 3].sum(dtype=torch.float32))
+            n_pairs = n_dense + int(bf[..., 3].sum(dtype=torch.float32))
+            Wd, C0, V1 = 2 * 120 + 3 * 32, w.C0, w.V1
+            flops = 2 * n_pairs * (32 * 64 + 64 * Wd) + 2 * G * N * (152 * C0 + 3 * 184 * V1)
+            nbytes = (
+                (x.numel() + bf.numel()) * x.element_size() + ef_bytes(ef, n_dense)
+                + batch.bond_src.numel() * 16 + got.numel() * 4
+                + sum(t.numel() * t.element_size() for t in w if torch.is_tensor(t))
+            )
+            t_ops = flops / PEAK_FLOPS[cdt] * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            row = dict(
+                shape=f"K2 layer {tag}", max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
+                ms=cuda_time_ms(lambda: k2.conv_layer(*args), 10),
+                plain_ms=cuda_time_ms(lambda: k2.conv_layer_plain(*args), 2),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                visited_pairs=n_pairs, flops=flops, bytes=nbytes, dtype=str(cdt), N=N, G=G,
+                block="hidden", label=label,
+            )
+            rows.append(row)
+            log(f"phase 2: K2 layer mode {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
+                f"(tol {TOL[cdt]}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+            del got, want, ef, bf
+            torch.cuda.empty_cache()
+    return rows
+
+
+def plane_walks(den, batches: dict, dev, card: str, counters: dict):
+    """Phase 3e: walk-jump with `E3Conv(pallas_variant="plane")` at full
+    flagship width through `Sampler.sample`, BAOAB, 101 steps: 4AA (N = 44,
+    G = 256) and 5AA (N = 112, G = 128), the layerwise walks' batches and
+    step count. Every launch count is set to 0 just before each walk and read
+    just after: K9 five times per denoiser call (the hidden layers; the
+    projector runs the plain path, V = 0), every other kernel never. Returns
+    the walks' numbers and K9's launches in them."""
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.sampler import Sampler
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    walks, launched, steps = {}, 0, 101
+    cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=steps, save_every_n_steps=1,
+                     score_fn_clip=100.0)
+    for label in ("4AA", "5AA"):
+        batch = batches[label]
+        G, N = batch.pos.shape[:2]
+        times = BatchTimes()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = Sampler(callbacks=[times], device=dev).sample(
+            den, SingleMeasurementSampler(BAOAB(cfg), SIGMA), 1, batch, seed=2,
+        )
+        dt = time.perf_counter() - t0
+        used = {name: k.launches for name, k in counters.items()}
+        want = {**dict.fromkeys(counters, 0), "fused_uvu_conv_dense": 5 * (steps + 1)}
+        assert used == want, (label, used, want)
+        launched += used["fused_uvu_conv_dense"]
+        check_samples(out[0], G, N, steps, f"plane {label}")
+        walk_s = sum(times.seconds)
+        walks[f"{label}_plane"] = dict(
+            N=N, G=G, steps=steps, frames=steps, seconds=dt, walk_seconds=walk_s,
+            ms_per_step=walk_s * 1e3 / steps, ms_per_sample=walk_s * 1e3 / (G * steps),
+            launches=used,
+        )
+        log(f"phase 3: plane walk-jump {label} N={N} G={G} steps={steps} through Sampler.sample: "
+            f"walk {walk_s:.3f} s, with unbatching {dt:.3f} s, "
+            f"{walks[f'{label}_plane']['ms_per_sample']:.6f} ms/sample, "
+            f"{walks[f'{label}_plane']['ms_per_step']:.3f} ms/step on {card}; "
+            f"K9 {used['fused_uvu_conv_dense']} launches, every other kernel none")
+    return walks, launched
+
+
+def conv_level_calls(models, batch, dev, c_in: float, cutoff: float, counters: dict) -> dict:
+    """Phase 3f: `Conv` calls that reach K8 and K2's layer mode through the
+    Conv-level dispatch, at the flagship hidden width on the 4AA batch: a
+    `Conv` whose irreps_out is 32x1e (no 0e block, so not the fused layer:
+    K8), one at V = 0 (the projector's 56x0e input) on edges without the
+    bondedness-1 row (K8), and the hidden block's shape with both rows (K2's
+    layer mode, with K1's features made in the call). Counts zeroed before
+    each call and read after; each output is held against the plain path on
+    the card in f32 (1e-4) and is finite in bf16."""
+    import functools as ft
+
+    from jamun_tpu_torch.ops.conv import Conv
+    from jamun_tpu_torch.ops.graph import dense_edge_data
+    from jamun_tpu_torch.ops.sh import spherical_harmonics
+
+    gen = torch.Generator().manual_seed(12)
+    scaled = batch.replace_pos((batch.pos * c_in).contiguous())
+    cases = (
+        ("K8, irreps_out 32x1e", "120x0e + 32x1e", "32x1e", True, "packed_uvu_conv_dense"),
+        ("K8, V = 0, no bondedness-1 row", "56x0e", "120x0e + 32x0e + 32x1e", False,
+         "packed_uvu_conv_dense"),
+        ("K2 layer mode", "120x0e + 32x1e", "120x0e + 32x0e + 32x1e", True, "conv_layer"),
+    )
+    out = {}
+    for label, irreps_in, irreps_out, bond1, kernel in cases:
+        for cdt in (torch.bfloat16, torch.float32):
+            model = models[cdt]
+            conv = Conv(irreps_in, irreps_out, "1x0e + 1x1e", 64, dtype=cdt).to(dev)
+            for prm in conv.parameters():
+                prm.data.copy_(torch.randn(prm.shape, generator=gen) / 4)
+            conv.requires_grad_(False)
+            edges = dense_edge_data(
+                scaled.pos, scaled.node_mask, scaled.bond_src, scaled.bond_dst, scaled.bond_mask,
+                cutoff, ft.partial(spherical_harmonics, "1x0e + 1x1e"), model._attr_fn(cutoff),
+                bond0_embed=model.embed_bondedness[0],
+                bond1_embed=model.embed_bondedness[1] if bond1 else None,
+            )
+            x = torch.randn((*batch.pos.shape[:2], conv.irreps_in.dim), generator=gen).to(dev, cdt)
+            for k in counters.values():
+                k.launches = 0
+            with torch.no_grad():
+                got = conv(x, edges, kernel=True)
+                torch.cuda.synchronize()
+                used = {name: k.launches for name, k in counters.items() if k.launches}
+                plain = conv(x, edges)
+            want = {kernel: 1, **({"edge_features": 1} if kernel == "conv_layer" else {})}
+            assert used == want, (label, used, want)
+            assert torch.isfinite(got).all(), label
+            tag = f"{label} {str(cdt).split('.')[-1]}"
+            err = rel_err(got, plain)[1]
+            if cdt == torch.float32:
+                assert err < 1e-4, (tag, err)
+            out[tag] = dict(launches=used, rel_err_vs_plain=err)
+            log(f"phase 3: Conv-level call, {tag}: launches {used}; vs the plain path on the card "
+                f"rel {err:.3g}" + (" (tol 1e-4)" if cdt == torch.float32 else ""))
+    return out
+
+
+def check_plane_score(plane_models: dict, config, dev) -> dict:
+    """Phase 4 on the plane path: the f32 score on the 4AA-sized batch
+    (G = 2 of 44 and 41 atoms) on the card (K9) against the plain path on the
+    CPU, and E(3) equivariance in f32 and bf16."""
+    from jamun_tpu_torch.models.denoiser import Denoiser
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.ops.cuda import dense_conv as k89
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
+                            scale=0.35, device=dev)
+    ref_model = E3Conv(dtype=None, device="cpu", plain=True)
+    ref_model.load_state_dict(plane_models[torch.float32].state_dict())
+    ref_model.requires_grad_(False)
+    before = k89.K9.launches
+    with torch.no_grad():
+        s_cpu = Denoiser(ref_model, config).score(small.to("cpu"), SIGMA)
+        s_card = Denoiser(plane_models[torch.float32], config).score(small, SIGMA)
+    abs_e, rel_e = rel_err(s_card.cpu(), s_cpu)
+    log(f"phase 4: f32 score at 4AA, plane path (K9) on the card vs plain path on the CPU: "
+        f"max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol 1e-3)")
+    assert rel_e < 1e-3
+    q, r = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator().manual_seed(5)))
+    R = (q * torch.sign(torch.diagonal(r))).to(dev)
+    if torch.det(R) < 0:
+        R = -R
+    shift = torch.tensor([0.3, -0.2, 0.5], device=dev)
+    mask = small.node_mask[..., None].float()
+    out = dict(score_rel_err=rel_e)
+    for cdt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        d = Denoiser(plane_models[cdt], config)
+        with torch.no_grad():
+            s = d.score(small, SIGMA)
+            s_rot = d.score(small.replace_pos((small.pos @ R.T + shift) * mask), SIGMA)
+        err = ((s_rot - (s @ R.T - shift / SIGMA**2) * mask).abs().max() / s.abs().max()).item()
+        log(f"phase 4: E(3) check at 4AA, plane path, {str(cdt).split('.')[-1]}: "
+            f"|score(Ry+t) - (R score(y) - t/sigma^2)| / max|score| = {err:.3g} (tol {tol})")
+        assert err < tol
+        out[f"e3_err_{str(cdt).split('.')[-1]}"] = err
+    assert k89.K9.launches - before == 5 * 5  # five score calls, five hidden layers each
+    return out
+
+
+def check_train_never_waits(dev) -> dict:
+    """Phase 4: `Trainer.fit` under PyTorch's sync debug mode set to raise:
+    three steps from host batches (pinned, copied without blocking), with a
+    mirror flip drawn at every step and one fixed noise draw, the two host
+    waits the training step used to make. The Kabsch alignment of the noisy
+    input (`align_noisy_input_during_training`, on by default) is left out:
+    `torch.linalg.svd` on the card reads its error flag on the host, a wait
+    of its own (ROADMAP.md section C) that would hide whether the rest of
+    the step waits."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
+    den = Denoiser(model, DenoiserConfig(
+        max_radius=1.0, average_squared_distance=0.3, mirror_augmentation_rate=0.5,
+        add_fixed_noise=True, align_noisy_input_during_training=False,
+    ))
+    host = make_test_batch(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96,
+                           device="cpu")
+    cfg = TrainerConfig(max_steps=3, log_every_n_steps=1000, learning_rate=2.0e-3, seed=0)
+    Trainer(cfg, den, ConstantSigma(SIGMA), device=dev).fit([host])  # the cached constants
+    trainer = Trainer(cfg, den, ConstantSigma(SIGMA), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = trainer.fit([host] * 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert state.step == 3
+    log(f"phase 4: Trainer.fit, 3 steps from host batches: no step makes the host wait for the "
+        f"device ({dt * 1e3 / 3:.3f} ms/step with fit's set-up)")
+    return dict(steps=3, ms_per_step_with_setup=dt * 1e3 / 3)
+
+
 def main() -> int:
     args = sys.argv[1:]
     out_path = args[args.index("--out") + 1] if "--out" in args else None
@@ -1217,6 +1552,7 @@ def main() -> int:
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import conv_block as k2
     from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
+    from jamun_tpu_torch.ops.cuda import dense_conv as k89
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
@@ -1236,9 +1572,14 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    kernel_modules = {k.KERNEL.name: k for k in (k1, k2, k3, k4, k5, k6, k7)}
+    # every kernel's launch counter (K8 and K9 share a source, as K2 and its layer mode do)
+    counters = {k.name: k for k in (
+        k1.KERNEL, k2.KERNEL, k2.LAYER_KERNEL, k3.KERNEL, k4.KERNEL, k5.KERNEL, k6.KERNEL,
+        k7.KERNEL, k89.K8, k89.K9,
+    )}
     logs = build_all()
-    assert sorted(logs) == sorted(kernel_modules), sorted(logs)  # every source has its phase here
+    # every source has its phase here
+    assert sorted(logs) == sorted({k.source.stem for k in counters.values()}), sorted(logs)
     log(f"phase 1: built {list(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1253,7 +1594,9 @@ def main() -> int:
     stack_models = {cdt: E3Conv(dtype=cdt, fused_stack=True, device=dev, seed=0) for cdt in dtypes}
     # the same weights again, dense at any size ("auto" goes sparse from 512 atoms on)
     dense_models = {cdt: E3Conv(dtype=cdt, neighbor_mode="dense", device=dev, seed=0) for cdt in dtypes}
-    for m in (*models.values(), *stack_models.values(), *dense_models.values()):
+    # and under JAX's pallas_variant="plane" (K9 in every hidden layer)
+    plane_models = {cdt: E3Conv(dtype=cdt, pallas_variant="plane", device=dev, seed=0) for cdt in dtypes}
+    for m in (*models.values(), *stack_models.values(), *dense_models.values(), *plane_models.values()):
         m.output_gain.data.fill_(1.0)
         m.requires_grad_(False)
     cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(SIGMA) / c_in
@@ -1351,6 +1694,10 @@ def main() -> int:
         k1, k2, k5, models, batches, dev, c_in, cutoff
     )
     results.update(check_nbr_kernels(k6, k7, models, dev, c_in, cutoff))
+    dense_rows = check_dense_conv(k89, models, batches, dev, c_in, cutoff)
+    for name in ("packed_uvu_conv_dense", "fused_uvu_conv_dense"):
+        results[name] = [r for r in dense_rows if r["kernel"] == name]
+    results["conv_layer"] = check_conv_layer(k1, k2, models, batches, dev, c_in, cutoff)
 
     # ---- phase 3: the main paths, walk-jump at full flagship width ----
     # (a) the stack path through `Sampler.sample`
@@ -1402,11 +1749,10 @@ def main() -> int:
     assert k3.KERNEL.launches == 0
 
     # (c) the dense path above 128 atoms (K5), through `Sampler.sample`
-    forward_kernels = {name: kernel_modules[name] for name in
-                       ("edge_features", "conv_block", "e3_stack", "fused_block_tiled")}
+    forward_kernels = {name: k for name, k in counters.items() if name != "conv_block_bwd"}
     den_tiled = Denoiser(models[torch.bfloat16], config)
     for k in forward_kernels.values():
-        k.KERNEL.launches = 0
+        k.launches = 0
     tiled, tiled_calls, tiled_launches, batch256, batch256_end = tiled_walks(
         {"N256": den_tiled, "N512": Denoiser(dense_models[torch.bfloat16], config)}, dev, card,
         forward_kernels,
@@ -1430,7 +1776,7 @@ def main() -> int:
     geom_model.requires_grad_(False)
     den_sparse = Denoiser(models[torch.bfloat16], config)
     sparse, sparse_launches, batch512_end = sparse_walks(
-        den_sparse, Denoiser(geom_model, config), dev, card, kernel_modules
+        den_sparse, Denoiser(geom_model, config), dev, card, counters
     )
     walks.update(sparse)
     launches.update(sparse_launches)
@@ -1441,6 +1787,18 @@ def main() -> int:
     ).items():
         results[name] += rows
     del geom_model, batch512_end
+
+    # (e) walk-jump under pallas_variant="plane" (K9 in each hidden layer),
+    # through `Sampler.sample`; (f) Conv-level calls that reach K8 and K2's
+    # layer mode
+    den_plane = Denoiser(plane_models[torch.bfloat16], config)
+    plane, launches["fused_uvu_conv_dense"] = plane_walks(den_plane, batches, dev, card, counters)
+    walks.update(plane)
+    conv_calls = conv_level_calls(models, batches["4AA"], dev, c_in, cutoff, counters)
+    launches["packed_uvu_conv_dense"] = sum(
+        c["launches"].get("packed_uvu_conv_dense", 0) for c in conv_calls.values()
+    )
+    launches["conv_layer"] = sum(c["launches"].get("conv_layer", 0) for c in conv_calls.values())
 
     # ---- phase 4: the output against references ----
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
@@ -1479,17 +1837,21 @@ def main() -> int:
 
     tiled_score = check_tiled_score(dense_models, config, dev)
     sparse_score = check_sparse_score(models, config, dev)
+    plane_score = check_plane_score(plane_models, config, dev)
     batch512 = chain_batch(512, 8, dev)
     check_walk_never_waits(den, batches["4AA"], dev, "layerwise 4AA")
     check_walk_never_waits(den_stack, batches["4AA"], dev, "stack 4AA")
     check_walk_never_waits(den_tiled, batch256, dev, "tiled N=256")
     check_walk_never_waits(den_sparse, batch512, dev, "sparse N=512 cached", skin=NBR_SKIN)
     check_walk_never_waits(den_sparse, batch512, dev, "sparse N=512 uncached")
+    check_walk_never_waits(den_plane, batches["4AA"], dev, "plane 4AA")
+    train_waits = check_train_never_waits(dev)
     walk_profile = profile_walk(den, batches["4AA"], dev, 6, "layerwise 4AA")
     stack_profile = profile_walk(den_stack, batches["4AA"], dev, 6, "stack 4AA")
     tiled_profile = profile_walk(den_tiled, batch256, dev, 6, "tiled N=256")
     sparse_profile = profile_walk(den_sparse, batch512, dev, 6, "sparse N=512 cached", NBR_SKIN)
-    del batches, batch256, batch512, den, den_stack, den_tiled, den_sparse
+    plane_profile = profile_walk(den_plane, batches["4AA"], dev, 6, "plane 4AA")
+    del batches, batch256, batch512, den, den_stack, den_tiled, den_sparse, den_plane
     torch.cuda.empty_cache()
 
     # ---- phase 5: training, the ConvBlock backward ----
@@ -1497,8 +1859,8 @@ def main() -> int:
     train = train_flagship(dev, card)
     launches["conv_block_bwd"] = train["launches"]["conv_block_bwd"]
     grad_err = check_train_gradients(dev)
-    train_tiled = train_above_128(dev, card, kernel_modules)
-    train_nbr = train_sparse(dev, card, kernel_modules)
+    train_tiled = train_above_128(dev, card, counters)
+    train_nbr = train_sparse(dev, card, counters)
 
     # ---- the report ----
     def main_row(rows, **match):
@@ -1514,6 +1876,11 @@ def main() -> int:
     k6_main = main_row(results["nbr_conv"], label="N512 cached", dtype=str(torch.bfloat16),
                        block="hidden", variant="A64")
     k7_main = main_row(results["nbr_edge_features"], label="N512 cached", dtype=str(torch.bfloat16))
+    k8_main, k9_main = (
+        main_row(results[name], label="4AA", dtype=str(torch.bfloat16), block="hidden")
+        for name in ("packed_uvu_conv_dense", "fused_uvu_conv_dense")
+    )
+    layer_main = main_row(results["conv_layer"], label="4AA", dtype=str(torch.bfloat16))
     kernels = []
     for name, main, replaces in (
         ("edge_features", k1_main, "jamun_tpu/ops/pallas/packed_conv.py:806"),
@@ -1523,9 +1890,14 @@ def main() -> int:
         ("fused_block_tiled", k5_main, "jamun_tpu/ops/pallas/packed_conv.py:2819"),
         ("nbr_conv", k6_main, "jamun_tpu/ops/pallas/nbr_conv.py:371"),
         ("nbr_edge_features", k7_main, "jamun_tpu/ops/pallas/nbr_conv.py:559"),
+        ("packed_uvu_conv_dense", k8_main, "jamun_tpu/ops/pallas/packed_conv.py:515"),
+        ("fused_uvu_conv_dense", k9_main, "jamun_tpu/ops/pallas/fused_conv.py:317"),
+        # the same pallas_call with fuse_block=False
+        ("conv_layer", layer_main, "jamun_tpu/ops/pallas/packed_conv.py:1495"),
     ):
         kernels.append(dict(
-            name=name, route="cuda", source=f"jamun_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            name=name, route="cuda", replaces=replaces,
+            source=f"jamun_tpu_torch/csrc/{counters[name].source.name}",
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in results[name]),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
@@ -1534,7 +1906,9 @@ def main() -> int:
     report = dict(card=card, compare=results, walks=walks, walk_profile=walk_profile,
                   stack_walk_profile=stack_profile, tiled_walk_profile=tiled_profile,
                   sparse_walk_profile=sparse_profile, tiled_score=tiled_score,
-                  sparse_score=sparse_score, launches=launches, train=train,
+                  sparse_score=sparse_score, plane_walk_profile=plane_profile,
+                  plane_score=plane_score, conv_level_calls=conv_calls, train_sync=train_waits,
+                  launches=launches, train=train,
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr)
     if out_path:
         with open(out_path, "w") as f:

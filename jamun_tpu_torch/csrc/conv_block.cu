@@ -31,6 +31,16 @@
 // kernel (csrc/conv_block_bwd.cu): the normalised aggregates as
 // [G, N, 3, W] f32 (component, radial channel) and the degree [G, N], the
 // counterpart of the TPU kernel's save_residuals mode.
+//
+// Layer mode (template flag LAYER, entries conv_layer_*): the same kernel
+// with fuse_block=False (packed_conv.py:1364-1404), which JAX's `Conv`
+// reaches for a dense call whose fused layer applies (jamun_tpu/ops/conv.py
+// :271-315): dense pairs and bonds, the mean, then only the post-linear, for
+// any l <= 1, even irreps_out with at least one 0e block. Sc and Vg then
+// hold C0 and V1, the 0e and 1e output channels (pl0 [S + V, C0], pl1
+// [S + 2V, V1]), and the row [C0 + 3 V1] leaves in irreps order through a
+// column map: 0e channel q goes to column out_col[q], 1e channel q to
+// out_col[C0 + q] + component. No gate, second linear or skip.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,10 +62,11 @@ struct Params {
   float* out;         // [G, N, Sc + 3Vg] f32 (vector block [Vg][3])
   float* agg_out;     // [G, N, 3, W] f32 or null: normalised aggregates
   float* deg_out;     // [G, N] f32 or null: degree
-  int N, B, S, V, Sc, Vg;
+  const int* out_col; // layer mode: [C0 + V1] output column of each channel
+  int N, B, S, V, Sc, Vg;  // layer mode: Sc = C0, Vg = V1
 };
 
-template <typename T>
+template <typename T, bool LAYER>
 __global__ void __launch_bounds__(MAX_THREADS) conv_block_kernel(Params p) {
   extern __shared__ float smem[];
   const int N = p.N, B = p.B, S = p.S, V = p.V, Sc = p.Sc, Vg = p.Vg;
@@ -159,22 +170,35 @@ __global__ void __launch_bounds__(MAX_THREADS) conv_block_kernel(Params p) {
     if (tid < nd) p.deg_out[(long long)g * N + i0 + tid] = s.deg[tid];
   }
   float* out = p.out + ((long long)g * N + i0) * OF;
-  epilogue<T>(s, p.w, x, [&](int td, int col, float v) { out[(long long)td * OF + col] = v; },
-              i0, nd, S, V, Sc, Vg, tid, nt);
+  if constexpr (LAYER) {
+    post_linear<T>(s, p.w, nd, S, V, Sc, Vg, tid, nt);
+    __syncthreads();
+    for (int o = tid; o < nd * Sc; o += nt) {
+      const int td = o / Sc, q = o % Sc;
+      out[(long long)td * OF + p.out_col[q]] = s.conv0[td * Sc + q];
+    }
+    for (int o = tid; o < nd * 3 * Vg; o += nt) {
+      const int td = o / (3 * Vg), comp = (o / Vg) % 3, q = o % Vg;
+      out[(long long)td * OF + p.out_col[Sc + q] + comp] = s.conv1[(td * 3 + comp) * Vg + q];
+    }
+  } else {
+    epilogue<T>(s, p.w, x, [&](int td, int col, float v) { out[(long long)td * OF + col] = v; },
+                i0, nd, S, V, Sc, Vg, tid, nt);
+  }
 }
 
-template <typename T>
+template <typename T, bool LAYER>
 int launch(const Params& p, int G, void* stream) {
   const int W = 2 * p.S + 3 * p.V;
   const int nt = threads_for(W);
   if (nt > MAX_THREADS || p.N >= MAX_INDEX || p.B >= MAX_INDEX) return (int)cudaErrorInvalidValue;
   if (G == 0 || p.N == 0) return 0;
   size_t smem = scratch_words(p.N, p.B, nt, p.Sc, p.Vg, TD) * 4;
-  cudaError_t err = cudaFuncSetAttribute(conv_block_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(conv_block_kernel<T, LAYER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + TD - 1) / TD, G);
-  conv_block_kernel<T><<<grid, nt, smem, (cudaStream_t)stream>>>(p);
+  conv_block_kernel<T, LAYER><<<grid, nt, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -195,6 +219,7 @@ Params make_params(const void* x, const void* ef, const void* bf, const void* bo
   p.out = (float*)out;
   p.agg_out = (float*)agg_out;
   p.deg_out = (float*)deg_out;
+  p.out_col = nullptr;
   p.N = N;
   p.B = B;
   p.S = S;
@@ -217,8 +242,25 @@ Params make_params(const void* x, const void* ef, const void* bf, const void* bo
     Params p = make_params(x, ef, bf, bond_src, bond_dst, w1, b1d, b1b, w2, b2, pl0, pl1,    \
                            lin20, lin21, sk0, sk1, out, agg_out, deg_out, N, B, S, V, Sc,    \
                            Vg);                                                              \
-    return launch<TYPE>(p, G, stream);                                                       \
+    return launch<TYPE, false>(p, G, stream);                                                \
   }
 
 CONV_BLOCK_ENTRY(conv_block_f32, float)
 CONV_BLOCK_ENTRY(conv_block_bf16, __nv_bfloat16)
+
+// layer mode: out [G, N, C0 + 3 V1] in irreps order (out_col [C0 + V1] int32)
+#define CONV_LAYER_ENTRY(NAME, TYPE)                                                          \
+  extern "C" int NAME(const void* x, const void* ef, const void* bf, const void* bond_src,   \
+                      const void* bond_dst, const void* w1, const void* b1d,                 \
+                      const void* b1b, const void* w2, const void* b2, const void* pl0,      \
+                      const void* pl1, const void* out_col, void* out, int G, int N, int B,  \
+                      int S, int V, int C0, int V1, void* stream) {                          \
+    Params p = make_params(x, ef, bf, bond_src, bond_dst, w1, b1d, b1b, w2, b2, pl0, pl1,    \
+                           nullptr, nullptr, nullptr, nullptr, out, nullptr, nullptr, N, B,  \
+                           S, V, C0, V1);                                                    \
+    p.out_col = (const int*)out_col;                                                         \
+    return launch<TYPE, true>(p, G, stream);                                                 \
+  }
+
+CONV_LAYER_ENTRY(conv_layer_f32, float)
+CONV_LAYER_ENTRY(conv_layer_bf16, __nv_bfloat16)

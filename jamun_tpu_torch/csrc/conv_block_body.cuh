@@ -1,8 +1,9 @@
 // Device code of one separable ConvBlock (l <= 1, uvu) for a CTA that owns
 // td destination atoms of one graph, shared by the per-layer kernel
-// (conv_block.cu), the whole-model kernel (e3_stack.cu), the tiled kernel
-// (fused_block_tiled.cu) and, up to the messages, the sparse messages kernel
-// (nbr_conv.cu).
+// (conv_block.cu, whose layer mode stops after the post-linear), the
+// whole-model kernel (e3_stack.cu), the tiled kernel (fused_block_tiled.cu)
+// and, up to the messages, the sparse messages kernel (nbr_conv.cu) and the
+// dense messages kernel (dense_conv.cu).
 //
 // The caller lists the visited pairs of its atoms (dense pairs inside the
 // cutoff and bonds, dst-major) and stages each tile of PT pairs: source
@@ -12,6 +13,7 @@
 //   messages       w = h @ w2 + b2 for the thread's radial channel, then the
 //                  channel's uvu messages, accumulated per dst atom
 //   normalise      mean over the combined degree, rounded to T
+//   post_linear    the post-linear alone (conv_block.cu's layer mode)
 //   epilogue       post-linear, gate, second linear, linear skip
 // The block input is read through an accessor x(atom, channel) -> float
 // (GlobalRows: rows in device memory; SharedRows: f32 rows in shared memory)
@@ -256,18 +258,36 @@ __device__ __forceinline__ void normalise(const Scratch& s, int nd, int tid, int
   }
 }
 
-// post-linear, gate, second linear and the linear skip of the block input
-// for the nd atoms from i0 on; out(td, column, value) takes each element of
-// the [Sc + 3Vg] output row (vector block [Vg][3]) once
-template <typename T, typename X, typename Out>
-__device__ __forceinline__ void epilogue(const Scratch& s, const Weights& w, const X& x, Out out,
-                                         int i0, int nd, int S, int V, int Sc, int Vg, int tid,
-                                         int nt) {
-  const int C0 = Sc + Vg;
+// the accumulator (component, radial channel) of column col of the packed
+// message row [Sx0e | Sx1e | Vx1e | Vx0e | Vx1e] (4S + 7V columns, l = 1
+// interleaved as (mul, component))
+__device__ __forceinline__ void column_source(int col, int S, int V, int& comp, int& ch) {
+  if (col < S) {
+    comp = 0;
+    ch = col;
+  } else if (col < 4 * S) {
+    comp = (col - S) % 3;
+    ch = S + (col - S) / 3;
+  } else if (col < 4 * S + 3 * V) {
+    comp = (col - 4 * S) % 3;
+    ch = 2 * S + (col - 4 * S) / 3;
+  } else if (col < 4 * S + 4 * V) {
+    comp = 0;
+    ch = 2 * S + V + (col - 4 * S - 3 * V);
+  } else {
+    comp = (col - 4 * S - 4 * V) % 3;
+    ch = 2 * S + 2 * V + (col - 4 * S - 4 * V) / 3;
+  }
+}
+
+// post-linear of the normalised aggregates of the nd atoms:
+// conv0 [td][C0] = [o1 | o4] @ pl0 ([S + V, C0]) and
+// conv1 [td][3][V1] = [o2 | o3 | o5]_comp @ pl1 ([S + 2V, V1])
+template <typename T>
+__device__ __forceinline__ void post_linear(const Scratch& s, const Weights& w, int nd, int S,
+                                            int V, int C0, int V1, int tid, int nt) {
   // aggregate views: acc[(td * 3 + comp) * nt + channel]
   auto agg = [&](int td, int comp, int ch) { return s.acc[(td * 3 + comp) * nt + ch]; };
-
-  // post-linear: conv0 = [o1 | o4] @ pl0, conv1_comp = [o2 | o3 | o5]_comp @ pl1
   const T* pl0 = (const T*)w.pl0;
   const T* pl1 = (const T*)w.pl1;
   for (int o = tid; o < nd * C0; o += nt) {
@@ -278,16 +298,27 @@ __device__ __forceinline__ void epilogue(const Scratch& s, const Weights& w, con
       sum += agg(td, 0, 2 * S + V + v) * ld(pl0 + (long long)(S + v) * C0 + q);
     s.conv0[td * C0 + q] = sum;
   }
-  for (int o = tid; o < nd * 3 * Vg; o += nt) {
-    int td = o / (3 * Vg), comp = (o / Vg) % 3, q = o % Vg;
+  for (int o = tid; o < nd * 3 * V1; o += nt) {
+    int td = o / (3 * V1), comp = (o / V1) % 3, q = o % V1;
     float sum = 0.0f;
-    for (int u = 0; u < S; ++u) sum += agg(td, comp, S + u) * ld(pl1 + (long long)u * Vg + q);
+    for (int u = 0; u < S; ++u) sum += agg(td, comp, S + u) * ld(pl1 + (long long)u * V1 + q);
     for (int v = 0; v < V; ++v) {
-      sum += agg(td, comp, 2 * S + v) * ld(pl1 + (long long)(S + v) * Vg + q);
-      sum += agg(td, comp, 2 * S + 2 * V + v) * ld(pl1 + (long long)(S + V + v) * Vg + q);
+      sum += agg(td, comp, 2 * S + v) * ld(pl1 + (long long)(S + v) * V1 + q);
+      sum += agg(td, comp, 2 * S + 2 * V + v) * ld(pl1 + (long long)(S + V + v) * V1 + q);
     }
-    s.conv1[(td * 3 + comp) * Vg + q] = sum;
+    s.conv1[(td * 3 + comp) * V1 + q] = sum;
   }
+}
+
+// post-linear, gate, second linear and the linear skip of the block input
+// for the nd atoms from i0 on; out(td, column, value) takes each element of
+// the [Sc + 3Vg] output row (vector block [Vg][3]) once
+template <typename T, typename X, typename Out>
+__device__ __forceinline__ void epilogue(const Scratch& s, const Weights& w, const X& x, Out out,
+                                         int i0, int nd, int S, int V, int Sc, int Vg, int tid,
+                                         int nt) {
+  const int C0 = Sc + Vg;
+  post_linear<T>(s, w, nd, S, V, C0, Vg, tid, nt);
   __syncthreads();
   // gate: LeakyReLU(0.01) on the scalars, sigmoid gates on the vectors
   for (int o = tid; o < nd * Sc; o += nt) {

@@ -89,27 +89,6 @@ __device__ __forceinline__ Scratch carve_nbr(float* smem, int A, int K, int nt) 
   return s;
 }
 
-// the accumulator (component, radial channel) of column col of the packed
-// output row [Sx0e | Sx1e | Vx1e | Vx0e | Vx1e]
-__device__ __forceinline__ void column_source(int col, int S, int V, int& comp, int& ch) {
-  if (col < S) {
-    comp = 0;
-    ch = col;
-  } else if (col < 4 * S) {
-    comp = (col - S) % 3;
-    ch = S + (col - S) / 3;
-  } else if (col < 4 * S + 3 * V) {
-    comp = (col - 4 * S) % 3;
-    ch = 2 * S + (col - 4 * S) / 3;
-  } else if (col < 4 * S + 4 * V) {
-    comp = 0;
-    ch = 2 * S + V + (col - 4 * S - 3 * V);
-  } else {
-    comp = (col - 4 * S - 4 * V) % 3;
-    ch = 2 * S + 2 * V + (col - 4 * S - 4 * V) / 3;
-  }
-}
-
 template <typename T, int A>
 __global__ void __launch_bounds__(MAX_THREADS) nbr_conv_kernel(Params p) {
   extern __shared__ float smem[];
@@ -209,7 +188,7 @@ __global__ void __launch_bounds__(MAX_THREADS) nbr_conv_kernel(Params p) {
   float* out = p.out + ((long long)g * N + i0) * OW;
   for (int o = tid; o < nd * OW; o += nt) {
     const int td = o / OW;
-    int comp, ch;
+    int comp, ch;  // conv_block_body.cuh's packed order
     column_source(o % OW, S, V, comp, ch);
     out[o] = s.acc[(td * 3 + comp) * nt + ch];
   }

@@ -22,6 +22,7 @@ an explicit `torch.Generator`. The sparse path's helpers
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -166,15 +167,15 @@ class Denoiser:
         if cfg.add_fixed_ones:
             noise = torch.ones_like(pos)
         elif cfg.add_fixed_noise:
-            fixed = torch.randn(pos.shape[1:], generator=torch.Generator().manual_seed(0))
-            noise = fixed.to(pos)[None].expand_as(pos)
+            noise = _fixed_noise(tuple(pos.shape[1:]), pos.device, pos.dtype)[None].expand_as(pos)
         else:
             noise = torch.randn(pos.shape, generator=generator, device=generator.device).to(pos)
         pos = pos + float(sigma) * noise * x.node_mask[..., None].to(pos.dtype)
         if cfg.mirror_augmentation_rate > 0:
+            # chosen on the device, as JAX's `jnp.where`: reading the draw on
+            # the host would make it wait for every kernel queued before it
             u = torch.rand((), generator=generator, device=generator.device)
-            if float(u) < cfg.mirror_augmentation_rate:
-                pos = -pos
+            pos = torch.where(u.to(pos.device) < cfg.mirror_augmentation_rate, -pos, pos)
         return x.replace_pos(pos)
 
     def noise_and_denoise(
@@ -245,6 +246,14 @@ class Denoiser:
             aux["neighbor_overflow_mean"] = (ovf * gm).sum() / torch.clamp(gm.sum(), min=1)
             aux["neighbor_overflow_max"] = torch.where(gm, ovf, torch.zeros_like(ovf)).max()
         return loss, aux
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_noise(shape: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`add_fixed_noise`'s draw (seed 0, the same for every graph), made once
+    per (shape, device, dtype): a new host tensor copied to the card at every
+    step would make the host wait there."""
+    return torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(device, dtype)
 
 
 def masked_graph_mean(per_graph: torch.Tensor, aux: Dict[str, torch.Tensor], graph_mask):

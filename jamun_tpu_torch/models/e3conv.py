@@ -50,6 +50,20 @@ them (`jamun_tpu/models/e3conv.py:332-404`):
     counted on a cached list), in place of flax's `sow`.
 `"dense"` runs the dense paths at any size. Widths outside the kernels
 raise NotImplementedError on the card.
+
+`pallas_variant` is JAX's (`jamun_tpu/models/e3conv.py:120`). `"packed"`, the
+default, is every path above. `"plane"` takes the dense calls (any N the
+dense path takes) the way JAX's does: no whole-model kernel whatever
+`fused_stack` says, no K1 precompute and no fused blocks
+(`jamun_tpu/models/e3conv.py:350-354, 508-511, 544-547`,
+`jamun_tpu/ops/conv.py:497`); `dense_edge_data` once per forward, every
+ConvBlock the standard block, and the plain `EquivariantMLP_0` head. In a
+call without a gradient each hidden layer's `Conv` runs K9
+(`ops/cuda/dense_conv.fused_uvu_conv_dense`), five launches per forward; the
+projector (V = 0, which K9 does not take) runs the plain dense path, as
+JAX's runs XLA there. A call that wants a gradient takes the plain path.
+The sparse path does not read the variant (K6, as in JAX). The parameter
+tree is the same for both variants, so `params.from_jax_params` maps either.
 """
 
 from __future__ import annotations
@@ -67,7 +81,7 @@ from jamun_tpu_torch.models.noise_conditioning import (
     NoiseConditionalScaling,
     NoiseConditionalSkipConnection,
 )
-from jamun_tpu_torch.ops.conv import ConvBlock
+from jamun_tpu_torch.ops.conv import PALLAS_VARIANTS, ConvBlock
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
@@ -106,10 +120,12 @@ def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
 class _HiddenLayer(nn.Module):
     """Noise scaling -> ConvBlock -> noise-conditional skip blend."""
 
-    def __init__(self, irreps_hidden, irreps_sh, edge_attr_dim, dtype):
+    def __init__(self, irreps_hidden, irreps_sh, edge_attr_dim, dtype, pallas_variant="packed"):
         super().__init__()
         self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_hidden)
-        self.ConvBlock_0 = ConvBlock(irreps_hidden, irreps_hidden, irreps_sh, edge_attr_dim, dtype)
+        self.ConvBlock_0 = ConvBlock(
+            irreps_hidden, irreps_hidden, irreps_sh, edge_attr_dim, dtype, pallas_variant
+        )
         self.NoiseConditionalSkipConnection_0 = NoiseConditionalSkipConnection(irreps_hidden)
 
     def forward(self, x, c_noise, block):
@@ -137,6 +153,7 @@ class E3Conv(nn.Module):
         nbr_geom_kernel: bool = False,
         plain: bool = False,
         fused_stack: bool = False,
+        pallas_variant: str = "packed",
         device=None,
         seed: Optional[int] = None,
     ):
@@ -147,7 +164,8 @@ class E3Conv(nn.Module):
         without a gradient; off by default, as in JAX); `device`
         follows `utils.device.resolve_device` (the card unless "cpu");
         `seed` draws the parameters (flax's init distributions) from a CPU
-        generator, so a seed gives the same weights on any device."""
+        generator, so a seed gives the same weights on any device;
+        `pallas_variant` ("packed" | "plane") is JAX's (module docstring)."""
         super().__init__()
         if tensor_product != "uvu":
             raise NotImplementedError(
@@ -156,6 +174,9 @@ class E3Conv(nn.Module):
             )
         if neighbor_mode not in ("dense", "nbr", "auto"):
             raise ValueError(f"neighbor_mode={neighbor_mode!r}")
+        if pallas_variant not in PALLAS_VARIANTS:
+            raise ValueError(f"pallas_variant={pallas_variant!r}")
+        self.pallas_variant = pallas_variant
         self.irreps_hidden, self.irreps_out = Irreps(irreps_hidden), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
         if self.irreps_hidden.sv_shape() is None or self.irreps_hidden.sv_shape()[1] == 0:
@@ -180,12 +201,12 @@ class E3Conv(nn.Module):
         irreps_node = self.AtomEmbeddingWithResidueInformation_0.irreps_out
         self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_node)
         self.ConvBlock_0 = ConvBlock(
-            irreps_node, self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype
+            irreps_node, self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant
         )
         for k in range(n_layers):
             self.add_module(
                 f"_HiddenLayer_{k}",
-                _HiddenLayer(self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype),
+                _HiddenLayer(self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant),
             )
         self.EquivariantMLP_0 = EquivariantMLP(
             self.irreps_hidden, self.irreps_out, [self.irreps_hidden]
@@ -233,7 +254,10 @@ class E3Conv(nn.Module):
         nothing wants a gradient (the kernel is forward only; the counterpart
         of JAX's `training=False`), one noise level, and a shape K3 takes
         (`stack_supported`: N <= 64)."""
-        if not self.fused_stack or self.plain or c_noise.numel() != 1:
+        if (
+            not self.fused_stack or self.plain or self.pallas_variant != "packed"
+            or c_noise.numel() != 1
+        ):
             return False
         if self._wants_grad(batch):
             return False
@@ -307,9 +331,14 @@ class E3Conv(nn.Module):
         if self.neighbor_mode == "nbr" or (
             self.neighbor_mode == "auto" and neighbor_mode_auto(N, wants_grad)
         ):
-            out, overflow = self._sparse_forward(batch, c_noise, radial_cutoff, nbr_cache, wants_grad)
+            kernel = not self.plain and not wants_grad
+            edges, overflow = self._sparse_edges(batch, radial_cutoff, nbr_cache, kernel)
+            out = self._standard_forward(batch, c_noise, edges, kernel)
             if overflow is not None:
                 tel["neighbor_overflow"] = overflow
+        elif self.pallas_variant == "plane":
+            kernel = not self.plain and not wants_grad
+            out = self._standard_forward(batch, c_noise, self._plain_edges(batch, radial_cutoff), kernel)
         else:
             out = self._dense_forward(batch, c_noise, radial_cutoff, wants_grad)
         return (out, tel) if with_telemetry else out
@@ -318,18 +347,17 @@ class E3Conv(nn.Module):
         x = self.AtomEmbeddingWithResidueInformation_0(batch)
         return self.NoiseConditionalScaling_0(x, c_noise)
 
-    def _sparse_forward(self, batch, c_noise, radial_cutoff, nbr_cache, wants_grad):
-        """The sparse capped-neighbour path; returns (output, overflow or
-        None)."""
-        kernel = not self.plain and not wants_grad
-        edges, overflow = self._sparse_edges(batch, radial_cutoff, nbr_cache, kernel)
+    def _standard_forward(self, batch, c_noise, edges, kernel: bool):
+        """Every ConvBlock the standard block on `edges`, `kernel` passed to
+        each `Conv`, and the plain head: the sparse path, and the dense path
+        under `pallas_variant="plane"`."""
         block = lambda blk, h: blk(h, edges, kernel)  # noqa: E731
         x = block(self.ConvBlock_0, self._embed(batch, c_noise))
         for layer in self._hidden_layers():
             x = layer(x, c_noise, block)
         x = self.EquivariantMLP_0(x)
         mask = batch.node_mask[..., None].to(torch.float32)
-        return x.to(torch.float32) * self.output_gain * mask, overflow
+        return x.to(torch.float32) * self.output_gain * mask
 
     def _sparse_edges(self, batch: GraphBatch, radial_cutoff, nbr_cache, kernel: bool):
         """The kept edges of one forward: K7's features on a cached list
@@ -452,6 +480,7 @@ class E3Conv(nn.Module):
         return dense_edge_data(
             batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
             radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh),
-            self._attr_fn(radial_cutoff),
+            self._attr_fn(radial_cutoff), bond0_embed=self.embed_bondedness[0],
+            bond1_embed=self.embed_bondedness[1],
         )
 

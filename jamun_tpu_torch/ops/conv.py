@@ -6,12 +6,20 @@ radial-MLP weights; mean over the combined degree of dense pairs and bonds;
 then the post-linear. `ConvBlock` wraps it as
 IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
 
-On the sparse capped-neighbour path (`EdgeData.nbr_idx` set, from
-`ops/neighbors.py`) the messages of the kept edges come from K6
-(`ops/cuda/nbr_conv`) when the caller asks for the kernel (a forward without
-a gradient; its plain twin on the CPU), and from `fast_uvu_messages_nbr` on
-the radial MLP otherwise; bonds, the mean and the post-linear follow as on
-the dense path (`jamun_tpu/ops/conv.py:198-265`).
+`Conv.forward(x, edges, kernel)`: the caller sets `kernel` for a call that
+may take the hand-written kernels (on the card; their plain twins on the
+CPU), as JAX's `use_pallas` / `nbr_kernel`. On the sparse capped-neighbour
+path (`EdgeData.nbr_idx` set, from `ops/neighbors.py`) the messages of the
+kept edges then come from K6 (`ops/cuda/nbr_conv`), and from
+`fast_uvu_messages_nbr` on the radial MLP otherwise; bonds, the mean and the
+post-linear follow as on the dense path (`jamun_tpu/ops/conv.py:198-265`).
+On the dense path `Conv.dense_route` picks what JAX's `Conv.__call__` picks
+(`jamun_tpu/ops/conv.py:266-342`): under `pallas_variant="packed"` K2's layer
+mode (`conv_layer`: pairs, bonds, mean and post-linear in one launch) when
+the fused layer applies, else K8 (`ops/cuda/dense_conv.packed_uvu_conv_dense`);
+under `"plane"` K9 (`fused_uvu_conv_dense`) for V > 0. After K8 or K9 the
+bonds, the mean and the post-linear run as on the plain path
+(`jamun_tpu/ops/conv.py:366-377`).
 
 `ConvBlock.forward` is the plain path. `ConvBlock.fused` runs the whole block
 through the hand-written kernels on the card (their plain twins on the CPU),
@@ -29,12 +37,17 @@ import torch
 from torch import nn
 
 from jamun_tpu_torch.ops.cuda.conv_block import (
+    N_RADIAL,
     PairFeatures,
     block_master_weights,
     cast_block_weights,
     conv_block_trainable,
+    conv_layer,
     fused_conv_block,
+    layer_weights,
 )
+from jamun_tpu_torch.ops.cuda.dense_conv import fused_uvu_conv_dense, packed_uvu_conv_dense
+from jamun_tpu_torch.ops.cuda.edge_features import edge_features
 from jamun_tpu_torch.ops.cuda.fused_block_tiled import TiledGeometry, fused_block_tiled
 from jamun_tpu_torch.ops.cuda.nbr_conv import nbr_uvu_conv
 from jamun_tpu_torch.ops.fast_uvu import (
@@ -48,7 +61,9 @@ from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 from jamun_tpu_torch.ops.mlp import ScalarMLP
 
-__all__ = ["Conv", "ConvBlock", "depthwise_irreps"]
+__all__ = ["Conv", "ConvBlock", "depthwise_irreps", "PALLAS_VARIANTS"]
+
+PALLAS_VARIANTS = ("packed", "plane")  # JAX's `pallas_variant`
 
 
 def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
@@ -69,28 +84,47 @@ def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
 class Conv(nn.Module):
     """Tensor-field-network convolution with the depthwise product."""
 
-    def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None):
+    def __init__(
+        self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
+        pallas_variant: str = "packed",
+    ):
         super().__init__()
+        if pallas_variant not in PALLAS_VARIANTS:
+            raise ValueError(f"pallas_variant={pallas_variant!r}")
         self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
         self.S, self.V = self.irreps_in.sv_shape() or (0, 0)
         self.dtype = dtype
+        self.edge_attr_dim = edge_attr_dim
+        self.pallas_variant = pallas_variant
         dtp = depthwise_irreps(self.irreps_in, self.irreps_out)
         self.radial_nn = ScalarMLP(edge_attr_dim, 2 * self.S + 3 * self.V, [edge_attr_dim])
         self._post_linear = IrrepsLinear(dtp, self.irreps_out)
 
-    def forward(self, x: torch.Tensor, edges: EdgeData, nbr_kernel: bool = False) -> torch.Tensor:
-        """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]. `nbr_kernel`:
-        on the sparse path, take the messages from K6 (no gradient flows
-        through it)."""
+    def forward(self, x: torch.Tensor, edges: EdgeData, kernel: bool = False) -> torch.Tensor:
+        """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]. `kernel`: the
+        caller allows the kernels (no gradient flows through them); on the
+        sparse path K6, on the dense path what `dense_route` picks."""
         S, V = self.S, self.V
         cdt = self.dtype or x.dtype
         out_dtype = x.dtype
         x = x.to(cdt)
         if edges.nbr_idx is None:
-            w_dense = self.radial_nn(edges.attr_dense.to(cdt))
-            out, deg = fast_uvu_messages_dense(x, edges.sh_dense, w_dense, edges.adj, S, V)
-        elif nbr_kernel:
+            route = self.dense_route(x, edges) if kernel else "plain"
+            if route == "conv_layer":
+                return self._kernel_layer(x, edges).to(out_dtype)
+            if route == "plain":
+                w_dense = self.radial_nn(edges.attr_dense.to(cdt))
+                out, deg = fast_uvu_messages_dense(x, edges.sh_dense, w_dense, edges.adj, S, V)
+            else:
+                fn = packed_uvu_conv_dense if route == "packed_uvu_conv_dense" else fused_uvu_conv_dense
+                d0, d1 = self.radial_nn.layer(0), self.radial_nn.layer(1)
+                out, deg = fn(
+                    edges.pos.to(torch.float32).contiguous(), edges.node_mask, x.contiguous(),
+                    d0.kernel, d0.bias, d1.kernel, d1.bias, edges.bond0_embed,
+                    edges.radial_cutoff, S, V,
+                )
+        elif kernel:
             out, deg = nbr_uvu_conv(*self.nbr_kernel_args(x, edges))
         else:
             if edges.attr_nbr.shape[-1] != self.radial_nn.layer(0).kernel.shape[0]:
@@ -112,6 +146,66 @@ class Conv(nn.Module):
         deg = deg.scatter_add(1, edges.bond_dst, edges.bond_mask.to(torch.float32))
         out = out / torch.clamp(deg, min=1.0)[..., None].to(out_dtype)
         return self._post_linear(out)
+
+    def _wants_grad(self, x: torch.Tensor, edges: EdgeData) -> bool:
+        inputs = (x, edges.pos, edges.bond0_embed, edges.bond1_embed)
+        return torch.is_grad_enabled() and (
+            any(t is not None and t.requires_grad for t in inputs)
+            or any(p.requires_grad for p in self.parameters())
+        )
+
+    def _fused_layer_supported(self, edges: EdgeData) -> bool:
+        """JAX's `_fused_layer_supported` (`jamun_tpu/ops/conv.py:137-145`):
+        the bondedness-1 row, and an irreps_out that is all l <= 1 of even
+        parity with at least one 0e block (the uvu product always has its
+        post-linear)."""
+        return (
+            edges.bond1_embed is not None
+            and all(mi.ir.l in (0, 1) and mi.ir.p == 1 for mi in self.irreps_out)
+            and any(mi.ir.l == 0 for mi in self.irreps_out)
+        )
+
+    def dense_route(self, x: torch.Tensor, edges: EdgeData) -> str:
+        """Which way a dense call with `kernel` set goes, by JAX's gates
+        (`Conv._pallas_supported` and `__call__`, `jamun_tpu/ops/conv.py
+        :93-135, 266-342`): "conv_layer" (K2's layer mode), "packed_uvu_conv_dense"
+        (K8), "fused_uvu_conv_dense" (K9) or "plain". Where JAX's gate sends
+        the call to XLA, the plain path runs: an input that is not
+        `Sx0e (+ Vx1e)`, edge attributes other than 64 wide or harmonics other
+        than `1x0e + 1x1e` (`supports_packed_conv` / `supports_fused_conv`), no
+        positions or bondedness-0 row in `edges`, V = 0 under "plane"
+        (`supports_fused_conv` needs V > 0), and a call that wants a gradient
+        (JAX has no VJP for #8 or #9; its training dispatch keeps such calls
+        off them). That is JAX's behaviour, not a fallback: where this gate
+        says "kernel", a shape the port's kernel cannot take raises on the
+        card."""
+        sv = self.irreps_in.sv_shape()
+        if (
+            sv is None or sv[0] == 0 or self.edge_attr_dim != 2 * N_RADIAL
+            or self.irreps_sh.dim != 4 or edges.pos is None or edges.bond0_embed is None
+            or self._wants_grad(x, edges)
+        ):
+            return "plain"
+        if self.pallas_variant == "plane":
+            return "fused_uvu_conv_dense" if sv[1] > 0 else "plain"
+        return "conv_layer" if self._fused_layer_supported(edges) else "packed_uvu_conv_dense"
+
+    def _kernel_layer(self, x: torch.Tensor, edges: EdgeData) -> torch.Tensor:
+        """K2's layer mode on K1's edge features: those `edges` carries, or
+        made here with K1 (`jamun_tpu/ops/conv.py:279-294`)."""
+        cdt = x.dtype
+        if edges.pair_features is not None:
+            ef, bf = edges.pair_features
+        else:
+            ef, bf = edge_features(
+                edges.pos.to(torch.float32).contiguous(), edges.node_mask, edges.bond_src,
+                edges.bond_dst, edges.bond_mask > 0, edges.radial_cutoff, N_RADIAL, cdt,
+            )
+        w = layer_weights(
+            self.radial_nn, self._post_linear, edges.bond0_embed, edges.bond1_embed,
+            S=self.S, V=self.V, cdt=cdt,
+        )
+        return conv_layer(x.contiguous(), ef, bf, edges.bond_src, edges.bond_dst, w)
 
     def nbr_kernel_args(self, x: torch.Tensor, edges: EdgeData) -> tuple:
         """K6's arguments for the kept edges of `edges`, x in the compute
@@ -138,18 +232,24 @@ class ConvBlock(nn.Module):
     """LinearSelfInteraction(Gated(Conv)): IrrepsLinear_1(gate(Conv_0(x))) +
     IrrepsLinear_0(x)."""
 
-    def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None):
+    def __init__(
+        self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
+        pallas_variant: str = "packed",
+    ):
         super().__init__()
         self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
         self.gate = Gate(self.irreps_out)
         self.dtype = dtype
-        self.Conv_0 = Conv(irreps_in, self.gate.irreps_in, irreps_sh, edge_attr_dim, dtype)
+        self.Conv_0 = Conv(
+            irreps_in, self.gate.irreps_in, irreps_sh, edge_attr_dim, dtype, pallas_variant
+        )
         self.IrrepsLinear_0 = IrrepsLinear(self.irreps_in, self.gate.irreps_out)
         self.IrrepsLinear_1 = IrrepsLinear(self.gate.irreps_out, self.gate.irreps_out)
 
-    def forward(self, x: torch.Tensor, edges: EdgeData, nbr_kernel: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, edges: EdgeData, kernel: bool = False) -> torch.Tensor:
+        """The standard block; `kernel` is `Conv.forward`'s."""
         skip = self.IrrepsLinear_0(x)
-        y = self.IrrepsLinear_1(self.gate(self.Conv_0(x, edges, nbr_kernel)))
+        y = self.IrrepsLinear_1(self.gate(self.Conv_0(x, edges, kernel)))
         return y + skip
 
     def fused(

@@ -23,10 +23,11 @@ __all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC", "SOURCES"]
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-# every kernel source of the port (K1, K2, K3, K4, K5, K6, K7)
+# every kernel source of the port (K1, K2 and its layer mode, K3, K4, K5, K6,
+# K7, K8 and K9)
 SOURCES = (
     "edge_features", "conv_block", "e3_stack", "conv_block_bwd", "fused_block_tiled",
-    "nbr_conv", "nbr_edge_features",
+    "nbr_conv", "nbr_edge_features", "dense_conv",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,13 +89,14 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 class CudaKernel:
-    """One CUDA source: its library (built and loaded at first use), the C
-    entry points with their argument types, and the count of launches that
-    its wrapper made."""
+    """One kernel of a CUDA source: the source's library (built and loaded at
+    first use), the C entry points with their argument types, and the count
+    of launches that its wrapper made. Two kernels of one source (`source`
+    names it when it differs from `name`) keep separate counts."""
 
-    def __init__(self, name: str, entries: Dict[str, List]):
+    def __init__(self, name: str, entries: Dict[str, List], source: str = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.entries = entries
         self.launches = 0
         self._lib = None

@@ -11,6 +11,15 @@ whose forward is K2 and whose backward is K4 (`ops/cuda/conv_block_bwd.py`).
 Inputs: block input x [G, N, S + 3V] (packed irreps, compute dtype), the
 edge features of `edge_features` and the block's weights packed by
 `pack_block_weights`. Output: f32 [G, N, Sc + 3Vg] in gate.irreps_out layout.
+
+`conv_layer` is the kernel's layer mode, the counterpart of
+`packed_separable_conv_layer(fuse_block=False)` (`packed_conv.py:1364-1404`),
+which JAX's `Conv` runs for a dense call whose fused layer applies
+(`jamun_tpu/ops/conv.py:271-315`): the same source with a template flag,
+stopping after the post-linear for any l <= 1, even irreps_out with a 0e
+block; weights from `layer_weights`, output f32 [G, N, irreps_out.dim] in
+irreps order. It has its own launch counter (`LAYER_KERNEL`) and plain twin
+(`conv_layer_plain`).
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from jamun_tpu_torch.ops.fast_uvu import uvu_messages
 __all__ = [
     "BlockWeights", "PairFeatures", "block_master_weights", "cast_block_weights", "pack_block_weights",
     "fused_conv_block", "fused_conv_block_plain", "conv_block_residuals_plain",
-    "conv_block_trainable", "linear_scales", "rounded_divisor", "KERNEL", "N_RADIAL", "MAX_WIDTH",
+    "conv_block_trainable", "linear_scales", "rounded_divisor", "pair_sums_plain",
+    "LayerWeights", "layer_weights", "conv_layer", "conv_layer_plain",
+    "KERNEL", "LAYER_KERNEL", "N_RADIAL", "MAX_WIDTH",
 ]
 
 N_RADIAL = 32  # the kernel's radial basis size (edge_attr_dim 64)
@@ -41,6 +52,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 19 + [_I] * 7 + [_P]
 KERNEL = CudaKernel("conv_block", {"conv_block_f32": _ARGS, "conv_block_bf16": _ARGS})
 _ENTRY = {torch.float32: "conv_block_f32", torch.bfloat16: "conv_block_bf16"}
+_LAYER_ARGS = [_P] * 14 + [_I] * 7 + [_P]
+LAYER_KERNEL = CudaKernel(
+    "conv_layer", {"conv_layer_f32": _LAYER_ARGS, "conv_layer_bf16": _LAYER_ARGS}, source="conv_block"
+)
+_LAYER_ENTRY = {torch.float32: "conv_layer_f32", torch.bfloat16: "conv_layer_bf16"}
 _MATRICES = ("w1", "w2", "pl0", "pl1", "lin20", "lin21", "sk0", "sk1")
 
 
@@ -159,29 +175,44 @@ def pack_block_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, *, S, V
     )
 
 
+def _radial_plain(feat, w1, b1, w2, b2, cdt):
+    """The radial MLP on edge features [..., EC] with its rounding points:
+    h and the message weights in cdt, f32 products and sums."""
+    f32 = torch.float32
+    h32 = feat[..., EF_GEOM:].to(f32) @ w1.to(f32) + b1
+    h = F.silu(h32).to(cdt)
+    return (h.to(f32) @ w2.to(f32) + b2).to(cdt)
+
+
+def _sh4(feat):
+    return torch.cat([torch.ones_like(feat[..., :1]), feat[..., 0:3]], -1).to(torch.float32)
+
+
+def pair_sums_plain(x, ef, w1, b1, w2, b2, S: int, V: int):
+    """The dense pairs' messages summed per destination atom, [G, N, 4S + 7V]
+    f32 in the uvu layout, and their degree [G, N] f32, from K1's edge
+    features ef [G, N, N, EC]: the radial MLP (first layer w1 [NR, 64] on the
+    radial basis, b1 with the bondedness-0 block folded in), then the uvu
+    messages of the sources, masked by the adjacency."""
+    f32 = torch.float32
+    adj = ef[..., 3].to(f32)
+    w = _radial_plain(ef, w1, b1, w2, b2, x.dtype).to(f32)
+    msg = uvu_messages(x.to(f32)[:, None], _sh4(ef), w, S, V)
+    return (msg * adj[..., None]).sum(2), adj.sum(-1)
+
+
 def _aggregate_plain(x, ef, bf, bond_src, bond_dst, w: BlockWeights):
     """The normalised aggregates in the uvu layout [G, N, 4S + 7V] (rounded
     to the compute dtype, held in f32) and the degree [G, N]."""
     f32, cdt = torch.float32, x.dtype
     S, V = w.S, w.V
-
-    def radial(feat, b1):
-        h32 = feat[..., EF_GEOM:].to(f32) @ w.w1.to(f32) + b1
-        h = F.silu(h32).to(cdt)
-        return (h.to(f32) @ w.w2.to(f32) + w.b2).to(cdt)
-
-    def sh4(feat):
-        return torch.cat([torch.ones_like(feat[..., :1]), feat[..., 0:3]], -1).to(f32)
-
     xf = x.to(f32)
-    adj = ef[..., 3].to(f32)
-    msg = uvu_messages(xf[:, None], sh4(ef), radial(ef, w.b1d).to(f32), S, V)
-    agg = (msg * adj[..., None]).sum(2)
-    deg = adj.sum(-1)
+    agg, deg = pair_sums_plain(x, ef, w.w1, w.b1d, w.w2, w.b2, S, V)
 
     bmask = bf[..., 3].to(f32)
     src = torch.gather(xf, 1, bond_src[..., None].expand(-1, -1, xf.shape[-1]))
-    msg_b = uvu_messages(src, sh4(bf), radial(bf, w.b1b).to(f32), S, V) * bmask[..., None]
+    w_b = _radial_plain(bf, w.w1, w.b1b, w.w2, w.b2, cdt).to(f32)
+    msg_b = uvu_messages(src, _sh4(bf), w_b, S, V) * bmask[..., None]
     agg = agg.scatter_add(1, bond_dst[..., None].expand(-1, -1, msg_b.shape[-1]), msg_b)
     deg = deg.scatter_add(1, bond_dst, bmask)
     norm = (agg * (1.0 / torch.clamp(deg, min=1.0))[..., None]).to(cdt).to(f32)
@@ -351,3 +382,163 @@ def conv_block_trainable(x, ef, bf, bond_src, bond_dst, masters: BlockWeights) -
     `make_trainable_conv_block`)."""
     shape = (masters.S, masters.V, masters.Sc, masters.Vg)
     return _TrainableConvBlock.apply(x, ef, bf, bond_src, bond_dst, shape, *masters.tensors())
+
+
+class LayerWeights(NamedTuple):
+    """One Conv's weights for K2's layer mode ([in, out] matrices): the
+    radial MLP as in `BlockWeights`, and the post-linear for a general
+    l <= 1 irreps_out, each IrrepsLinear kernel cast to the compute dtype and
+    divided there by sqrt(fan-in) (`_pack_layer_weights` with
+    fuse_block=False)."""
+
+    w1: torch.Tensor  # [nr, 64] cdt
+    b1d: torch.Tensor  # [64] f32: bias + bondedness-0 embedding @ bond rows
+    b1b: torch.Tensor  # [64] f32: bias + bondedness-1 embedding @ bond rows
+    w2: torch.Tensor  # [64, 2S + 3V] cdt
+    b2: torch.Tensor  # [2S + 3V] f32
+    pl0: torch.Tensor  # [S + V, C0] cdt: rows [o1 | o4], columns the 0e outputs in order
+    pl1: torch.Tensor  # [S + 2V, V1] cdt: rows [o2 | o3 | o5], columns the 1e outputs
+    out_blocks: tuple  # ((mul, l), ...) of irreps_out
+    S: int
+    V: int
+    C0: int
+    V1: int
+
+
+def layer_weights(radial_nn, post_linear, bond0, bond1, *, S: int, V: int, cdt) -> LayerWeights:
+    """K2 layer mode's operands for one Conv, from its parameters."""
+    f32 = torch.float32
+    d0, d1 = radial_nn.layer(0), radial_nn.layer(1)
+    nb = d0.kernel.shape[0] - N_RADIAL
+    wb = d0.kernel[:nb].to(f32)
+    outs = list(post_linear.irreps_out)
+    j0 = [j for j, mi in enumerate(outs) if mi.ir.l == 0]
+    j1 = [j for j, mi in enumerate(outs) if mi.ir.l == 1]
+    in0, in1 = ((0, 3), (1, 2, 4)) if V else ((0,), (1,))
+
+    def rows(ids, js):
+        return torch.cat([
+            torch.cat([post_linear.weight(i, j).to(cdt) for j in js], 1)
+            if js else d0.kernel.new_zeros((post_linear.irreps_in[i].mul, 0), dtype=cdt)
+            for i in ids
+        ])
+
+    def scaled(m, fan):
+        return (m / rounded_divisor(math.sqrt(max(fan, 1)), cdt, m.device)).contiguous()
+
+    return LayerWeights(
+        w1=d0.kernel[nb:].to(cdt).contiguous(),
+        b1d=(d0.bias.to(f32) + bond0.to(f32) @ wb).contiguous(),
+        b1b=(d0.bias.to(f32) + bond1.to(f32) @ wb).contiguous(),
+        w2=d1.kernel.to(cdt).contiguous(),
+        b2=d1.bias.to(f32).contiguous(),
+        pl0=scaled(rows(in0, j0), S + V),
+        pl1=scaled(rows(in1, j1), S + 2 * V),
+        out_blocks=tuple((mi.mul, mi.ir.l) for mi in outs),
+        S=S, V=V,
+        C0=sum(outs[j].mul for j in j0), V1=sum(outs[j].mul for j in j1),
+    )
+
+
+def _out_columns_list(out_blocks) -> list:
+    """The irreps-order column of each 0e output channel, then of the first
+    component of each 1e output channel."""
+    c0, c1, off = [], [], 0
+    for mul, l in out_blocks:
+        if l == 0:
+            c0 += range(off, off + mul)
+        else:
+            c1 += range(off, off + 3 * mul, 3)
+        off += mul * (2 * l + 1)
+    return c0 + c1
+
+
+@functools.lru_cache(maxsize=None)
+def _out_columns(out_blocks: tuple, device: torch.device) -> torch.Tensor:
+    """`_out_columns_list` as an int32 tensor on `device`, made once per key
+    (a new tensor at every call would be a host-to-device copy each time)."""
+    return torch.tensor(_out_columns_list(out_blocks), dtype=torch.int32, device=device)
+
+
+def conv_layer_plain(x, ef, bf, bond_src, bond_dst, w: LayerWeights) -> torch.Tensor:
+    """The plain PyTorch version of K2's layer mode: K2's aggregates (the
+    same rounding points), then the post-linear in f32, the output
+    [G, N, C0 + 3 V1] f32 in irreps order."""
+    f32 = torch.float32
+    S, V = w.S, w.V
+    G, N, _ = x.shape
+    norm, _ = _aggregate_plain(x, ef, bf, bond_src, bond_dst, w)
+    o2 = norm[..., S : 4 * S].reshape(G, N, S, 3)
+    if V:
+        o3 = norm[..., 4 * S : 4 * S + 3 * V].reshape(G, N, V, 3)
+        o5 = norm[..., 4 * S + 4 * V :].reshape(G, N, V, 3)
+        in0 = torch.cat([norm[..., :S], norm[..., 4 * S + 3 * V : 4 * S + 4 * V]], -1)
+        in1 = torch.cat([o2, o3, o5], -2)
+    else:
+        in0, in1 = norm[..., :S], o2
+    conv0 = in0 @ w.pl0.to(f32)  # [G, N, C0]
+    conv1 = torch.einsum("gnkc,kq->gnqc", in1, w.pl1.to(f32))  # [G, N, V1, 3]
+    parts, q0, q1 = [], 0, 0
+    for mul, l in w.out_blocks:
+        if l == 0:
+            parts.append(conv0[..., q0 : q0 + mul])
+            q0 += mul
+        else:
+            parts.append(conv1[..., q1 : q1 + mul, :].reshape(G, N, 3 * mul))
+            q1 += mul
+    return torch.cat(parts, -1)
+
+
+def conv_layer(x, ef, bf, bond_src, bond_dst, w: LayerWeights) -> torch.Tensor:
+    """One Conv on dense pairs and bonds, the mean and the post-linear ->
+    f32 [G, N, irreps_out.dim]. CPU tensors take the plain version; CUDA
+    tensors launch K2 in its layer mode. Forward only, as in JAX."""
+    if x.device.type == "cpu":
+        return conv_layer_plain(x, ef, bf, bond_src, bond_dst, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_layer: unsupported device {x.device}")
+    cdt = x.dtype
+    if cdt not in _LAYER_ENTRY:
+        raise TypeError(f"conv_layer: compute dtype {cdt} not supported")
+    G, N, _ = x.shape
+    B = bond_src.shape[1]
+    S, V, C0, V1 = w.S, w.V, w.C0, w.V1
+    W = 2 * S + 3 * V
+    if W > MAX_WIDTH or ef.shape[-1] != EF_GEOM + N_RADIAL:
+        raise NotImplementedError(
+            f"conv_layer: radial width {W} (max {MAX_WIDTH}) / {ef.shape[-1] - EF_GEOM} radial "
+            f"functions (want {N_RADIAL})"
+        )
+    ec = EF_GEOM + N_RADIAL
+    f32 = torch.float32
+    checks = [
+        ("x", x, cdt, (G, N, S + 3 * V)),
+        ("ef", ef, cdt, (G, N, N, ec)),
+        ("bf", bf, cdt, (G, B, ec)),
+        ("bond_src", bond_src, torch.int64, (G, B)),
+        ("bond_dst", bond_dst, torch.int64, (G, B)),
+        ("w1", w.w1, cdt, (N_RADIAL, 64)),
+        ("b1d", w.b1d, f32, (64,)),
+        ("b1b", w.b1b, f32, (64,)),
+        ("w2", w.w2, cdt, (64, W)),
+        ("b2", w.b2, f32, (W,)),
+        ("pl0", w.pl0, cdt, (S + V, C0)),
+        ("pl1", w.pl1, cdt, (S + 2 * V, V1)),
+    ]
+    for name, t, dt, shape in checks:
+        if t.device != x.device or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"conv_layer: {name} must be {dt} {shape} contiguous on {x.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    cols = _out_columns(w.out_blocks, x.device)
+    out = torch.empty((G, N, C0 + 3 * V1), dtype=f32, device=x.device)
+    LAYER_KERNEL.launch(
+        _LAYER_ENTRY[cdt],
+        x.data_ptr(), ef.data_ptr(), bf.data_ptr(), bond_src.data_ptr(), bond_dst.data_ptr(),
+        w.w1.data_ptr(), w.b1d.data_ptr(), w.b1b.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
+        w.pl0.data_ptr(), w.pl1.data_ptr(), cols.data_ptr(), out.data_ptr(),
+        G, N, B, S, V, C0, V1,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return out

@@ -21,7 +21,8 @@ import torch
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 
 __all__ = [
-    "edge_features", "edge_features_plain", "bond_features_plain", "packed_rows", "KERNEL", "EF_GEOM",
+    "edge_features", "edge_features_plain", "pair_features_plain", "bond_features_plain",
+    "packed_rows", "KERNEL", "EF_GEOM",
 ]
 
 EF_GEOM = 4  # channels before the radial basis: shy, shz, shx, adj
@@ -55,6 +56,19 @@ def bond_features_plain(pos, bond_src, bond_dst, bond_mask, cutoff: float, n_rad
     return _features(bx, by, bz, bond_mask.to(torch.float32), cutoff, n_radial, cdt)
 
 
+def pair_features_plain(pos, node_mask, cutoff: float, n_radial: int, cdt) -> torch.Tensor:
+    """ef [G, N, N, EC] of the dense pairs alone (pos f32, cutoff already
+    rounded to f32): also what the kernels that rebuild the pair geometry
+    from the positions (K5, K8, K9) compute per visited pair."""
+    N = pos.shape[1]
+    rel = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i, j] = pos_j - pos_i
+    dx, dy, dz = rel.unbind(-1)
+    dist = torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-12)
+    eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
+    adj = (dist < cutoff) & node_mask[:, :, None] & node_mask[:, None, :] & ~eye
+    return _features(dx, dy, dz, adj.to(torch.float32), cutoff, n_radial, cdt)
+
+
 def edge_features_plain(
     pos, node_mask, bond_src, bond_dst, bond_mask, cutoff: float, n_radial: int, cdt
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,14 +76,7 @@ def edge_features_plain(
     The cutoff is rounded to f32 first, as the kernel receives it."""
     cutoff = float(torch.tensor(cutoff, dtype=torch.float32))
     pos = pos.to(torch.float32)
-    N = pos.shape[1]
-    rel = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i, j] = pos_j - pos_i
-    dx, dy, dz = rel.unbind(-1)
-    dist = torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-12)
-    eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
-    adj = (dist < cutoff) & node_mask[:, :, None] & node_mask[:, None, :] & ~eye
-    ef = _features(dx, dy, dz, adj.to(torch.float32), cutoff, n_radial, cdt)
-
+    ef = pair_features_plain(pos, node_mask, cutoff, n_radial, cdt)
     return ef, bond_features_plain(pos, bond_src, bond_dst, bond_mask, cutoff, n_radial, cdt)
 
 

@@ -41,12 +41,29 @@ class GraphBatch:
             **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
         )
 
+    def to_device(self, device) -> "GraphBatch":
+        """The batch on `device`. A host batch bound for the card goes through
+        page-locked memory with `non_blocking=True`: a copy from pageable
+        memory would make the host wait for every kernel queued before it
+        (the JAX loop's jitted step never waits on its input)."""
+        device = torch.device(device)
+        pin = device.type == "cuda" and self.pos.device.type == "cpu"
+        return GraphBatch(**{
+            f.name: (t.pin_memory() if pin else t).to(device, non_blocking=pin)
+            for f in dataclasses.fields(self)
+            for t in (getattr(self, f.name),)
+        })
+
 
 @dataclasses.dataclass(frozen=True)
 class EdgeData:
     """Edge features shared by all conv layers of one forward (plain path).
     The dense fields are None on the sparse path, which fills the per-
-    neighbour fields instead (`jamun_tpu/ops/graph.py:98-104`)."""
+    neighbour fields instead (`jamun_tpu/ops/graph.py:98-104`). The raw
+    fields (`pos`, `node_mask`, `radial_cutoff`, the bondedness rows) are
+    what `Conv`'s dense kernels read (`jamun_tpu/ops/graph.py:84-89`), and
+    `pair_features` K1's edge features when the caller computed them once
+    for every layer (JAX's `ef_packed` / `bf_packed`)."""
 
     sh_dense: Optional[torch.Tensor]  # [G, N, N, 4] (dst, src)
     attr_dense: Optional[torch.Tensor]  # [G, N, N, A]
@@ -63,6 +80,12 @@ class EdgeData:
     sh_nbr: Optional[torch.Tensor] = None  # [G, N, K, 4]
     attr_nbr: Optional[torch.Tensor] = None  # [G, N, K, A], or the radial half only
     bond0_embed: Optional[torch.Tensor] = None  # [A // 2] bondedness-0 row (folded with a radial-only attr)
+    # raw inputs of the dense kernels
+    pos: Optional[torch.Tensor] = None  # [G, N, 3]
+    node_mask: Optional[torch.Tensor] = None  # [G, N] bool
+    radial_cutoff: Optional[float] = None
+    bond1_embed: Optional[torch.Tensor] = None  # [A // 2] bondedness-1 row
+    pair_features: Optional[tuple] = None  # (ef, bf) of `ops/cuda/edge_features`
 
 
 def dense_edge_data(
@@ -75,8 +98,11 @@ def dense_edge_data(
     sh_fn,
     attr_fn,
     dense: bool = True,
+    bond0_embed: Optional[torch.Tensor] = None,
+    bond1_embed: Optional[torch.Tensor] = None,
 ) -> EdgeData:
-    """Build EdgeData from positions (the bonds alone with `dense=False`).
+    """Build EdgeData from positions (the bonds alone with `dense=False`),
+    with the raw fields the dense kernels read.
 
     sh_fn(edge_vec [..., 3]) -> [..., 4]; attr_fn(edge_len [...], bonded) -> [..., A].
     The radial edge set (bondedness 0) is the distance-cutoff graph over all
@@ -107,4 +133,9 @@ def dense_edge_data(
         bond_src=bond_src,
         bond_dst=bond_dst,
         bond_mask=bond_mask.to(pos.dtype),
+        bond0_embed=bond0_embed,
+        pos=pos,
+        node_mask=node_mask,
+        radial_cutoff=radial_cutoff,
+        bond1_embed=bond1_embed,
     )

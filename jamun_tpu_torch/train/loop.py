@@ -49,7 +49,8 @@ class TrainerConfig:
 class Trainer:
     """`Trainer(config, denoiser, sigma_distribution).fit(train, val)`.
     `device` follows `utils.device.resolve_device` (the card unless "cpu");
-    batches are moved there. `metrics` keeps every logged (step, dict)."""
+    batches are moved there (`GraphBatch.to_device`: from pinned host memory
+    without a wait). `metrics` keeps every logged (step, dict)."""
 
     def __init__(
         self, config: TrainerConfig, denoiser: Denoiser, sigma_distribution, lr_lambda=None,
@@ -84,7 +85,7 @@ class Trainer:
         for batch in train_batches:
             if state.step >= cfg.max_steps:
                 break
-            batch = batch.to(self.device)
+            batch = batch.to_device(self.device)
             state, aux = train_step(state, batch)
             samples += batch.pos.shape[0]
             if state.step % cfg.log_every_n_steps == 0:
@@ -113,7 +114,7 @@ class Trainer:
         for batch in val_batches:
             if n >= cfg.val_max_batches:
                 break
-            aux = eval_step(state, batch.to(self.device), generator, host_generator)
+            aux = eval_step(state, batch.to_device(self.device), generator, host_generator)
             for k, v in aux.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             n += 1

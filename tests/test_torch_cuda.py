@@ -331,3 +331,55 @@ def test_walk_never_makes_the_host_wait(cuda, fused_stack, n_atoms, skin):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(out["xhat_traj"]).all()
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_conv_kernels_match_plain_twins(cuda, cdt):
+    """K8 (V = 8 and V = 0) and K9 against their twins, the degree exactly,
+    K8 and K9 bit for bit, each on its own counter; K9 refuses V = 0."""
+    from jamun_tpu_torch.ops.cuda import dense_conv as k89
+
+    batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
+                            max_bonds=40, device=cuda)
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bond0 = model.embed_bondedness[0]
+    n8, n9 = k89.K8.launches, k89.K9.launches
+    for blk, (S, V) in ((model.ConvBlock_0, (56, 0)), (model._HiddenLayer_0.ConvBlock_0, (24, 8))):
+        d0, d1 = blk.Conv_0.radial_nn.layer(0), blk.Conv_0.radial_nn.layer(1)
+        x = torch.randn((3, 19, S + 3 * V), generator=gen, device=cuda).to(cdt)
+        args = (batch.pos, batch.node_mask, x, d0.kernel, d0.bias, d1.kernel, d1.bias, bond0, 0.8, S, V)
+        out, deg = k89.packed_uvu_conv_dense(*args)
+        want, deg_p = k89.packed_uvu_conv_dense_plain(*args)
+        assert torch.equal(deg, deg_p) and _rel(out, want) <= TOL[cdt]
+        if V:
+            out9, deg9 = k89.fused_uvu_conv_dense(*args)
+            assert torch.equal(out9, out) and torch.equal(deg9, deg)
+        else:
+            with pytest.raises(ValueError):
+                k89.fused_uvu_conv_dense(*args)
+    assert (k89.K8.launches - n8, k89.K9.launches - n9) == (2, 1)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_layer_mode_matches_plain_twin(cuda, cdt):
+    """K2's layer mode (`conv_layer`) against its twin for a mixed l <= 1
+    irreps_out, on its own counter; K2's whole-block counter is untouched."""
+    from jamun_tpu_torch.ops.conv import Conv
+
+    batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
+                            max_bonds=40, device=cuda)
+    geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
+    ef, bf = k1.edge_features(*geo, cdt)
+    gen = torch.Generator().manual_seed(4)
+    conv = Conv("24x0e + 8x1e", "6x0e + 3x1e + 10x0e + 4x1e", "1x0e + 1x1e", 64).to(cuda)
+    for prm in conv.parameters():
+        prm.data.copy_(torch.randn(prm.shape, generator=gen))
+    bond = torch.randn(2, 32, generator=gen).to(cuda)
+    w = k2.layer_weights(conv.radial_nn, conv._post_linear, bond[0], bond[1], S=24, V=8, cdt=cdt)
+    x = torch.randn((3, 19, 48), generator=gen).to(cuda, cdt)
+    n2, nl = k2.KERNEL.launches, k2.LAYER_KERNEL.launches
+    got = k2.conv_layer(x, ef, bf, batch.bond_src, batch.bond_dst, w)
+    want = k2.conv_layer_plain(x, ef, bf, batch.bond_src, batch.bond_dst, w)
+    assert got.shape == (3, 19, 6 + 9 + 10 + 12) and _rel(got, want) <= TOL[cdt]
+    assert (k2.KERNEL.launches - n2, k2.LAYER_KERNEL.launches - nl) == (0, 1)
