@@ -5,7 +5,9 @@ Run from the repository root:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the hand-written kernels from jamun_tpu_torch/csrc/ (one nvcc per
-     source, started together) and print the card's name and power limit;
+     source, started together), print the card's name and power limit,
+     each kernel's registers and spills, and the tensor-core instructions
+     (HMMA) of K2's and K3's bf16 kernels in the built libraries;
   2. hold each kernel against its plain PyTorch version on the card, at the
      flagship width (hidden 120x0e + 32x1e, projector 56x0e) and the walk's
      shapes, in bf16 and f32, and time kernel and plain version with CUDA
@@ -26,7 +28,13 @@ Phases (any failure exits non-zero; nothing is caught):
      cached list (K7), mask and indices exactly, and the messages (K6) for
      the projector and a hidden block, on the model's attributes and on
      K7's radial half, the degree exactly; both once more at the load the
-     cached N = 512 walk of phase 3d ends at;
+     cached N = 512 walk of phase 3d ends at; K2's and K3's rows also give
+     registers per thread, CTAs per SM and the time before their
+     tensor-core redesign (`PREV_MS`), and the library's shared-memory
+     reckoning against its Python mirror; the Kabsch
+     rotation (Horn's quaternion, `csrc/kabsch.cu`) against its plain
+     version and the SVD alignment at G = 32, N = 48 (random, mirrored,
+     near-planar and single-atom graphs), with no host wait;
   3. drive the main paths at full flagship width with random weights from a
      seed, launch counts zeroed just before each and read just after:
      (a) the stack path through the sampling loop, `Sampler.sample` ->
@@ -66,7 +74,8 @@ Phases (any failure exits non-zero; nothing is caught):
      walk on each path with PyTorch's sync debug mode set to raise (no step
      waits for the device), the sparse path's cached and uncached walks and
      the plane walk included, and three `Trainer.fit` steps from host
-     batches with a mirror flip and a fixed noise draw; torch.profiler
+     batches with a mirror flip, a fixed noise draw and the default Kabsch
+     alignment (one Kabsch launch per step); torch.profiler
      traces of a short 4AA walk on each path (device time by kernel, device
      busy share, device ops per forward), the N = 256 walk, the cached
      N = 512 sparse walk and the plane walk included;
@@ -77,7 +86,8 @@ Phases (any failure exits non-zero; nothing is caught):
      2e-3, ConstantSigma(0.04), one fixed noise draw) with one EMA
      validation, launch counts
      zeroed before and read after (K1 once and K2 six times per forward, K4
-     six times per step), finite and falling loss; then the f32 gradients of
+     six times per step, the Kabsch kernel once per aligned batch, the
+     validation's included), finite and falling loss; then the f32 gradients of
      `training_loss` on the card's kernel path against the CPU plain path;
      then training above 128 atoms: a few `Trainer.fit` steps at N = 256,
      G = 4 in bf16, which take the plain path on the card (every kernel's
@@ -86,9 +96,10 @@ Phases (any failure exits non-zero; nothing is caught):
      default "auto" at N = 256, G = 4 (chain positions), which take the
      plain sparse path (every launch count 0, a finite loss, the cap's
      overflow logged).
-`--out FILE` writes every number as JSON. The line before the last is a
-JSON object of per-kernel numbers; the last line is {"ok": true, "device":
-{...}}.
+`--out FILE` writes every number as JSON. An earlier line is a JSON object
+{"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
+last is a JSON object of per-kernel numbers; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -96,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -114,6 +126,27 @@ TOL = {  # max |kernel - plain| / max |plain|, per compute dtype
 }
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; f32 FMA
+# K2's, its layer mode's and K3's times before their tensor-core redesign
+# (ms; PERF.md section 6, from this script's run on NVIDIA H100 80GB HBM3,
+# 700.00 W), keyed by (kernel, row shape)
+PREV_MS = {
+    ("conv_block", "projector 4AA N=44 G=256 bfloat16"): 0.5349,
+    ("conv_block", "hidden 4AA N=44 G=256 bfloat16"): 1.3597,
+    ("conv_block", "projector 4AA N=44 G=256 float32"): 0.5603,
+    ("conv_block", "hidden 4AA N=44 G=256 float32"): 1.3777,
+    ("conv_block", "projector 5AA N=112 G=128 bfloat16"): 1.1225,
+    ("conv_block", "hidden 5AA N=112 G=128 bfloat16"): 2.8542,
+    ("conv_block", "projector 5AA N=112 G=128 float32"): 1.1889,
+    ("conv_block", "hidden 5AA N=112 G=128 float32"): 2.8933,
+    ("conv_layer", "K2 layer hidden 4AA N=44 G=256 bfloat16"): 1.1410,
+    ("conv_layer", "K2 layer hidden 4AA N=44 G=256 float32"): 1.1518,
+    ("conv_layer", "K2 layer hidden 5AA N=112 G=128 bfloat16"): 2.5732,
+    ("conv_layer", "K2 layer hidden 5AA N=112 G=128 float32"): 2.6277,
+    ("e3_stack", "4AA N=44 G=256 bfloat16"): 6.9016,
+    ("e3_stack", "4AA N=44 G=256 float32"): 6.8615,
+    ("e3_stack", "2AA N=19 G=256 bfloat16"): 2.0853,
+    ("e3_stack", "2AA N=19 G=256 float32"): 2.0269,
+}
 
 
 def log(msg: str) -> None:
@@ -151,6 +184,117 @@ def ef_bytes(ef: torch.Tensor, n_dense: int) -> int:
     whole row of each visited pair."""
     pairs = ef[..., 0].numel()
     return (pairs - n_dense) * 32 + n_dense * ef.shape[-1] * ef.element_size()
+
+
+def tensor_core_counts(k2, k3) -> dict:
+    """Phase 1: the HMMA/HGMMA instructions of each kernel function in the
+    built K2 and K3 libraries (`cuobjdump -sass`); the bf16 kernels
+    (`*_mma_kernel`) must issue some."""
+    from jamun_tpu_torch.ops.cuda.build import library_path
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for kernel in (k2.KERNEL, k3.KERNEL):
+        sass = subprocess.run([cuobjdump, "-sass", str(library_path(kernel.source))],
+                              check=True, capture_output=True, text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] += 1
+    for fn, n in counts.items():
+        log(f"phase 1: {n:4d} HMMA/HGMMA in {fn[:100]}")
+    mma = {fn: n for fn, n in counts.items() if "_mma_kernel" in fn}
+    # K2's block and layer modes and K3
+    assert len(mma) == 3 and all(mma.values()), mma
+    return counts
+
+
+def covariance(y: torch.Tensor, x: torch.Tensor, node_mask: torch.Tensor):
+    """`kabsch_align`'s masked centroids and 3 x 3 covariances: (H, x_mu, y_mu, m)."""
+    m = node_mask[..., None].to(y.dtype)
+    count = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+    x_mu = (x * m).sum(dim=1, keepdim=True) / count
+    y_mu = (y * m).sum(dim=1, keepdim=True) / count
+    return torch.einsum("gni,gnj->gij", (y - y_mu) * m, (x - x_mu) * m), x_mu, y_mu, m
+
+
+def svd_aligned(y: torch.Tensor, x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """`kabsch_align` with the SVD's rotation (`ops.geometry.svd_rotation`),
+    on whatever device the inputs are: the Kabsch kernel's reference."""
+    from jamun_tpu_torch.ops.geometry import svd_rotation
+
+    H, x_mu, y_mu, m = covariance(y, x, node_mask)
+    R = svd_rotation(H)
+    return (torch.einsum("gij,gnj->gni", R, y) + x_mu - torch.einsum("gij,gnj->gni", R, y_mu)) * m
+
+
+def check_kabsch(kb, dev) -> dict:
+    """Phase 2: the Kabsch kernel (Horn's quaternion, `csrc/kabsch.cu`)
+    against the SVD alignment on the card at the training shape, G = 32
+    graphs of N = 48 slots: 8 random rotations of a noisy copy, 8 mirrored
+    (the best orthogonal map is a reflection), 8 near-planar, 8 single-atom
+    graphs; some graphs padded. Non-degenerate graphs compare the aligned
+    positions, degenerate ones the aligned RMSD, 1e-5 of the largest
+    coordinate. `kabsch_align` must not make the host wait."""
+    from jamun_tpu_torch.ops.geometry import kabsch_align, svd_rotation
+
+    G, N = 32, 48
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(G, N, 3, generator=g, device=dev)
+    q, _ = torch.linalg.qr(torch.randn(G, 3, 3, generator=g, device=dev))
+    q = q * torch.sign(torch.linalg.det(q))[:, None, None]
+    y = torch.einsum("gnj,gij->gni", x, q) + 0.05 * torch.randn(G, N, 3, generator=g, device=dev)
+    y[8:16] = y[8:16] * torch.tensor([1.0, 1.0, -1.0], device=dev)
+    x[16:24, :, 2] *= 1e-3
+    mask = torch.ones(G, N, dtype=torch.bool, device=dev)
+    mask[24:, 1:] = False
+    mask[:8, 40:] = False
+    x, y = x * mask[..., None], y * mask[..., None]
+    want = svd_aligned(y, x, mask)
+    before = kb.KERNEL.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kabsch_align(y, x, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kb.KERNEL.launches - before == 1
+    assert torch.isfinite(got).all()
+    scale = x.abs().max().item()
+    pos_err = (got[:24] - want[:24]).abs().max().item()
+
+    def rmsd(a):
+        return ((a - x) ** 2).sum(-1).sum(-1).div(mask.sum(-1)).sqrt()
+
+    rmsd_err = (rmsd(got)[24:] - rmsd(want)[24:]).abs().max().item()
+    abs_e = max(pos_err, rmsd_err)
+    log(f"phase 2: Kabsch G={G} N={N}: aligned positions max abs err {pos_err:.3g}, "
+        f"degenerate graphs' RMSD {rmsd_err:.3g} (tol {1e-5 * scale:.3g}, 1e-5 of the max); "
+        "no host wait")
+    assert abs_e <= 1e-5 * scale, (pos_err, rmsd_err, scale)
+    H = covariance(y, x, mask)[0]
+    R_k, R_p = kb.kabsch_rotation(H), kb.kabsch_rotation_plain(H)
+    rot_abs, _ = rel_err(R_k, R_p)  # entries of rotations: at most 1
+    assert rot_abs <= 1e-5, f"Kabsch kernel vs its plain version: {rot_abs:.3g} > 1e-5"
+    flops = G * kb.SWEEPS * 6 * 2 * (2 * 4 * 4 + 4 * 4)  # each rotation: two sides of A, one of V
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = 2 * H.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+    row = dict(
+        name="kabsch", route="cuda", source="jamun_tpu_torch/csrc/kabsch.cu", replaces=None,
+        max_abs_err=abs_e, rotation_vs_plain_abs_err=rot_abs, G=G, N=N,
+        ms=cuda_time_ms(lambda: kb.kabsch_rotation(H), 20),
+        plain_ms=cuda_time_ms(lambda: kb.kabsch_rotation_plain(H), 5),
+        svd_ms=cuda_time_ms(lambda: svd_rotation(H), 5),
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None,
+    )
+    log(f"phase 2: Kabsch rotation kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"SVD rotation {row['svd_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}); "
+        f"rotations vs the plain version max abs err {rot_abs:.3g} (tol 1e-5)")
+    return row
 
 
 def rel_leaves(got: dict, want: dict) -> dict:
@@ -291,9 +435,14 @@ def check_e3_stack(k1, k3, models, stack_models, dev, c_in: float, c_noise: floa
     shapes = {"4AA": (44, [44] * 256), "2AA": (19, [19] * 256), "mixed": (44, [44, 41])}
     launch_shapes = {}
     for N in (44, 19):  # the kernel's own split of a graph over its cluster, and 8 atoms per CTA
-        launch_shapes[N] = {a: k3.launch_shape(N, 2 * N, 120, 32, 56, a) for a in (0, 8)}
-        log(f"phase 2: K3 launch shape at N={N}: {launch_shapes[N][0]}; "
-            f"with 8 atoms per CTA: {launch_shapes[N][8]}")
+        for cdt in (torch.bfloat16, torch.float32):
+            shapes_n = {a: k3.launch_shape(N, 2 * N, 120, 32, 56, a, compute_dtype=cdt) for a in (0, 8)}
+            for a, sh in shapes_n.items():
+                mirror = k3.stack_shape(N, 2 * N, 120, 32, 56, a, compute_dtype=cdt)
+                assert {k: sh[k] for k in mirror} == mirror, (sh, mirror)
+            launch_shapes[N, cdt] = shapes_n
+            log(f"phase 2: K3 {str(cdt).split('.')[-1]} launch shape at N={N}: {shapes_n[0]}; "
+                f"with 8 atoms per CTA: {shapes_n[8]}")
     layerwise_tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
     c_noise_t = torch.full((1,), c_noise, dtype=torch.float32, device=dev)
     rows = []
@@ -336,17 +485,21 @@ def check_e3_stack(k1, k3, models, stack_models, dev, c_in: float, c_noise: floa
                 ms_8_atoms_per_cta=(
                     cuda_time_ms(lambda: k3.e3conv_stack(*args, atoms_per_cta=8), 10) if timed else None
                 ),
-                launch_shape=launch_shapes[N],
+                launch_shape=launch_shapes[N, cdt], prev_ms=PREV_MS.get(("e3_stack", tag)),
+                registers=launch_shapes[N, cdt][0]["registers"],
+                ctas_per_sm=launch_shapes[N, cdt][0]["ctas_per_sm"],
                 plain_ms=cuda_time_ms(lambda: k3.e3conv_stack_plain(*args), 2) if timed else None,
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 visited_pairs=n_pairs, flops=flops, bytes=nbytes, dtype=str(cdt), N=N, G=G, label=label,
             )
             rows.append(row)
-            times = (f"kernel {row['ms']:.4f} ms ({row['ms_8_atoms_per_cta']:.4f} ms with 8 atoms "
-                     f"per CTA), plain {row['plain_ms']:.4f} ms, " if timed else "")
+            times = (f"kernel {row['ms']:.4f} ms (before the redesign: {row['prev_ms']:.4f}; "
+                     f"{row['ms_8_atoms_per_cta']:.4f} ms with 8 atoms per CTA), "
+                     f"plain {row['plain_ms']:.4f} ms, " if timed else "")
             log(f"phase 2: K3 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}); "
                 f"vs layerwise kernel path rel {lw_rel:.3g} (tol {layerwise_tol[cdt]}); {times}"
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs; "
+                f"{row['registers']} registers, {row['ctas_per_sm']} CTAs per SM")
             del got, want, whole, layerwise
             torch.cuda.empty_cache()
     return rows
@@ -955,6 +1108,7 @@ def train_flagship(dev, card: str) -> dict:
     from jamun_tpu_torch.ops.cuda import conv_block as k2
     from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
     from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
     from jamun_tpu_torch.train.distributions import ConstantSigma
     from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
     from jamun_tpu_torch.utils.testing import make_test_batch
@@ -973,7 +1127,8 @@ def train_flagship(dev, card: str) -> dict:
                       learning_rate=2.0e-3, seed=0),
         den, ConstantSigma(SIGMA), device=dev,
     )
-    for k in (k1, k2, k4):
+    assert den.config.align_noisy_input_during_training  # the default: Kabsch in every batch
+    for k in (k1, k2, k4, kb):
         k.KERNEL.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -981,14 +1136,14 @@ def train_flagship(dev, card: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"edge_features": k1.KERNEL.launches, "conv_block": k2.KERNEL.launches,
-                "conv_block_bwd": k4.KERNEL.launches}
+                "conv_block_bwd": k4.KERNEL.launches, "kabsch": kb.KERNEL.launches}
     train = [m for _, m in trainer.metrics if "train/loss" in m]
     val = [m for _, m in trainer.metrics if "val/loss" in m]
     losses = [m["train/loss"] for m in train]
     forwards = steps + 1  # every step's forward, and the validation's
     log(f"phase 5: launches {launches} over {steps} steps and {forwards} forwards")
     assert launches == {"edge_features": forwards, "conv_block": 6 * forwards,
-                        "conv_block_bwd": 6 * steps}, launches
+                        "conv_block_bwd": 6 * steps, "kabsch": forwards}, launches
     assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     log("phase 5: losses " + " ".join(f"{v:.5f}" for v in losses))
@@ -1337,18 +1492,24 @@ def check_conv_layer(k1, k2, models, batches, dev, c_in: float, cutoff: float) -
             )
             t_ops = flops / PEAK_FLOPS[cdt] * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            occ = k2.occupancy(N, batch.bond_src.shape[1], 120, 32, C0, V1, cdt, layer=True)
             row = dict(
                 shape=f"K2 layer {tag}", max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                 ms=cuda_time_ms(lambda: k2.conv_layer(*args), 10),
+                prev_ms=PREV_MS[("conv_layer", f"K2 layer {tag}")],
                 plain_ms=cuda_time_ms(lambda: k2.conv_layer_plain(*args), 2),
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 visited_pairs=n_pairs, flops=flops, bytes=nbytes, dtype=str(cdt), N=N, G=G,
-                block="hidden", label=label,
+                block="hidden", label=label, registers=occ["registers"],
+                spill_bytes=occ["spill_bytes"], ctas_per_sm=occ["ctas_per_sm"],
+                smem_bytes=occ["smem_bytes"],
             )
             rows.append(row)
             log(f"phase 2: K2 layer mode {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
-                f"(tol {TOL[cdt]}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+                f"(tol {TOL[cdt]}); kernel {row['ms']:.4f} ms (before the redesign: {row['prev_ms']:.4f}), "
+                f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{n_pairs} visited pairs; {occ['registers']} registers, {occ['smem_bytes']} B shared, "
+                f"{occ['ctas_per_sm']} CTAs per SM")
             del got, want, ef, bf
             torch.cuda.empty_cache()
     return rows
@@ -1504,14 +1665,13 @@ def check_plane_score(plane_models: dict, config, dev) -> dict:
 def check_train_never_waits(dev) -> dict:
     """Phase 4: `Trainer.fit` under PyTorch's sync debug mode set to raise:
     three steps from host batches (pinned, copied without blocking), with a
-    mirror flip drawn at every step and one fixed noise draw, the two host
-    waits the training step used to make. The Kabsch alignment of the noisy
-    input (`align_noisy_input_during_training`, on by default) is left out:
-    `torch.linalg.svd` on the card reads its error flag on the host, a wait
-    of its own (ROADMAP.md section C) that would hide whether the rest of
-    the step waits."""
+    mirror flip drawn at every step, one fixed noise draw and the Kabsch
+    alignment of the noisy input (`align_noisy_input_during_training`, on
+    by default), the three host waits the training step used to make. Each
+    step aligns once, on the Kabsch kernel."""
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
     from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
     from jamun_tpu_torch.train.distributions import ConstantSigma
     from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
     from jamun_tpu_torch.utils.testing import make_test_batch
@@ -1519,13 +1679,15 @@ def check_train_never_waits(dev) -> dict:
     model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
     den = Denoiser(model, DenoiserConfig(
         max_radius=1.0, average_squared_distance=0.3, mirror_augmentation_rate=0.5,
-        add_fixed_noise=True, align_noisy_input_during_training=False,
+        add_fixed_noise=True,
     ))
+    assert den.config.align_noisy_input_during_training
     host = make_test_batch(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96,
                            device="cpu")
     cfg = TrainerConfig(max_steps=3, log_every_n_steps=1000, learning_rate=2.0e-3, seed=0)
     Trainer(cfg, den, ConstantSigma(SIGMA), device=dev).fit([host])  # the cached constants
     trainer = Trainer(cfg, den, ConstantSigma(SIGMA), device=dev)
+    before = kb.KERNEL.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -1535,10 +1697,12 @@ def check_train_never_waits(dev) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    assert state.step == 3
-    log(f"phase 4: Trainer.fit, 3 steps from host batches: no step makes the host wait for the "
-        f"device ({dt * 1e3 / 3:.3f} ms/step with fit's set-up)")
-    return dict(steps=3, ms_per_step_with_setup=dt * 1e3 / 3)
+    aligned = kb.KERNEL.launches - before
+    assert state.step == 3 and aligned == 3, (state.step, aligned)
+    log(f"phase 4: Trainer.fit with the alignment, 3 steps from host batches: no step makes the "
+        f"host wait for the device ({dt * 1e3 / 3:.3f} ms/step with fit's set-up); "
+        f"Kabsch launches {aligned}")
+    return dict(steps=3, ms_per_step_with_setup=dt * 1e3 / 3, kabsch_launches=aligned)
 
 
 def main() -> int:
@@ -1556,6 +1720,7 @@ def main() -> int:
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
     from jamun_tpu_torch.ops.cuda import nbr_conv as k6
     from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
     from jamun_tpu_torch.ops.cuda.build import build_all
@@ -1578,13 +1743,14 @@ def main() -> int:
         k7.KERNEL, k89.K8, k89.K9,
     )}
     logs = build_all()
-    # every source has its phase here
-    assert sorted(logs) == sorted({k.source.stem for k in counters.values()}), sorted(logs)
+    # every source has its phase here (the Kabsch rotation replaces no TPU kernel)
+    assert sorted(logs) == sorted({k.source.stem for k in (*counters.values(), kb.KERNEL)}), sorted(logs)
     log(f"phase 1: built {list(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    hmma = tensor_core_counts(k2, k3)
 
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
@@ -1674,17 +1840,24 @@ def main() -> int:
                 )
                 t_ops = flops / PEAK_FLOPS[cdt] * 1e3
                 t_bytes = k2_bytes / PEAK_BYTES_PER_S * 1e3
+                occ = k2.occupancy(N, batch.bond_src.shape[1], S, V, Sc, Vg, cdt)
+                assert occ["smem_bytes"] == k2.smem_bytes(N, batch.bond_src.shape[1], S, V, Sc, Vg, cdt)
                 row = dict(
                     shape=f"{block_name} {tag}", max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                     ms=cuda_time_ms(lambda: k2.fused_conv_block(*args_k2), 10),
+                    prev_ms=PREV_MS[("conv_block", f"{block_name} {tag}")],
                     plain_ms=cuda_time_ms(lambda: k2.fused_conv_block_plain(*args_k2), 2),
                     bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                     visited_pairs=n_pairs, flops=flops, dtype=str(cdt), N=N, G=G, block=block_name,
+                    registers=occ["registers"], spill_bytes=occ["spill_bytes"],
+                    ctas_per_sm=occ["ctas_per_sm"], smem_bytes=occ["smem_bytes"], threads=occ["threads"],
                 )
                 results["conv_block"].append(row)
                 log(f"phase 2: K2 {block_name} {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
-                    f"(tol {TOL[cdt]}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+                    f"(tol {TOL[cdt]}); kernel {row['ms']:.4f} ms (before the redesign: {row['prev_ms']:.4f}), "
+                    f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                    f"{n_pairs} visited pairs; {occ['registers']} registers, {occ['spill_bytes']} spill "
+                    f"bytes, {occ['smem_bytes']} B shared, {occ['ctas_per_sm']} CTAs per SM")
                 del got, want
             del ef, bf, ef_p, bf_p
             torch.cuda.empty_cache()
@@ -1698,6 +1871,7 @@ def main() -> int:
     for name in ("packed_uvu_conv_dense", "fused_uvu_conv_dense"):
         results[name] = [r for r in dense_rows if r["kernel"] == name]
     results["conv_layer"] = check_conv_layer(k1, k2, models, batches, dev, c_in, cutoff)
+    kabsch = check_kabsch(kb, dev)
 
     # ---- phase 3: the main paths, walk-jump at full flagship width ----
     # (a) the stack path through `Sampler.sample`
@@ -1858,6 +2032,7 @@ def main() -> int:
     results["conv_block_bwd"] = check_conv_block_bwd(k2, k4, models, dev, TOL)
     train = train_flagship(dev, card)
     launches["conv_block_bwd"] = train["launches"]["conv_block_bwd"]
+    kabsch["launches"] = train["launches"]["kabsch"]
     grad_err = check_train_gradients(dev)
     train_tiled = train_above_128(dev, card, counters)
     train_nbr = train_sparse(dev, card, counters)
@@ -1909,11 +2084,16 @@ def main() -> int:
                   sparse_score=sparse_score, plane_walk_profile=plane_profile,
                   plane_score=plane_score, conv_level_calls=conv_calls, train_sync=train_waits,
                   launches=launches, train=train,
-                  train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr)
+                  train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
+                  kabsch=kabsch, hmma=hmma)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)
     log("walks: " + json.dumps(walks))
+    # the Kabsch rotation replaces no TPU kernel: its line of its own
+    print(json.dumps({"kabsch": {k: kabsch[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "svd_ms")}}), flush=True)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,16 +18,16 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC", "SOURCES"]
+__all__ = ["CudaKernel", "build_all", "library_path", "BUILD_DIR", "CSRC", "SOURCES"]
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 # every kernel source of the port (K1, K2 and its layer mode, K3, K4, K5, K6,
-# K7, K8 and K9)
+# K7, K8 and K9, and the Kabsch rotation of training's alignment)
 SOURCES = (
     "edge_features", "conv_block", "e3_stack", "conv_block_bwd", "fused_block_tiled",
-    "nbr_conv", "nbr_edge_features", "dense_conv",
+    "nbr_conv", "nbr_edge_features", "dense_conv", "kabsch",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,7 +49,8 @@ def _flags(source: Path) -> List[str]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(source.stem, [])
 
 
-def _lib_path(source: Path) -> Path:
+def library_path(source: Path) -> Path:
+    """Where the library of a kernel source is (or will be) built."""
     text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(_flags(source)).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
@@ -58,7 +59,7 @@ def _lib_path(source: Path) -> Path:
 def _start(source: Path):
     """Start nvcc for `source` unless its library exists; returns
     (process or None, temp output, final path)."""
-    out = _lib_path(source)
+    out = library_path(source)
     if out.exists():
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -104,7 +105,7 @@ class CudaKernel:
     def fn(self, entry: str):
         if self._lib is None:
             _finish(*_start(self.source))
-            lib = ctypes.CDLL(str(_lib_path(self.source)))
+            lib = ctypes.CDLL(str(library_path(self.source)))
             for e, argtypes in self.entries.items():
                 f = getattr(lib, e)
                 f.argtypes = argtypes

@@ -42,7 +42,9 @@ __all__ = [
     "fused_conv_block", "fused_conv_block_plain", "conv_block_residuals_plain",
     "conv_block_trainable", "linear_scales", "rounded_divisor", "pair_sums_plain",
     "LayerWeights", "layer_weights", "conv_layer", "conv_layer_plain",
-    "KERNEL", "LAYER_KERNEL", "N_RADIAL", "MAX_WIDTH",
+    "KERNEL", "LAYER_KERNEL", "N_RADIAL", "MAX_WIDTH", "occupancy", "smem_bytes",
+    "threads_for", "pair_tiles_bytes", "epilogue_tiles_bytes", "staged_b_bytes", "scratch_bytes",
+    "MAX_SMEM", "stage_fits",
 ]
 
 N_RADIAL = 32  # the kernel's radial basis size (edge_attr_dim 64)
@@ -50,7 +52,9 @@ MAX_WIDTH = 384  # radial MLP output width 2S + 3V the kernel takes (one thread 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 19 + [_I] * 7 + [_P]
-KERNEL = CudaKernel("conv_block", {"conv_block_f32": _ARGS, "conv_block_bf16": _ARGS})
+KERNEL = CudaKernel("conv_block", {
+    "conv_block_f32": _ARGS, "conv_block_bf16": _ARGS, "conv_block_occupancy": [_I] * 8 + [_P],
+})
 _ENTRY = {torch.float32: "conv_block_f32", torch.bfloat16: "conv_block_bf16"}
 _LAYER_ARGS = [_P] * 14 + [_I] * 7 + [_P]
 LAYER_KERNEL = CudaKernel(
@@ -58,6 +62,116 @@ LAYER_KERNEL = CudaKernel(
 )
 _LAYER_ENTRY = {torch.float32: "conv_layer_f32", torch.bfloat16: "conv_layer_bf16"}
 _MATRICES = ("w1", "w2", "pl0", "pl1", "lin20", "lin21", "sk0", "sk1")
+
+
+# The kernels' shared-memory reckoning, mirrored from csrc/conv_block_body.cuh
+# (`scratch_words`, the FMA builds) and csrc/conv_block_mma.cuh /
+# csrc/conv_block.cu (`pair_tiles_bytes`, `epilogue_tiles_bytes`,
+# `mma_layout`, the bf16 builds); `occupancy` reads the library's own.
+# dst atoms per CTA (FMA builds, bf16 builds), pairs per tile, radial hidden width
+_TD, _TDM, _PT, _H = 8, 16, 32, 64
+MAX_SMEM = 232448  # bytes of shared memory one block may use on the H100
+_SM_SMEM = 233472  # bytes of shared memory of one SM (1 KB of it reserved per CTA)
+
+
+def stage_fits(staged: int, unstaged: int) -> bool:
+    """Whether the epilogue stages its B operands (`stage_fits` of
+    csrc/conv_block_mma.cuh): the CTA still fits, and as many CTAs share an
+    SM as without."""
+    return staged <= MAX_SMEM and _SM_SMEM // (staged + 1024) >= _SM_SMEM // (unstaged + 1024)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _ld(k: int) -> int:
+    """Leading dimension (bf16 elements) of an operand tile with k columns."""
+    return (k + 15) // 16 * 16 + 8
+
+
+def threads_for(W: int) -> int:
+    """Threads of a CTA: one per radial channel, whole warps, at least two."""
+    return max((W + 31) // 32 * 32, 64)
+
+
+def scratch_bytes(N: int, B: int, nt: int, Sc: int, Vg: int, td: int) -> int:
+    """The FMA builds' working set (`scratch_words` x 4)."""
+    floats = (N_RADIAL * _H + _H * _PT + _PT * N_RADIAL + _PT * 3 + td + td * 3 * nt
+              + td * (Sc + Vg) + td * 3 * Vg + td * Sc + td * 3 * Vg)
+    return 4 * (floats + 2 * _PT + td * N + B + 1)
+
+
+def pair_tiles_bytes(W: int) -> int:
+    """The bf16 pair loop's tiles: w1 and w2 (n-major), the radial values,
+    h and half a tile of message weights."""
+    Wp = (W + 7) // 8 * 8
+    return (_align16(_H * _ld(N_RADIAL) * 2) + _align16(Wp * _H * 2)
+            + _align16(_PT * _ld(N_RADIAL) * 2) + _align16(_PT * _ld(_H) * 2)
+            + _align16(16 * _ld(Wp) * 2))
+
+
+def _comp_rows(td: int) -> int:
+    return (3 * td + 15) // 16 * 16
+
+
+def _bt_bytes(K: int, N: int) -> int:
+    """A staged B operand [K][N], n-major: [round_up(N, 8)][ld(K)] bf16."""
+    return _align16((N + 7) // 8 * 8 * _ld(K) * 2)
+
+
+def staged_b_bytes(S: int, V: int, C0: int, V1: int, Sc: int, Vg: int) -> int:
+    """The epilogue's staged B operands: the larger of the post-linear's and
+    the second linear's and skip's (none in layer mode, Sc = Vg = 0)."""
+    post = _bt_bytes(S + V, C0) + _bt_bytes(S + 2 * V, V1)
+    second = (_bt_bytes(Sc, Sc) + _bt_bytes(S, Sc) + _bt_bytes(Vg, Vg)
+              + (_bt_bytes(V, Vg) if V > 0 else 0)) if Sc + Vg > 0 else 0
+    return max(post, second)
+
+
+def epilogue_tiles_bytes(S: int, V: int, C0: int, V1: int, Sc: int, Vg: int, td: int,
+                         stage: bool = False) -> int:
+    """The bf16 epilogue's operand tiles and its f32 post-linear results,
+    with its staged B operands when `stage`."""
+    M1 = _comp_rows(td)
+    return (_align16(16 * _ld(S + V) * 2) + _align16(M1 * _ld(S + 2 * V) * 2)
+            + _align16(16 * _ld(Sc) * 2) + _align16(16 * _ld(S) * 2)
+            + _align16(M1 * _ld(Vg) * 2) + _align16(M1 * _ld(V) * 2)
+            + _align16(td * C0 * 4) + _align16(td * 3 * V1 * 4)
+            + (staged_b_bytes(S, V, C0, V1, Sc, Vg) if stage else 0))
+
+
+def smem_bytes(N: int, B: int, S: int, V: int, Sc: int, Vg: int, cdt=torch.bfloat16,
+               layer: bool = False) -> int:
+    """Bytes of shared memory of one CTA of K2 (or its layer mode, where Sc
+    and Vg are C0 and V1) at these sizes."""
+    W, F, nt = 2 * S + 3 * V, S + 3 * V, threads_for(2 * S + 3 * V)
+    if cdt != torch.bfloat16:
+        return scratch_bytes(N, B, nt, Sc, Vg, _TD)
+    nl = _TDM * N + B
+    persistent = (_align16(_TDM * 3 * nt * 4) + _align16(_TDM * 4) + _align16(_PT * 16)
+                  + _align16(_TDM * 4) + _align16((nl + 1) * 4) + _align16(nl * 4))
+    pair = pair_tiles_bytes(W) + _align16(_PT * F * 2)
+    unstaged, staged = (
+        persistent + max(pair, epilogue_tiles_bytes(S, V, Sc, Vg, 0, 0, _TDM, stage) if layer
+                         else epilogue_tiles_bytes(S, V, Sc + Vg, Vg, Sc, Vg, _TDM, stage))
+        for stage in (False, True)
+    )
+    return staged if stage_fits(staged, unstaged) else unstaged
+
+
+def occupancy(N: int, B: int, S: int, V: int, Sc: int, Vg: int, cdt=torch.bfloat16,
+              layer: bool = False) -> dict:
+    """How the kernel (or its layer mode) is launched at these sizes on the
+    current card: threads and bytes of shared memory per CTA, registers and
+    local (spill) bytes per thread, CTAs resident per SM."""
+    out = (ctypes.c_int * 5)()
+    err = KERNEL.fn("conv_block_occupancy")(
+        int(cdt == torch.bfloat16), int(layer), N, B, S, V, Sc, Vg, ctypes.addressof(out)
+    )
+    if err != 0:
+        raise RuntimeError(f"conv_block.conv_block_occupancy failed with CUDA error {err}")
+    return dict(zip(("threads", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm"), out))
 
 
 class PairFeatures(NamedTuple):

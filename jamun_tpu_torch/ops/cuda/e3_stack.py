@@ -28,17 +28,27 @@ import torch.nn.functional as F
 
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 from jamun_tpu_torch.ops.cuda.conv_block import (
+    MAX_SMEM,
     MAX_WIDTH,
     N_RADIAL,
     BlockWeights,
+    _align16,
+    _comp_rows,
+    _ld,
+    epilogue_tiles_bytes,
     fused_conv_block_plain,
+    pair_tiles_bytes,
     rounded_divisor,
+    scratch_bytes,
+    stage_fits,
+    threads_for,
 )
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features_plain
 
 __all__ = [
     "HeadWeights", "pack_head_weights", "stack_block_weights", "stack_supported",
-    "e3conv_stack", "e3conv_stack_plain", "launch_shape", "KERNEL", "MAX_ATOMS", "MAX_GRAPHS",
+    "e3conv_stack", "e3conv_stack_plain", "launch_shape", "stack_smem_bytes", "stack_shape",
+    "KERNEL", "MAX_ATOMS", "MAX_GRAPHS",
 ]
 
 MAX_ATOMS = 64  # one cluster per graph: at most 4 CTAs of 16 atoms, or 8 of 8
@@ -47,7 +57,7 @@ MAX_GRAPHS = 65535  # one cluster per graph along the grid's second axis
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 5 + [_F] + [_P] * 10 + [_I] * 10 + [_P]
 KERNEL = CudaKernel(
-    "e3_stack", {"e3_stack_f32": _ARGS, "e3_stack_bf16": _ARGS, "e3_stack_shape": [_I] * 6 + [_P]}
+    "e3_stack", {"e3_stack_f32": _ARGS, "e3_stack_bf16": _ARGS, "e3_stack_shape": [_I] * 7 + [_P]}
 )
 _ENTRY = {torch.float32: "e3_stack_f32", torch.bfloat16: "e3_stack_bf16"}
 
@@ -79,16 +89,73 @@ def stack_supported(N: int, S: int, V: int, S_emb: int, out_blocks_final) -> boo
     )
 
 
-def launch_shape(N: int, B: int, S: int, V: int, S_emb: int, atoms_per_cta: int = 0) -> dict:
-    """How the kernel (bf16) is launched at these sizes on the current card:
-    CTAs per cluster (one cluster per graph), atoms per CTA, threads, bytes
-    of shared memory per CTA, and how many clusters the card holds at once.
-    `atoms_per_cta` as in `e3conv_stack`."""
-    out = (ctypes.c_int * 5)()
-    err = KERNEL.fn("e3_stack_shape")(N, B, S, V, S_emb, atoms_per_cta, ctypes.addressof(out))
+_PT = 32  # pairs per tile
+MAX_CLUSTER = 8  # CTAs per cluster (the portable limit)
+MAX_ATOMS_PER_CTA = 16
+
+
+def stack_smem_bytes(N: int, B: int, S: int, V: int, S_emb: int, td: int,
+                     compute_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of shared memory of one CTA owning td atoms, mirrored from
+    csrc/e3_stack.cu (`stack_words` for f32, `stack_layout` for bf16)."""
+    Wh, Wp = 2 * S + 3 * V, 2 * S_emb
+    nt = threads_for(max(Wh, Wp))
+    F = S + 3 * V
+    Fmax = max(F, S_emb)
+    if compute_dtype != torch.bfloat16:
+        return scratch_bytes(N, B, nt, S, V, td) + 4 * (3 * N + _PT + N * Fmax + 3 * td * F)
+    persistent = (_align16(td * 3 * nt * 4) + _align16(td * 4) + _align16(_PT * 16)
+                  + _align16(_PT * 4) + _align16((td * N + B + 1) * 4) + _align16(N * 3 * 4)
+                  + _align16(N * Fmax * 2) + _align16(td * F * 4) + _align16(2 * td * F * 2))
+    head = (2 * _align16(16 * _ld(S) * 2) + 2 * _align16(_comp_rows(td) * _ld(V) * 2)
+            + _align16(td * V * 4))
+    unstaged, staged = (
+        persistent + max(
+            pair_tiles_bytes(max(Wh, Wp)), epilogue_tiles_bytes(S, V, S + V, V, S, V, td, stage),
+            epilogue_tiles_bytes(S_emb, 0, S + V, V, S, V, td, stage), head,
+        )
+        for stage in (False, True)
+    )
+    return staged if stage_fits(staged, unstaged) else unstaged
+
+
+def stack_shape(N: int, B: int, S: int, V: int, S_emb: int, atoms_per_cta: int = 0,
+                compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch shape the kernel picks (csrc/e3_stack.cu `shape_for`): the
+    smallest power-of-two cluster whose CTAs own at most 16 atoms each and
+    fit their shared memory, or `atoms_per_cta` atoms per CTA when given."""
+    nt = threads_for(max(2 * S + 3 * V, 2 * S_emb))
+
+    def with_td(td):
+        return dict(ctas_per_cluster=-(-N // td), atoms_per_cta=td, threads=nt,
+                    smem_bytes=stack_smem_bytes(N, B, S, V, S_emb, td, compute_dtype))
+
+    if atoms_per_cta > 0 or N == 0:
+        return with_td(atoms_per_cta if atoms_per_cta > 0 else 1)
+    ncta = 1
+    while True:
+        sh = with_td(-(-N // ncta))
+        if (sh["atoms_per_cta"] <= MAX_ATOMS_PER_CTA and sh["smem_bytes"] <= MAX_SMEM) or ncta >= MAX_CLUSTER:
+            return sh
+        ncta *= 2
+
+
+def launch_shape(N: int, B: int, S: int, V: int, S_emb: int, atoms_per_cta: int = 0,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How the kernel is launched at these sizes on the current card: CTAs
+    per cluster (one cluster per graph), atoms per CTA, threads, bytes of
+    shared memory per CTA, how many clusters the card holds at once, the
+    registers and local (spill) bytes per thread and the CTAs resident per
+    SM. `atoms_per_cta` as in `e3conv_stack`."""
+    out = (ctypes.c_int * 8)()
+    err = KERNEL.fn("e3_stack_shape")(
+        int(compute_dtype == torch.bfloat16), N, B, S, V, S_emb, atoms_per_cta,
+        ctypes.addressof(out),
+    )
     if err != 0:
         raise RuntimeError(f"e3_stack.e3_stack_shape failed with CUDA error {err}")
-    keys = ("ctas_per_cluster", "atoms_per_cta", "threads", "smem_bytes", "clusters_at_once")
+    keys = ("ctas_per_cluster", "atoms_per_cta", "threads", "smem_bytes", "clusters_at_once",
+            "registers", "spill_bytes", "ctas_per_sm")
     return dict(zip(keys, out))
 
 

@@ -111,8 +111,10 @@ def test_tiled_block_matches_plain_twin(cuda, cdt, nodes):
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
-    """K5 against K2 on K1's features at N = 112, where both run: the same
-    device code over the same pairs in the same order."""
+    """K5 against K2 on K1's features at N = 112, where both run. In f32 the
+    same FMA device code over the same pairs in the same order (1e-6); in
+    bf16 K2 sums its products on the tensor cores in another order, with
+    the same rounding points: the twins' tolerance."""
     batch, model, geo, blocks = _tiled_case(cuda, cdt, [112, 97, 40], 0.45)
     gen = torch.Generator(device=cuda).manual_seed(1)
     ef, bf = k1.edge_features(*geo[:7], cdt)
@@ -124,7 +126,7 @@ def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
             want, _, deg2 = k2.fused_conv_block(x, ef, bf, batch.bond_src, batch.bond_dst, w,
                                                 residuals=True)
             assert torch.equal(deg, deg2)
-            assert _rel(got, want) <= 1e-6
+            assert _rel(got, want) <= (1e-6 if cdt == torch.float32 else TOL[cdt])
 
 
 def test_model_above_128_atoms_takes_the_tiled_kernel(cuda):
@@ -383,3 +385,110 @@ def test_conv_layer_mode_matches_plain_twin(cuda, cdt):
     want = k2.conv_layer_plain(x, ef, bf, batch.bond_src, batch.bond_dst, w)
     assert got.shape == (3, 19, 6 + 9 + 10 + 12) and _rel(got, want) <= TOL[cdt]
     assert (k2.KERNEL.launches - n2, k2.LAYER_KERNEL.launches - nl) == (0, 1)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tensor_core_paths_at_ragged_sizes(cuda, cdt):
+    """K2 (block and layer mode) and K3 at ragged N (41 and 19 atoms) with a
+    narrow width whose V, S + V and 2S + 3V are no multiple of 16 or 8
+    (24x0e + 5x1e: W = 63, padded to 64), so the bf16 tiles' padding is
+    exercised; each against its plain twin; the shared memory each launch
+    takes equals the Python mirror of the library's reckoning."""
+    from jamun_tpu_torch.ops.conv import Conv
+
+    for nodes in ([41, 37, 41], [19, 12, 19]):
+        N = max(nodes)
+        batch = make_test_batch(num_graphs=3, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
+                                scale=0.35, device=cuda)
+        model = E3Conv(irreps_hidden="24x0e + 5x1e", n_layers=2, dtype=cdt, device=cuda, seed=0)
+        model.requires_grad_(False).output_gain.fill_(1.0)
+        geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
+        ef, bf = k1.edge_features(*geo, cdt)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        for blk, (S, V) in ((model.ConvBlock_0, (56, 0)), (model._HiddenLayer_0.ConvBlock_0, (24, 5))):
+            w = _block_weights(model, blk, S, V, cdt)
+            x = torch.randn((3, N, S + 3 * V), generator=gen, device=cuda).to(cdt)
+            args = (x, ef, bf, batch.bond_src, batch.bond_dst, w)
+            assert _rel(k2.fused_conv_block(*args), k2.fused_conv_block_plain(*args)) <= TOL[cdt]
+            occ = k2.occupancy(N, 2 * N, S, V, w.Sc, w.Vg, cdt)
+            assert occ["smem_bytes"] == k2.smem_bytes(N, 2 * N, S, V, w.Sc, w.Vg, cdt)
+        conv = Conv("24x0e + 5x1e", "7x0e + 3x1e + 2x0e", "1x0e + 1x1e", 64).to(cuda)
+        cpu_gen = torch.Generator().manual_seed(6)
+        for prm in conv.parameters():  # a bare Conv's parameters are not initialised
+            prm.data.copy_(torch.randn(prm.shape, generator=cpu_gen))
+        lw = k2.layer_weights(conv.radial_nn, conv._post_linear, model.embed_bondedness[0],
+                              model.embed_bondedness[1], S=24, V=5, cdt=cdt)
+        x = torch.randn((3, N, 39), generator=gen, device=cuda).to(cdt)
+        largs = (x, ef, bf, batch.bond_src, batch.bond_dst, lw)
+        assert _rel(k2.conv_layer(*largs), k2.conv_layer_plain(*largs)) <= TOL[cdt]
+        occ = k2.occupancy(N, 2 * N, 24, 5, lw.C0, lw.V1, cdt, layer=True)
+        assert occ["smem_bytes"] == k2.smem_bytes(N, 2 * N, 24, 5, lw.C0, lw.V1, cdt, layer=True)
+        stack = E3Conv(irreps_hidden="24x0e + 5x1e", n_layers=2, dtype=cdt, device=cuda, seed=0,
+                       fused_stack=True)
+        stack.requires_grad_(False).output_gain.fill_(1.0)
+        c_noise = torch.full((1,), -0.8, device=cuda)
+        nf0 = stack.NoiseConditionalScaling_0(stack.AtomEmbeddingWithResidueInformation_0(batch), c_noise)
+        sargs = stack._stack_args(batch, nf0, c_noise, 0.8)
+        got, want = k3.e3conv_stack(*sargs), k3.e3conv_stack_plain(*sargs)
+        assert torch.isfinite(got).all() and _rel(got, want) <= TOL[cdt]
+        shape = k3.launch_shape(N, 2 * N, 24, 5, 56, compute_dtype=cdt)
+        mirror = k3.stack_shape(N, 2 * N, 24, 5, 56, compute_dtype=cdt)
+        assert {k: shape[k] for k in mirror} == mirror
+
+
+def test_kabsch_kernel_matches_svd(cuda):
+    """The SVD-free rotation against `kabsch_align`'s SVD path on the CPU, G
+    = 32, N = 48: random rotations, mirrored inputs, near-planar graphs and
+    single-atom graphs; aligned positions 1e-5 of the max (the single-atom
+    graphs align to their centroid either way). No host wait."""
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
+    from jamun_tpu_torch.ops.geometry import kabsch_align
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(32, 48, 3, generator=g)
+    q, _ = torch.linalg.qr(torch.randn(32, 3, 3, generator=g))
+    q = q * torch.sign(torch.linalg.det(q))[:, None, None]
+    y = torch.einsum("gnj,gij->gni", x, q) + 0.05 * torch.randn(32, 48, 3, generator=g)
+    y[8:16] = y[8:16] * torch.tensor([1.0, 1.0, -1.0])
+    x[16:24, :, 2] *= 1e-3
+    mask = torch.ones(32, 48, dtype=torch.bool)
+    mask[24:, 1:] = False
+    mask[:8, 40:] = False
+    x, y = x * mask[..., None], y * mask[..., None]
+    want = kabsch_align(y, x, mask)
+    n = kb.KERNEL.launches
+    yc, xc, mc = y.to(cuda), x.to(cuda), mask.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kabsch_align(yc, xc, mc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kb.KERNEL.launches - n == 1
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_aligned_training_step_never_waits(cuda):
+    """One `Trainer.fit` step with `align_noisy_input_during_training` (the
+    default) under sync debug mode: the alignment takes the Kabsch kernel,
+    and nothing in the step waits for the device."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=torch.bfloat16, device=cuda, seed=0)
+    den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.3,
+                                         mirror_augmentation_rate=0.5, add_fixed_noise=True))
+    assert den.config.align_noisy_input_during_training
+    host = make_test_batch(num_graphs=4, max_nodes=19, max_bonds=40, device="cpu")
+    cfg = TrainerConfig(max_steps=1, log_every_n_steps=1000, learning_rate=2.0e-3, seed=0)
+    Trainer(cfg, den, ConstantSigma(0.04), device=cuda).fit([host])  # the cached constants
+    n = kb.KERNEL.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = Trainer(cfg, den, ConstantSigma(0.04), device=cuda).fit([host])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 1 and kb.KERNEL.launches - n == 1
