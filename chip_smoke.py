@@ -7,7 +7,11 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build the hand-written kernels from jamun_tpu_torch/csrc/ (one nvcc per
      source, started together), print the card's name and power limit,
      each kernel's registers and spills, and the tensor-core instructions
-     (HMMA) of K2's and K3's bf16 kernels in the built libraries;
+     (HMMA) of the bf16 kernels of K2, K3, K5 and K8/K9 in the built
+     libraries (each must issue some); for K5 and K8/K9, both builds at the
+     walks' shapes, the launch shape (dst atoms per CTA, sources per pass of
+     the pair list, staged epilogue), registers, spills, CTAs per SM and
+     shared bytes, the library's reckoning held to its Python mirror;
   2. hold each kernel against its plain PyTorch version on the card, at the
      flagship width (hidden 120x0e + 32x1e, projector 56x0e) and the walk's
      shapes, in bf16 and f32, and time kernel and plain version with CUDA
@@ -18,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught):
      geometry rebuilt from the positions) at N = 256, G = 64 and on a ragged
      batch whose N is no multiple of 8, projector and hidden block, with the
      degree it counted held to its plain version's exactly, and against K2 at
-     N = 112; the dense messages from the positions (K8 and K9) at the
+     N = 112 bit for bit in both dtypes; the dense messages from the
+     positions (K8 and K9) at the
      hidden width at 4AA, 5AA and N = 256, G = 16, and K8 at the projector's
      width, the degree exactly and K9 equal to K8 bit for bit; K2's layer
      mode on the hidden block's Conv at 4AA and 5AA; the sparse path's
@@ -146,6 +151,18 @@ PREV_MS = {
     ("e3_stack", "4AA N=44 G=256 float32"): 6.8615,
     ("e3_stack", "2AA N=19 G=256 bfloat16"): 2.0853,
     ("e3_stack", "2AA N=19 G=256 float32"): 2.0269,
+    # K5's and K8/K9's bf16 rows before their tensor-core redesign (PERF.md
+    # section 6: the FMA builds' times from this script's earlier runs)
+    ("fused_block_tiled", "hidden N256 N=256 G=64 bfloat16"): 1.9695,
+    ("fused_block_tiled", "hidden N512 N=512 G=16 bfloat16"): 1.1273,
+    ("packed_uvu_conv_dense", "K8 hidden 4AA N=44 G=256 bfloat16"): 0.6605,
+    ("packed_uvu_conv_dense", "K8 projector 4AA N=44 G=256 bfloat16"): 0.2649,
+    ("packed_uvu_conv_dense", "K8 hidden 5AA N=112 G=128 bfloat16"): 1.7888,
+    ("packed_uvu_conv_dense", "K8 projector 5AA N=112 G=128 bfloat16"): 0.6813,
+    ("packed_uvu_conv_dense", "K8 hidden N256 N=256 G=16 bfloat16"): 0.3795,
+    ("fused_uvu_conv_dense", "K9 hidden 4AA N=44 G=256 bfloat16"): 0.6479,
+    ("fused_uvu_conv_dense", "K9 hidden 5AA N=112 G=128 bfloat16"): 1.7957,
+    ("fused_uvu_conv_dense", "K9 hidden N256 N=256 G=16 bfloat16"): 0.3666,
 }
 
 
@@ -186,15 +203,15 @@ def ef_bytes(ef: torch.Tensor, n_dense: int) -> int:
     return (pairs - n_dense) * 32 + n_dense * ef.shape[-1] * ef.element_size()
 
 
-def tensor_core_counts(k2, k3) -> dict:
+def tensor_core_counts(kernels) -> dict:
     """Phase 1: the HMMA/HGMMA instructions of each kernel function in the
-    built K2 and K3 libraries (`cuobjdump -sass`); the bf16 kernels
-    (`*_mma_kernel`) must issue some."""
+    built libraries of K2, K3, K5 and K8/K9 (`cuobjdump -sass`); the bf16
+    kernels (`*_mma_kernel`) must issue some."""
     from jamun_tpu_torch.ops.cuda.build import library_path
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for kernel in (k2.KERNEL, k3.KERNEL):
+    for kernel in kernels:
         sass = subprocess.run([cuobjdump, "-sass", str(library_path(kernel.source))],
                               check=True, capture_output=True, text=True).stdout
         fn = None
@@ -207,9 +224,35 @@ def tensor_core_counts(k2, k3) -> dict:
     for fn, n in counts.items():
         log(f"phase 1: {n:4d} HMMA/HGMMA in {fn[:100]}")
     mma = {fn: n for fn, n in counts.items() if "_mma_kernel" in fn}
-    # K2's block and layer modes and K3
-    assert len(mma) == 3 and all(mma.values()), mma
+    # K2's block and layer modes, K3, K5 and the dense messages (K8/K9)
+    assert len(mma) == 5 and all(mma.values()), mma
     return counts
+
+
+def tiled_launch_shapes(k5, k89) -> dict:
+    """Phase 1: how K5 and the K8/K9 kernel launch at the walks' shapes
+    (flagship width, two bonds per atom), both builds: the library's own
+    reckoning (`occupancy`: threads, shared bytes, registers, spills, CTAs
+    per SM, dst atoms per CTA, sources per pass, staged epilogue), its
+    shared bytes and launch shape held to the Python mirror (`layout`)."""
+    out = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        dt = str(cdt).split(".")[-1]
+        for N in (44, 112, 256, 512):
+            for block, S, V in (("hidden", 120, 32), ("projector", 56, 0)):
+                occ = k5.occupancy(N, 2 * N, S, V, 120, 32, cdt)
+                mirror = k5.layout(N, 2 * N, S, V, 120, 32, cdt)
+                assert all(occ[k] == v for k, v in mirror.items()), (N, block, dt, occ, mirror)
+                out[f"K5 {block} N={N} {dt}"] = occ
+                log(f"phase 1: K5 {dt} {block} N={N} B={2 * N}: {occ}")
+        for N in (44, 112, 256):
+            for block, S, V in (("hidden", 120, 32), ("projector", 56, 0)):
+                occ = k89.occupancy(N, S, V, cdt)
+                mirror = k89.layout(N, S, V, cdt)
+                assert all(occ[k] == v for k, v in mirror.items()), (N, block, dt, occ, mirror)
+                out[f"K8/K9 {block} N={N} {dt}"] = occ
+                log(f"phase 1: K8/K9 {dt} {block} N={N}: {occ}")
+    return out
 
 
 def covariance(y: torch.Tensor, x: torch.Tensor, node_mask: torch.Tensor):
@@ -524,15 +567,18 @@ def tiled_batch(n_atoms: int, num_graphs: int, dev, nodes_per_graph=None):
 def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutoff: float,
                             shapes=None) -> list:
     """Phase 2, K5: the tiled ConvBlock against its plain version at both
-    walk shapes (N = 256, G = 64 and N = 512, G = 16) and on a ragged batch
-    (N = 203, no multiple of 8), bf16 and f32, projector and hidden block,
+    walk shapes (N = 256, G = 64 and N = 512, G = 16), on a ragged batch
+    (N = 203, no multiple of 8) and at N = 1200 (where the bf16 build walks
+    the sources in passes), bf16 and f32, projector and hidden block,
     the degree it counted equal to the plain version's on every atom; then
-    against K2 on K1's features at N = 112. `shapes` (label -> batch) gives
-    other batches to hold it against its plain version on."""
+    against K2 on K1's features at N = 112, bit for bit in both dtypes (the
+    same pairs in the same order through the same steps). `shapes` (label
+    -> batch) gives other batches to hold it against its plain version on."""
     shapes = shapes or {
         "N256": tiled_batch(256, 64, dev),
         "N512": tiled_batch(512, 16, dev),
         "ragged": tiled_batch(203, 6, dev, [203, 197, 160, 131, 64, 9]),
+        "passes": tiled_batch(1200, 2, dev, [1200, 1111]),
         "N112": batches["5AA"],
     }
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -558,7 +604,9 @@ def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutof
                     conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
                     model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V, cdt=cdt,
                 )
-                smem = k5.KERNEL.fn("fused_block_tiled_smem")(N, B, S, V, w.Sc, w.Vg)
+                occ = k5.occupancy(N, B, S, V, w.Sc, w.Vg, cdt)
+                smem = occ["smem_bytes"]
+                assert smem == k5.layout(N, B, S, V, w.Sc, w.Vg, cdt)["smem_bytes"], (tag, occ)
                 got, deg = k5.fused_block_tiled(x, geo, w, return_degree=True)
                 torch.cuda.synchronize()
                 assert torch.isfinite(got).all(), f"K5 {tag}: non-finite output"
@@ -576,6 +624,9 @@ def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutof
                 assert deg_mismatch == 0, f"K5 {tag}: the degree differs on {deg_mismatch} atoms"
                 abs_e, rel_e = rel_err(got, want)
                 assert rel_e <= TOL[cdt], f"K5 {tag} vs {against}: rel err {rel_e:.3g} > {TOL[cdt]}"
+                if label == "N112":
+                    assert torch.equal(got, want), f"K5 {tag}: differs from K2 by {abs_e:.3g}"
+                    against += ", bit for bit"
                 n_pairs = int(deg.sum(dtype=torch.float64))
                 n_bonds = int(batch.bond_mask.sum())
                 share = (n_pairs - n_bonds) / float((real * (real - 1)).sum())
@@ -590,25 +641,33 @@ def check_fused_block_tiled(k1, k2, k5, models, batches, dev, c_in: float, cutof
                 ))
                 t_ops = flops / PEAK_FLOPS[cdt] * 1e3
                 t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-                timed = label != "ragged"
+                timed = label not in ("ragged", "passes")
                 row = dict(
                     shape=tag, against=against, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                     ms=cuda_time_ms(lambda: k5.fused_block_tiled(x, geo, w), 5) if timed else None,
+                    prev_ms=PREV_MS.get(("fused_block_tiled", tag)),
                     plain_ms=(cuda_time_ms(lambda: k5.fused_block_tiled_plain(x, geo, w), 1)
                               if timed and against == "plain" else None),
                     bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                     visited_pairs=n_pairs, share_inside_cutoff=share, flops=flops, bytes=nbytes,
                     smem_bytes=smem, dtype=str(cdt), N=N, G=G, block=block_name, label=label,
+                    registers=occ["registers"], spill_bytes=occ["spill_bytes"],
+                    ctas_per_sm=occ["ctas_per_sm"], atoms_per_cta=occ["atoms_per_cta"],
+                    sources_per_pass=occ["sources_per_pass"],
                 )
                 rows.append(row)
                 times = f"kernel {row['ms']:.4f} ms, " if timed else ""
+                if row["prev_ms"] is not None:
+                    times += f"before the redesign {row['prev_ms']:.4f} ms, "
                 if row["plain_ms"] is not None:
                     times += f"plain {row['plain_ms']:.4f} ms, "
                 log(f"phase 2: K5 {tag} vs {against}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
                     f"(tol {TOL[cdt]}), degree equal on all atoms; {times}"
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs "
-                    f"({100 * share:.1f}% of the ordered pairs inside the cutoff), "
-                    f"{smem} bytes of shared memory per CTA")
+                    f"({100 * share:.1f}% of the ordered pairs inside the cutoff); "
+                    f"{smem} B shared, {occ['atoms_per_cta']} atoms per CTA, "
+                    f"{occ['sources_per_pass']} sources per pass, {occ['registers']} registers, "
+                    f"{occ['spill_bytes']} spill bytes, {occ['ctas_per_sm']} CTAs per SM")
                 del got, want, deg, deg_p
                 torch.cuda.empty_cache()
     return rows
@@ -1392,11 +1451,14 @@ def dense_conv_cost(x, pos, n_pairs: int, out, deg, weights, cdt):
 def check_dense_conv(k89, models, batches, dev, c_in: float, cutoff: float, shapes=None) -> list:
     """Phase 2, K8 and K9: the dense messages from the positions against
     their plain versions, bf16 and f32, at the flagship hidden width
-    (S = 120, V = 32) at 4AA (N = 44, G = 256), 5AA (N = 112, G = 128) and
-    N = 256, G = 16, and K8 at the projector's width (S = 56, V = 0) at 4AA
-    and 5AA. The degree must equal the plain version's on every atom, and
-    K9 must equal K8 bit for bit. The bounds count the visited pairs only."""
-    shapes = shapes or {"4AA": batches["4AA"], "5AA": batches["5AA"], "N256": tiled_batch(256, 16, dev)}
+    (S = 120, V = 32) at 4AA (N = 44, G = 256), 5AA (N = 112, G = 128),
+    N = 256, G = 16 and N = 1500, G = 2 (where the bf16 build walks the
+    sources in passes), and K8 at the projector's width (S = 56, V = 0) at
+    4AA and 5AA. The degree must equal the plain version's on every atom,
+    and K9 must equal K8 bit for bit. The bounds count the visited pairs
+    only."""
+    shapes = shapes or {"4AA": batches["4AA"], "5AA": batches["5AA"], "N256": tiled_batch(256, 16, dev),
+                        "passes": tiled_batch(1500, 2, dev, [1500, 1400])}
     gen = torch.Generator(device=dev).manual_seed(9)
     rows = []
     for label, batch in shapes.items():
@@ -1406,7 +1468,7 @@ def check_dense_conv(k89, models, batches, dev, c_in: float, cutoff: float, shap
             model = models[cdt]
             bond0 = model.embed_bondedness[0]
             blocks = [("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32)]
-            if label != "N256":
+            if label in ("4AA", "5AA"):
                 blocks.append(("projector", model.ConvBlock_0, 56, 0))
             for block_name, blk, S, V in blocks:
                 tag = f"{block_name} {label} N={N} G={G} {str(cdt).split('.')[-1]}"
@@ -1428,15 +1490,21 @@ def check_dense_conv(k89, models, batches, dev, c_in: float, cutoff: float, shap
                 t_ops = flops / PEAK_FLOPS[cdt] * 1e3
                 t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
                 real = batch.node_mask.sum(-1).double()
+                occ = k89.occupancy(N, S, V, cdt)
+                assert occ["smem_bytes"] == k89.layout(N, S, V, cdt)["smem_bytes"], (tag, occ)
                 common = dict(
                     max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                     plain_ms=cuda_time_ms(lambda: k89.packed_uvu_conv_dense_plain(*args), 1),
                     bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                     visited_pairs=n_pairs, share_inside_cutoff=n_pairs / float((real * (real - 1)).sum()),
                     flops=flops, bytes=nbytes, dtype=str(cdt), N=N, G=G, block=block_name, label=label,
+                    registers=occ["registers"], spill_bytes=occ["spill_bytes"],
+                    ctas_per_sm=occ["ctas_per_sm"], smem_bytes=occ["smem_bytes"],
+                    atoms_per_cta=occ["atoms_per_cta"], sources_per_pass=occ["sources_per_pass"],
                 )
                 rows.append(dict(kernel="packed_uvu_conv_dense", shape=f"K8 {tag}",
-                                 ms=cuda_time_ms(lambda: k89.packed_uvu_conv_dense(*args), 10), **common))
+                                 ms=cuda_time_ms(lambda: k89.packed_uvu_conv_dense(*args), 10),
+                                 prev_ms=PREV_MS.get(("packed_uvu_conv_dense", f"K8 {tag}")), **common))
                 msg = f"K8 {rows[-1]['ms']:.4f} ms"
                 if V:
                     got9, deg9 = k89.fused_uvu_conv_dense(*args)
@@ -1444,12 +1512,19 @@ def check_dense_conv(k89, models, batches, dev, c_in: float, cutoff: float, shap
                     assert torch.equal(got9, got) and torch.equal(deg9, deg), f"K9 {tag}: differs from K8"
                     rows.append(dict(kernel="fused_uvu_conv_dense", shape=f"K9 {tag}",
                                      ms=cuda_time_ms(lambda: k89.fused_uvu_conv_dense(*args), 10),
+                                     prev_ms=PREV_MS.get(("fused_uvu_conv_dense", f"K9 {tag}")),
                                      **common))
                     msg += f", K9 {rows[-1]['ms']:.4f} ms (equal to K8 bit for bit)"
+                prev = [r["prev_ms"] for r in rows[-(2 if V else 1):] if r["prev_ms"] is not None]
+                if prev:
+                    msg += " (before the redesign: " + ", ".join(f"{t:.4f}" for t in prev) + " ms)"
                 log(f"phase 2: K8/K9 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}), "
                     f"degree equal on all atoms; {msg}, plain {common['plain_ms']:.4f} ms, bound "
                     f"{common['bound_ms']:.4f} ms ({common['bound_by']}), {n_pairs} visited pairs "
-                    f"({100 * common['share_inside_cutoff']:.1f}% of the ordered pairs)")
+                    f"({100 * common['share_inside_cutoff']:.1f}% of the ordered pairs); "
+                    f"{occ['smem_bytes']} B shared, {occ['atoms_per_cta']} atoms per CTA, "
+                    f"{occ['sources_per_pass']} sources per pass, {occ['registers']} registers, "
+                    f"{occ['spill_bytes']} spill bytes, {occ['ctas_per_sm']} CTAs per SM")
                 del got, want, deg, deg_p
                 torch.cuda.empty_cache()
     return rows
@@ -1750,7 +1825,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    hmma = tensor_core_counts(k2, k3)
+    hmma = tensor_core_counts((k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K9))
+    tiled_shapes = tiled_launch_shapes(k5, k89)
 
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
@@ -2085,7 +2161,7 @@ def main() -> int:
                   plane_score=plane_score, conv_level_calls=conv_calls, train_sync=train_waits,
                   launches=launches, train=train,
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
-                  kabsch=kabsch, hmma=hmma)
+                  kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -202,15 +202,6 @@ __global__ void __launch_bounds__(MAX_THREADS) conv_block_kernel(Params p) {
   }
 }
 
-// the source rows of a staged tile, [PT][F] bf16: xq(q, src, ch)
-struct TileRows {
-  const __nv_bfloat16* x;
-  int F;
-  __device__ __forceinline__ float operator()(int q, int, int ch) const {
-    return __bfloat162float(x[q * F + ch]);
-  }
-};
-
 // destination atoms per CTA of the bf16 kernel: a full m-tile of the
 // epilogue's products, and the weights' loads shared by twice the atoms of
 // the FMA build's CTA
@@ -345,7 +336,7 @@ __global__ void __launch_bounds__(MAX_THREADS) conv_block_mma_kernel(Params p) {
                             : ef + ((long long)(i0 + entry_slot(e)) * N + entry_index(e)) * EC;
   };
   constexpr int L1 = mma::ld_of(NR);
-  const TileRows xq{xt, F};
+  const mma::TileRows xq{xt, F};
   // vector loads where the rows allow them (8-byte radial values, 16-byte source rows)
   const bool ef8 = (((uintptr_t)p.ef | (uintptr_t)p.bf) & 7) == 0;
   const bool x16 = (F & 7) == 0 && ((uintptr_t)p.x & 15) == 0;

@@ -1,12 +1,13 @@
 // Device code of one separable ConvBlock (l <= 1, uvu) for a CTA that owns
 // td destination atoms of one graph, as FP32 FMAs. Its callers: the f32
 // builds of the per-layer kernel (conv_block.cu, whose layer mode stops
-// after the post-linear) and of the whole-model kernel (e3_stack.cu), both
-// builds of the tiled kernel (fused_block_tiled.cu) and, up to the messages,
-// of the sparse messages kernel (nbr_conv.cu) and the dense messages kernel
-// (dense_conv.cu). The bf16 builds of conv_block.cu and e3_stack.cu take
-// the tensor-core steps of conv_block_mma.cuh instead, which use this
-// header's list encoding, Scratch, ChannelSum, flush and normalise.
+// after the post-linear), of the whole-model kernel (e3_stack.cu) and of the
+// tiled kernel (fused_block_tiled.cu), and, up to the messages, both builds
+// of the sparse messages kernel (nbr_conv.cu) and the f32 build of the dense
+// messages kernel (dense_conv.cu). The bf16 builds of conv_block.cu,
+// e3_stack.cu, fused_block_tiled.cu and dense_conv.cu take the tensor-core
+// steps of conv_block_mma.cuh instead, which use this header's list
+// encoding, Scratch, ChannelSum, flush and normalise.
 //
 // The caller lists the visited pairs of its atoms (dense pairs inside the
 // cutoff and bonds, dst-major) and stages each tile of PT pairs: source

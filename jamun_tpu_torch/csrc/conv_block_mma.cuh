@@ -1,7 +1,9 @@
 // Tensor-core (mma.sync bf16 -> f32) steps of one separable ConvBlock, for
 // the bf16 builds of the per-layer kernel (conv_block.cu, block and layer
-// modes) and the whole-model kernel (e3_stack.cu). The f32 builds, and the
-// other kernels that share conv_block_body.cuh, keep its FP32 FMA steps.
+// modes), the whole-model kernel (e3_stack.cu) and, through the pair loop
+// of tiled_pairs_mma.cuh, the tiled ConvBlock (fused_block_tiled.cu) and the
+// dense messages (dense_conv.cu, no epilogue). The f32 builds, and the
+// sparse kernel (nbr_conv.cu), keep conv_block_body.cuh's FP32 FMA steps.
 //
 // What moves to the tensor cores (m16n8k16, bf16 operands, f32 sums):
 //   radial layer 1   [PT, 32] . [32, 64]  -> + b1 (bond or dense row), SiLU,
@@ -16,8 +18,9 @@
 //                    from device memory (L2), four k-tiles at a time
 // The messages step keeps thread c on radial channel c: it reads w[q][c]
 // from the tile and accumulates into the same ChannelSum and flush as the
-// FMA path, in the same order. Every rounding point of the FMA path is
-// kept; only the order of f32 sums inside a product differs.
+// FMA path, in the same order, with its fused multiply-adds written out.
+// Every rounding point of the FMA path is kept; only the order of f32 sums
+// inside a product differs.
 //
 // The steps are short and latency-bound (a CTA owns 11-16 atoms and a few
 // tiles of pairs), so each issues its independent reads together: the
@@ -270,6 +273,16 @@ __device__ __forceinline__ float4 pair_info(float shy, float shz, float shx, int
   return make_float4(shy, shz, shx, __int_as_float((td << 16) | src));
 }
 
+// the source rows of a staged tile, [PT][F] bf16, as the messages read
+// them: xq(q, src, ch)
+struct TileRows {
+  const bf16* x;
+  int F;
+  __device__ __forceinline__ float operator()(int q, int, int ch) const {
+    return __bfloat162float(x[q * F + ch]);
+  }
+};
+
 // the messages of pairs q0..q1-1 for radial channel c: the FMA path's
 // messages() with w read from the tile (row q - q0) and the pair's data
 // from ps4 (pair_info); xq(q, src, ch) is the source row of pair q. What a
@@ -299,27 +312,36 @@ __device__ __forceinline__ void messages(const Scratch& s, const float4* ps4, co
       x1[u] = path >= 2 ? xq(q, src, ch + 1) : 0.0f;
       x2[u] = path >= 2 ? xq(q, src, ch + 2) : 0.0f;
     }
+    // every product and sum is written out (fmaf, or a rounded product), so
+    // the compiler contracts nothing by itself and every kernel that inlines
+    // this step rounds alike: left to the compiler, the vector paths were
+    // contracted otherwise in the tiled ConvBlock than in the per-layer
+    // kernel, and their bf16 outputs differed in a few atoms
     auto add = [&](int u) {
       const float shy = pi[u].x, shz = pi[u].y, shx = pi[u].z;
       if (path == 0) {
-        st.a0 += w[u] * x0[u];
+        st.a0 = __fmaf_rn(w[u], x0[u], st.a0);
       } else if (path == 1) {
-        float tt = w[u] * x0[u];
-        st.a0 += tt * shy;
-        st.a1 += tt * shz;
-        st.a2 += tt * shx;
+        const float tt = __fmul_rn(w[u], x0[u]);
+        st.a0 = __fmaf_rn(tt, shy, st.a0);
+        st.a1 = __fmaf_rn(tt, shz, st.a1);
+        st.a2 = __fmaf_rn(tt, shx, st.a2);
       } else {
         const float vy = x0[u], vz = x1[u], vx = x2[u];
         if (path == 2) {
-          st.a0 += w[u] * vy;
-          st.a1 += w[u] * vz;
-          st.a2 += w[u] * vx;
+          st.a0 = __fmaf_rn(w[u], vy, st.a0);
+          st.a1 = __fmaf_rn(w[u], vz, st.a1);
+          st.a2 = __fmaf_rn(w[u], vx, st.a2);
         } else if (path == 3) {
-          st.a0 += w[u] * (vy * shy + vz * shz + vx * shx) * kInvSqrt3;
+          const float dot = __fmaf_rn(vx, shx, __fmaf_rn(vz, shz, __fmul_rn(vy, shy)));
+          st.a0 = __fmaf_rn(__fmul_rn(w[u], dot), kInvSqrt3, st.a0);
         } else {
-          st.a0 += w[u] * (vz * shx - vx * shz) * kInvSqrt2;
-          st.a1 += w[u] * (vx * shy - vy * shx) * kInvSqrt2;
-          st.a2 += w[u] * (vy * shz - vz * shy) * kInvSqrt2;
+          const float c0 = __fmaf_rn(vz, shx, -__fmul_rn(vx, shz));
+          const float c1 = __fmaf_rn(vx, shy, -__fmul_rn(vy, shx));
+          const float c2 = __fmaf_rn(vy, shz, -__fmul_rn(vz, shy));
+          st.a0 = __fmaf_rn(__fmul_rn(w[u], c0), kInvSqrt2, st.a0);
+          st.a1 = __fmaf_rn(__fmul_rn(w[u], c1), kInvSqrt2, st.a1);
+          st.a2 = __fmaf_rn(__fmul_rn(w[u], c2), kInvSqrt2, st.a2);
         }
       }
     };

@@ -30,12 +30,25 @@
 // so they agree bit for bit; their entries differ only in that K9 refuses
 // V = 0, as `supports_fused_conv` does.
 //
+// Two builds. f32 (dense_conv_kernel<float>) keeps the FP32 FMA steps of
+// conv_block_body.cuh for 8 dst atoms per CTA. bf16 (dense_conv_mma_kernel)
+// runs radial layers 1 and 2 on the tensor cores (mma.sync m16n8k16,
+// conv_block_mma.cuh) for 16 dst atoms per CTA, with the pair list built by
+// every warp and walked in passes over the sources where one list would not
+// fit (tiled_pairs_mma.cuh, shared with the tiled ConvBlock's bf16 build),
+// then the same messages, order and output.
+//
 // Bound on the H100: the bytes, at bf16's tensor-core rate (the block input
-// read once, the f32 output written once); this version runs the radial MLP
-// as FP32 FMAs, 2 * (NR * 64 + 64 * W) flops per visited pair (W = 2S + 3V),
-// as K2, K3, K5 and K6 do, so it sits far above that bound. Shared memory
-// grows with N through the pair list (TD * N entries) and the positions; the
-// launcher refuses what does not fit one block.
+// read once, the f32 output written once; about 0.011 ms at 4AA). What bounds
+// it in practice is latency, as for the per-layer kernel: the FMA build spent
+// 68% of its time in radial layer 2 with the messages (layer 2 alone 58%),
+// 15% in layer 1 and under 10% in the list and the geometry (clock64 stamps
+// and builds that leave one step out, scripts/torch_phase_split.py, 4AA); the
+// bf16 build moves both radial layers to the tensor cores, so the message
+// loop, bound by its instructions per (pair, channel), is what is left.
+// Shared memory grows with N: FMA, the pair list (TD * N entries) and the
+// positions, refused where it does not fit; bf16, 16 bytes of position per
+// atom beside a pass list of 16 J entries.
 //
 // Rounding points are conv_block_body.cuh's: the pair features and h in T,
 // the radial weights in T, f32 message products and sums (the TPU kernels
@@ -47,6 +60,7 @@
 
 #include "conv_block_body.cuh"
 #include "edge_geometry.cuh"
+#include "tiled_pairs_mma.cuh"
 
 namespace {
 
@@ -193,21 +207,92 @@ __global__ void __launch_bounds__(MAX_THREADS) dense_conv_kernel(Params p) {
   if (tid < nd) p.deg_out[(long long)g * N + i0 + tid] = s.deg[tid];
 }
 
-size_t smem_bytes(int N, int S, int V) { return dense_words(N, threads_for(2 * S + 3 * V)) * 4; }
+// The bf16 kernel: the same function on the tensor cores for TDM = 16
+// destination atoms (tiled_pairs_mma.cuh's pair loop without bonds), then
+// the raw sums out as the FMA kernel writes them
+__global__ void __launch_bounds__(MAX_THREADS) dense_conv_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem_mma[];
+  char* base = reinterpret_cast<char*>(smem_mma);
+  const int N = p.N, S = p.S, V = p.V;
+  const int F = S + 3 * V, OW = 4 * S + 7 * V;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int g = blockIdx.y, i0 = blockIdx.x * tiled::TDM;
+  const int nd = min(tiled::TDM, N - i0);
+
+  const bf16* x = (const bf16*)p.x + (long long)g * N * F;
+  const tiled::Geometry geo{p.pos + (long long)g * N * 3, p.node_mask + (long long)g * N,
+                            nullptr, nullptr, nullptr, p.cutoff, N, 0};
+  const tiled::Layout l = tiled::layout(N, 0, S, V, 0, 0, nt);
+  Scratch s{};
+  s.acc = (float*)(base + l.acc);
+  s.deg = (float*)(base + l.deg);
+  tiled::pair_loop(l, base, s, geo, p.w, x, S, V, i0, nd, tid, nt);
+
+  float* out = p.out + ((long long)g * N + i0) * OW;
+  for (int o = tid; o < nd * OW; o += nt) {
+    const int td = o / OW;
+    int comp, ch;
+    column_source(o % OW, S, V, comp, ch);
+    out[o] = s.acc[(td * 3 + comp) * nt + ch];
+  }
+  if (tid < nd) p.deg_out[(long long)g * N + i0 + tid] = s.deg[tid];
+}
+
+// the kernel of a compute type, its dst atoms per CTA and its shared memory
+template <typename T>
+struct KernelOf {
+  static constexpr auto fn = dense_conv_kernel<T>;
+  static constexpr int td = TD;
+  static size_t smem(int N, int S, int V, int nt) { return dense_words(N, nt) * 4; }
+};
+template <>
+struct KernelOf<__nv_bfloat16> {
+  static constexpr auto fn = dense_conv_mma_kernel;
+  static constexpr int td = tiled::TDM;
+  static size_t smem(int N, int S, int V, int nt) { return tiled::layout(N, 0, S, V, 0, 0, nt).total; }
+};
+
+template <typename T>
+size_t smem_bytes(int N, int S, int V) {
+  return KernelOf<T>::smem(N, S, V, threads_for(2 * S + 3 * V));
+}
 
 template <typename T>
 int launch(const Params& p, int G, void* stream) {
   const int nt = threads_for(2 * p.S + 3 * p.V);
-  const size_t smem = smem_bytes(p.N, p.S, p.V);
+  const size_t smem = smem_bytes<T>(p.N, p.S, p.V);
   if (nt > MAX_THREADS || p.N >= MAX_INDEX || G > 65535 || smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   if (G == 0 || p.N == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(dense_conv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(KernelOf<T>::fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.N + TD - 1) / TD, G);
-  dense_conv_kernel<T><<<grid, nt, smem, (cudaStream_t)stream>>>(p);
+  dim3 grid((p.N + KernelOf<T>::td - 1) / KernelOf<T>::td, G);
+  const auto kernel = KernelOf<T>::fn;
+  kernel<<<grid, nt, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int N, int S, int V, int* out) {
+  const int nt = threads_for(2 * S + 3 * V);
+  const size_t smem = smem_bytes<T>(N, S, V);
+  if (nt > MAX_THREADS || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(KernelOf<T>::fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, KernelOf<T>::fn);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, KernelOf<T>::fn, nt, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool mma = KernelOf<T>::td == tiled::TDM;
+  const int values[8] = {nt, (int)smem, attr.numRegs, (int)attr.localSizeBytes, ctas,
+                         KernelOf<T>::td, mma ? tiled::layout(N, 0, S, V, 0, 0, nt).J : N, 0};
+  for (int k = 0; k < 8; ++k) out[k] = values[k];
+  return 0;
 }
 
 }  // namespace
@@ -237,5 +322,16 @@ DENSE_CONV_ENTRY(packed_uvu_conv_dense_bf16, __nv_bfloat16, 0)
 DENSE_CONV_ENTRY(fused_uvu_conv_dense_f32, float, 1)
 DENSE_CONV_ENTRY(fused_uvu_conv_dense_bf16, __nv_bfloat16, 1)
 
-// bytes of dynamic shared memory one CTA takes at these sizes
-extern "C" int dense_conv_smem(int N, int S, int V) { return (int)smem_bytes(N, S, V); }
+// bytes of dynamic shared memory one CTA of the f32 (bf16 = 0) or bf16 build
+// takes at these sizes
+extern "C" int dense_conv_smem(int bf16, int N, int S, int V) {
+  return (int)(bf16 ? smem_bytes<__nv_bfloat16>(N, S, V) : smem_bytes<float>(N, S, V));
+}
+
+// How a build is launched at these sizes and what the card makes of it:
+// out = {threads, bytes of shared memory per CTA, registers per thread,
+// local (spill) bytes per thread, CTAs resident per SM, dst atoms per CTA,
+// sources per pass of the pair list, 0 (no epilogue)}
+extern "C" int dense_conv_occupancy(int bf16, int N, int S, int V, int* out) {
+  return bf16 ? occupancy<__nv_bfloat16>(N, S, V, out) : occupancy<float>(N, S, V, out);
+}

@@ -26,13 +26,33 @@
 // each, in two passes over the atom's candidates (count, then write at the
 // offset the counts give), so the list stays dst-major and contiguous.
 //
-// Bound on the H100: operations, as for conv_block.cu: per visited pair
-// 2 * (NR * 64 + 64 * W) flops of radial MLP (W = 2S + 3V) on FP32 FMAs in
-// this version, against 12 bytes of positions per atom. The block input is
-// read from device memory through L2 (GlobalRows): at N atoms a graph's rows
-// are N * (S + 3V) elements, shared by its N / TD CTAs. Shared memory grows
-// with N and B through the pair list (TD * N + B entries); the launcher
-// refuses what does not fit one block.
+// Two builds. f32 (fused_block_tiled_kernel<float>) keeps the FP32 FMA steps
+// of conv_block_body.cuh for 8 dst atoms per CTA: thread c owns radial
+// channel c with its 64 layer-2 weights in registers. bf16
+// (fused_block_tiled_mma_kernel) is the per-layer kernel's bf16 build
+// (conv_block.cu) with this kernel's geometry: 16 dst atoms per CTA, the
+// radial MLP and the epilogue's products on the tensor cores (mma.sync
+// m16n8k16, conv_block_mma.cuh), the pair list built by every warp and
+// walked in passes over the sources where one list would not fit
+// (tiled_pairs_mma.cuh). Its rounding points are the FMA build's, and with
+// the same pairs in the same order its outputs are the per-layer kernel's
+// bf16 outputs bit for bit.
+//
+// Bound on the H100. By the card's peaks the bf16 block is bound by its
+// operations on the tensor cores, about 0.013 ms at the N = 256 walk's first
+// frame: per visited pair 2 * (NR * 64 + 64 * W) flops of radial MLP
+// (W = 2S + 3V), per atom the epilogue, against 12 bytes of positions per
+// atom and the block input read through L2 (GlobalRows). What bounds it in
+// practice is latency: a CTA owns 16 atoms and a few hundred pairs, each
+// step a short chain of dependent loads at one CTA per SM (hidden block).
+// The FMA build spent 57% of its time in radial layer 2 with the messages,
+// 30% in the epilogue and under 10% in the list and the geometry (clock64
+// stamps, scripts/torch_phase_split.py); the bf16 build moves layer 2 and the
+// epilogue's products to the tensor cores and keeps the geometry's
+// recomputation, which costs a few percent. Shared memory grows with N and B
+// through the pair list (FMA: TD * N + B entries, refused where it does not
+// fit; bf16: 16 J + B entries for J sources per pass, plus 16 bytes of
+// position per atom).
 //
 // Rounding points are those of conv_block_body.cuh (K2's), with the pair
 // features rounded to T where the edge-features kernel stores them.
@@ -43,6 +63,7 @@
 
 #include "conv_block_body.cuh"
 #include "edge_geometry.cuh"
+#include "tiled_pairs_mma.cuh"
 
 namespace {
 
@@ -198,24 +219,99 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_block_tiled_kernel(Params p
               i0, nd, S, V, Sc, Vg, tid, nt);
 }
 
+// The bf16 kernel: the same function on the tensor cores for TDM = 16
+// destination atoms (tiled_pairs_mma.cuh's pair loop, then conv_block_mma's
+// mean and epilogue, as the per-layer kernel's bf16 build)
+__global__ void __launch_bounds__(MAX_THREADS) fused_block_tiled_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem_mma[];
+  char* base = reinterpret_cast<char*>(smem_mma);
+  const int N = p.N, B = p.B, S = p.S, V = p.V, Sc = p.Sc, Vg = p.Vg;
+  const int F = S + 3 * V, OF = Sc + 3 * Vg;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int g = blockIdx.y, i0 = blockIdx.x * tiled::TDM;
+  const int nd = min(tiled::TDM, N - i0);
+
+  const bf16* x = (const bf16*)p.x + (long long)g * N * F;
+  const tiled::Geometry geo{p.pos + (long long)g * N * 3, p.node_mask + (long long)g * N,
+                            p.bond_src + (long long)g * B, p.bond_dst + (long long)g * B,
+                            p.bond_mask + (long long)g * B, p.cutoff, N, B};
+  const tiled::Layout l = tiled::layout(N, B, S, V, Sc, Vg, nt);
+  Scratch s{};
+  s.acc = (float*)(base + l.acc);
+  s.deg = (float*)(base + l.deg);
+  tiled::pair_loop(l, base, s, geo, p.w, x, S, V, i0, nd, tid, nt);
+
+  mma::normalise(s, nd, tid, nt);
+  __syncthreads();
+  if (p.deg_out != nullptr && tid < nd) p.deg_out[(long long)g * N + i0 + tid] = s.deg[tid];
+  float* out = p.out + ((long long)g * N + i0) * OF;
+  const mma::EpilogueTiles e =
+      mma::carve_epilogue_tiles(base + l.region, S, V, Sc + Vg, Vg, Sc, Vg, tiled::TDM, l.stage);
+  mma::epilogue(s, e, p.w, GlobalRows<bf16>{x, F},
+                [&](int td, int col, float v) { out[(long long)td * OF + col] = v; }, i0, nd, S,
+                V, Sc, Vg, tid, nt);
+}
+
+// the kernel of a compute type, its dst atoms per CTA and its shared memory
+template <typename T>
+struct KernelOf {
+  static constexpr auto fn = fused_block_tiled_kernel<T>;
+  static constexpr int td = TD;
+  static size_t smem(int N, int B, int S, int V, int Sc, int Vg, int nt) {
+    return (scratch_words(N, B, nt, Sc, Vg, TD) + geometry_words(N)) * 4;
+  }
+};
+template <>
+struct KernelOf<__nv_bfloat16> {
+  static constexpr auto fn = fused_block_tiled_mma_kernel;
+  static constexpr int td = tiled::TDM;
+  static size_t smem(int N, int B, int S, int V, int Sc, int Vg, int nt) {
+    return tiled::layout(N, B, S, V, Sc, Vg, nt).total;
+  }
+};
+
+template <typename T>
 size_t smem_bytes(int N, int B, int S, int V, int Sc, int Vg) {
-  const int nt = threads_for(2 * S + 3 * V);
-  return (scratch_words(N, B, nt, Sc, Vg, TD) + geometry_words(N)) * 4;
+  return KernelOf<T>::smem(N, B, S, V, Sc, Vg, threads_for(2 * S + 3 * V));
 }
 
 template <typename T>
 int launch(const Params& p, int G, void* stream) {
   const int nt = threads_for(2 * p.S + 3 * p.V);
-  const size_t smem = smem_bytes(p.N, p.B, p.S, p.V, p.Sc, p.Vg);
+  const size_t smem = smem_bytes<T>(p.N, p.B, p.S, p.V, p.Sc, p.Vg);
   if (nt > MAX_THREADS || p.N >= MAX_INDEX || p.B >= MAX_INDEX || G > 65535 || smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   if (G == 0 || p.N == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(fused_block_tiled_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(KernelOf<T>::fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.N + TD - 1) / TD, G);
-  fused_block_tiled_kernel<T><<<grid, nt, smem, (cudaStream_t)stream>>>(p);
+  dim3 grid((p.N + KernelOf<T>::td - 1) / KernelOf<T>::td, G);
+  const auto kernel = KernelOf<T>::fn;
+  kernel<<<grid, nt, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int N, int B, int S, int V, int Sc, int Vg, int* out) {
+  const int nt = threads_for(2 * S + 3 * V);
+  const size_t smem = smem_bytes<T>(N, B, S, V, Sc, Vg);
+  if (nt > MAX_THREADS || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(KernelOf<T>::fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, KernelOf<T>::fn);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, KernelOf<T>::fn, nt, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool mma = KernelOf<T>::td == tiled::TDM;
+  const tiled::Layout l = tiled::layout(N, B, S, V, Sc, Vg, nt);
+  const int values[8] = {nt, (int)smem, attr.numRegs, (int)attr.localSizeBytes, ctas,
+                         KernelOf<T>::td, mma ? l.J : N, mma ? (int)l.stage : 0};
+  for (int k = 0; k < 8; ++k) out[k] = values[k];
+  return 0;
 }
 
 }  // namespace
@@ -251,7 +347,19 @@ int launch(const Params& p, int G, void* stream) {
 FUSED_BLOCK_TILED_ENTRY(fused_block_tiled_f32, float)
 FUSED_BLOCK_TILED_ENTRY(fused_block_tiled_bf16, __nv_bfloat16)
 
-// bytes of dynamic shared memory one CTA takes at these sizes
-extern "C" int fused_block_tiled_smem(int N, int B, int S, int V, int Sc, int Vg) {
-  return (int)smem_bytes(N, B, S, V, Sc, Vg);
+// bytes of dynamic shared memory one CTA of the f32 (bf16 = 0) or bf16 build
+// takes at these sizes
+extern "C" int fused_block_tiled_smem(int bf16, int N, int B, int S, int V, int Sc, int Vg) {
+  return (int)(bf16 ? smem_bytes<__nv_bfloat16>(N, B, S, V, Sc, Vg)
+                    : smem_bytes<float>(N, B, S, V, Sc, Vg));
+}
+
+// How a build is launched at these sizes and what the card makes of it:
+// out = {threads, bytes of shared memory per CTA, registers per thread,
+// local (spill) bytes per thread, CTAs resident per SM, dst atoms per CTA,
+// sources per pass of the pair list, 1 if the epilogue stages its B operands}
+extern "C" int fused_block_tiled_occupancy(int bf16, int N, int B, int S, int V, int Sc, int Vg,
+                                           int* out) {
+  return bf16 ? occupancy<__nv_bfloat16>(N, B, S, V, Sc, Vg, out)
+              : occupancy<float>(N, B, S, V, Sc, Vg, out);
 }

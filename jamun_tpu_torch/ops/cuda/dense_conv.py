@@ -9,6 +9,11 @@ at line 317), which every hidden layer of `E3Conv(pallas_variant="plane")`
 runs. Both compute one function; K9 takes V > 0 only, as
 `supports_fused_conv` does. Both launch the kernel of `csrc/dense_conv.cu`
 (so they agree bit for bit), each through its own entry and launch counter.
+Its bf16 build runs both radial layers on the tensor cores for 16
+destination atoms per CTA (`csrc/tiled_pairs_mma.cuh`, shared with K5's),
+listing the pairs in passes over the sources where one list would not fit;
+`layout` mirrors its shared-memory reckoning and `occupancy` asks the
+library how the card launches it.
 
 Arguments, as JAX's: positions pos [G, N, 3] (the scaled positions the
 arch sees), node_mask [G, N] bool, source features x [G, N, S + 3V] in the
@@ -29,14 +34,21 @@ from typing import Tuple
 
 import torch
 
+from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 from jamun_tpu_torch.ops.cuda.conv_block import MAX_WIDTH, N_RADIAL, pair_sums_plain
 from jamun_tpu_torch.ops.cuda.edge_features import pair_features_plain
-from jamun_tpu_torch.ops.cuda.fused_block_tiled import MAX_ATOMS, MAX_GRAPHS, MAX_SHARED_BYTES
+from jamun_tpu_torch.ops.cuda.fused_block_tiled import (
+    _OCCUPANCY,
+    MAX_ATOMS,
+    MAX_GRAPHS,
+    MAX_SHARED_BYTES,
+    pair_layout,
+)
 
 __all__ = [
     "packed_uvu_conv_dense", "packed_uvu_conv_dense_plain", "fused_uvu_conv_dense",
-    "fused_uvu_conv_dense_plain", "dense_weights", "K8", "K9",
+    "fused_uvu_conv_dense_plain", "dense_weights", "K8", "K9", "layout", "occupancy",
 ]
 
 RADIAL_HIDDEN = 64
@@ -48,12 +60,37 @@ _ARGS = [_P] * 9 + [_F] + [_I] * 4 + [_P]
 
 
 def _entries(prefix: str) -> dict:
-    return {f"{prefix}_f32": _ARGS, f"{prefix}_bf16": _ARGS, "dense_conv_smem": [_I] * 3}
+    return {f"{prefix}_f32": _ARGS, f"{prefix}_bf16": _ARGS, "dense_conv_smem": [_I] * 4,
+            "dense_conv_occupancy": [_I] * 4 + [_P]}
 
 
 K8 = CudaKernel("packed_uvu_conv_dense", _entries("packed_uvu_conv_dense"), source="dense_conv")
 K9 = CudaKernel("fused_uvu_conv_dense", _entries("fused_uvu_conv_dense"), source="dense_conv")
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def layout(N: int, S: int, V: int, cdt=torch.bfloat16) -> dict:
+    """How K8 and K9 are launched at these sizes (the mirror of
+    `dense_conv_smem`): threads and bytes of shared memory per CTA, dst atoms
+    per CTA, sources per pass of the pair list. bf16: K5's pair loop without
+    bonds or epilogue (`fused_block_tiled.pair_layout`); f32: the FMA CTA of
+    8 atoms with its whole list (8 N entries) and the positions."""
+    if cdt == torch.bfloat16:
+        return pair_layout(N, 0, S, V)
+    nt = k2.threads_for(2 * S + 3 * V)
+    smem = k2.scratch_bytes(N, 0, nt, 0, 0, 8) + 4 * (4 * N + 32)
+    return dict(threads=nt, smem_bytes=smem, atoms_per_cta=8, sources_per_pass=N, staged=False)
+
+
+def occupancy(N: int, S: int, V: int, cdt=torch.bfloat16) -> dict:
+    """`layout` as the library reckons it, with what the current card makes
+    of the build: registers and local (spill) bytes per thread, CTAs
+    resident per SM."""
+    out = (ctypes.c_int * len(_OCCUPANCY))()
+    err = K9.fn("dense_conv_occupancy")(int(cdt == torch.bfloat16), N, S, V, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dense_conv.dense_conv_occupancy failed with CUDA error {err}")
+    return {k: (bool(v) if k == "staged" else v) for k, v in zip(_OCCUPANCY, out)}
 
 
 def dense_weights(w1, b1, w2, b2, bond0, cdt):
@@ -114,7 +151,7 @@ def _launch(kernel: CudaKernel, pos, node_mask, x, w1, b1, w2, b2, bond0, cutoff
         raise TypeError(f"{name}: compute dtype {cdt} not supported")
     G, N, _ = x.shape
     W = 2 * S + 3 * V
-    smem = kernel.fn("dense_conv_smem")(N, S, V)
+    smem = kernel.fn("dense_conv_smem")(int(cdt == torch.bfloat16), N, S, V)
     if (
         w1.shape != (2 * N_RADIAL, RADIAL_HIDDEN) or W > MAX_WIDTH or N > MAX_ATOMS
         or G > MAX_GRAPHS or smem > MAX_SHARED_BYTES

@@ -8,7 +8,11 @@ for every dense call above 128 atoms. The CUDA kernel is
 `csrc/fused_block_tiled.cu`: the pair geometry (adjacency, spherical
 harmonics, radial basis) is rebuilt inside the kernel from the positions, for
 dense pairs and bonds alike, so no tensor with two atom axes ever exists in
-device memory.
+device memory. Its bf16 build runs the radial MLP and the epilogue on the
+tensor cores for 16 destination atoms per CTA (`csrc/tiled_pairs_mma.cuh`),
+listing the pairs in passes over the sources where one list would not fit;
+`layout` mirrors its shared-memory reckoning and `occupancy` asks the
+library how the card launches it.
 
 Inputs: block input x [G, N, S + 3V] (packed irreps, compute dtype), the
 `TiledGeometry` of `tiled_geometry_inputs` (scaled positions, masks, bonds,
@@ -26,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 from jamun_tpu_torch.ops.cuda.conv_block import (
     MAX_WIDTH,
@@ -39,6 +44,7 @@ from jamun_tpu_torch.ops.cuda.edge_features import edge_features_plain
 __all__ = [
     "TiledGeometry", "tiled_geometry_inputs", "fused_block_tiled",
     "fused_block_tiled_plain", "KERNEL", "MAX_ATOMS", "MAX_GRAPHS", "MAX_SHARED_BYTES",
+    "pair_layout", "layout", "occupancy",
 ]
 
 MAX_ATOMS = (1 << 19) - 1  # the pair list's index field (`conv_block::MAX_INDEX`)
@@ -51,9 +57,72 @@ _ARGS = [_P] * 19 + [_F] + [_I] * 7 + [_P]
 KERNEL = CudaKernel(
     "fused_block_tiled",
     {"fused_block_tiled_f32": _ARGS, "fused_block_tiled_bf16": _ARGS,
-     "fused_block_tiled_smem": [_I] * 6},
+     "fused_block_tiled_smem": [_I] * 7, "fused_block_tiled_occupancy": [_I] * 7 + [_P]},
 )
 _ENTRY = {torch.float32: "fused_block_tiled_f32", torch.bfloat16: "fused_block_tiled_bf16"}
+_TD, _TDM, _PT = 8, 16, 32  # dst atoms per CTA (FMA build, bf16 build), pairs per tile
+_OCCUPANCY = ("threads", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "atoms_per_cta",
+              "sources_per_pass", "staged")
+
+
+# The kernels' shared-memory reckoning, mirrored from csrc/fused_block_tiled.cu
+# (the FMA build: conv_block's scratch and the geometry words) and
+# csrc/tiled_pairs_mma.cuh (`tiled::layout`, the bf16 builds of this kernel
+# and of the dense messages, csrc/dense_conv.cu); `occupancy` reads the
+# library's own.
+def pair_layout(N: int, B: int, S: int, V: int, Sc: int = 0, Vg: int = 0) -> dict:
+    """The bf16 CTA's launch shape (`tiled::layout`): 16 dst atoms; what
+    lives through the CTA (accumulators, degree, counts), then one region
+    for the pair loop (positions, a tile's pair data, the operand tiles, the
+    source rows, a list of 16 J + B entries for J sources per pass) that the
+    epilogue's tiles share after it (none when Sc + Vg == 0, the dense
+    messages). J is N where that list fits 227 KB, else the largest multiple
+    of 32 that fits (at least 32: a shape that does not fit then reckons more
+    bytes than a block may use); the epilogue stages its B operands where
+    `conv_block.stage_fits` says."""
+    W, F, nt = 2 * S + 3 * V, S + 3 * V, k2.threads_for(2 * S + 3 * V)
+    a = k2._align16
+    region = a(_TDM * 3 * nt * 4) + a(_TDM * 4) + a(_TDM * 4) + 16
+    lst = region + a(N * 16) + a(_PT * 16) + k2.pair_tiles_bytes(W) + a(_PT * F * 2)
+    entries = int((MAX_SHARED_BYTES - lst) / 16) * 4 - B  # truncated as C++ divides
+    if entries >= _TDM * N:
+        J = N
+    else:
+        J = entries // _TDM // 32 * 32 if entries >= _TDM * 32 else 32
+    pair_end = lst + a((_TDM * J + B) * 4)
+    total = [pair_end, pair_end]
+    if Sc + Vg > 0:
+        for stage in (0, 1):
+            epi = region + k2.epilogue_tiles_bytes(S, V, Sc + Vg, Vg, Sc, Vg, _TDM, bool(stage))
+            total[stage] = max(pair_end, epi)
+    staged = Sc + Vg > 0 and k2.stage_fits(total[1], total[0])
+    return dict(threads=nt, smem_bytes=total[staged], atoms_per_cta=_TDM, sources_per_pass=J,
+                staged=bool(staged))
+
+
+def layout(N: int, B: int, S: int, V: int, Sc: int, Vg: int, cdt=torch.bfloat16) -> dict:
+    """How K5 is launched at these sizes: threads and bytes of shared memory
+    per CTA, dst atoms per CTA, sources per pass of the pair list, whether
+    the epilogue stages its B operands. The f32 build keeps the FMA CTA of 8
+    atoms with its whole list (8 N + B entries) and the positions."""
+    if cdt == torch.bfloat16:
+        return pair_layout(N, B, S, V, Sc, Vg)
+    nt = k2.threads_for(2 * S + 3 * V)
+    smem = k2.scratch_bytes(N, B, nt, Sc, Vg, _TD) + 4 * (4 * N + _PT)
+    return dict(threads=nt, smem_bytes=smem, atoms_per_cta=_TD, sources_per_pass=N, staged=False)
+
+
+def occupancy(N: int, B: int, S: int, V: int, Sc: int, Vg: int, cdt=torch.bfloat16) -> dict:
+    """`layout` as the library reckons it, with what the current card makes
+    of the build: registers and local (spill) bytes per thread, CTAs
+    resident per SM."""
+    out = (ctypes.c_int * len(_OCCUPANCY))()
+    err = KERNEL.fn("fused_block_tiled_occupancy")(
+        int(cdt == torch.bfloat16), N, B, S, V, Sc, Vg, ctypes.addressof(out)
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_block_tiled.fused_block_tiled_occupancy failed with CUDA error {err}")
+    return {k: (bool(v) if k == "staged" else v) for k, v in zip(_OCCUPANCY, out)}
 
 
 class TiledGeometry(NamedTuple):
@@ -126,11 +195,12 @@ def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: boo
     pairs and bonds per destination atom).
 
     Any N below 2^19 that fits a CTA's shared memory goes, N <= 128 and N not
-    divisible by 8 included; the shared memory grows with N and B through the
-    pair list of 8 N + B entries, the kernel's library reckons it
-    (`fused_block_tiled_smem`) and what a block cannot hold raises. The TPU kernel's bounds (`N % 8 == 0`, a dst
-    block that divides N, `S >= 32`, `V == 0 or V >= 16`) come from Mosaic's
-    tiling and are not copied."""
+    divisible by 8 included; the shared memory grows with N and B (f32: the
+    pair list of 8 N + B entries; bf16: 16 bytes of position per atom beside
+    a pass list of 16 J + B entries, `layout`), the kernel's library reckons
+    it (`fused_block_tiled_smem`) and what a block cannot hold raises. The
+    TPU kernel's bounds (`N % 8 == 0`, a dst block that divides N, `S >= 32`,
+    `V == 0 or V >= 16`) come from Mosaic's tiling and are not copied."""
     _refuse_position_gradient(geo.pos)
     if x.device.type == "cpu":
         return fused_block_tiled_plain(x, geo, w, return_degree)
@@ -143,7 +213,7 @@ def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: boo
     B = geo.bond_src.shape[1]
     S, V, Sc, Vg = w.S, w.V, w.Sc, w.Vg
     W = 2 * S + 3 * V
-    smem = KERNEL.fn("fused_block_tiled_smem")(N, B, S, V, Sc, Vg)
+    smem = KERNEL.fn("fused_block_tiled_smem")(int(cdt == torch.bfloat16), N, B, S, V, Sc, Vg)
     if (
         W > MAX_WIDTH or geo.n_radial != N_RADIAL or N > MAX_ATOMS or B > MAX_ATOMS
         or G > MAX_GRAPHS or smem > MAX_SHARED_BYTES

@@ -1,32 +1,46 @@
-"""Where the time of the bf16 per-layer and whole-model kernels goes (K2,
-`csrc/conv_block.cu`, and K3, `csrc/e3_stack.cu`), by phase.
+"""Where the time of the ConvBlock kernels goes, by phase: the per-layer
+kernel (K2, `csrc/conv_block.cu`), the whole-model kernel (K3,
+`csrc/e3_stack.cu`), the tiled ConvBlock from the positions (K5,
+`csrc/fused_block_tiled.cu`) and the dense messages (K8/K9,
+`csrc/dense_conv.cu`).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
-    python3 scripts/torch_phase_split.py [--out FILE]
+    python3 scripts/torch_phase_split.py [--kernels K2,K3,K5,K9] [--time-only] [--out FILE]
 
-Copies the two sources and the headers into `jamun_tpu_torch/_build/
+Copies the sources and the headers into `jamun_tpu_torch/_build/
 phase_split/` and adds a `clock64()` stamp after every `__syncthreads()` (and
-`cluster.sync()`) of the bf16 kernels and of the epilogue steps of
-`conv_block_mma.cuh`: thread 0 of each CTA adds the cycles since the
-previous stamp to that stamp's slot, and the slots are summed over the CTAs
-of five launches. Builds the copies with nvcc beside the real libraries,
-loads them into the wrappers, and prints for K2 (hidden block and
-projector, 4AA N = 44, G = 256 and 5AA N = 112, G = 128) and K3 (4AA and
-2AA N = 19, G = 256), at the flagship width with random weights from seed
-0, each launch's time (CUDA events, of the stamped build), the cycles per
-CTA and each stamp's share, labelled with the line before it. A stamp's
-share is the time of thread 0 between two barriers, so it counts the
-slowest warp of that step. Then it times, at the same shapes, builds that
-leave out one step (the message loop, radial layer 2, the message loop's
-flushes; their outputs are wrong, their times say what the step costs)
-against the real build. The kernels' own builds are untouched. Prints the
-card's name and power limit first; exits non-zero without a card.
+`cluster.sync()`) of every ConvBlock kernel of those sources, both builds
+(f32 and bf16), of the pair loop of `tiled_pairs_mma.cuh` and of the
+epilogue steps of `conv_block_body.cuh` and `conv_block_mma.cuh`: thread 0
+of each CTA adds the cycles since the previous stamp to that stamp's slot,
+and the slots are summed over the CTAs of five launches. Builds the copies
+with nvcc beside the real libraries, loads them into the wrappers, and
+prints, at the flagship width with random weights from seed 0 and in bf16
+(K5 and K9 also in f32): K2 (hidden block and projector, 4AA N = 44,
+G = 256 and 5AA N = 112, G = 128), K3 (4AA and 2AA N = 19, G = 256), K5
+(hidden block and projector at 4AA, at the N = 256 walk's first frame,
+G = 64, and at N = 512, G = 16) and K9 (hidden block at 4AA, 5AA and
+N = 256, G = 16) with K8 at the projector's width (V = 0, 4AA): each
+launch's time (CUDA events, of the stamped build), the cycles per CTA and
+each stamp's share, labelled with the line before it. A stamp's share is the time of
+thread 0 between two barriers, so it counts the slowest warp of that step.
+Then it times, at the same shapes in bf16, builds that leave out one step
+(the message loop, radial layer 2, the message loop's flushes; their
+outputs are wrong, their times say what the step costs) against the real
+build. The kernels' own builds are untouched. With `--time-only` it times
+the real builds alone at the same shapes (20 launches each), builds nothing
+else and needs nothing of this script beyond the wrappers and
+`chip_smoke.py`: copied into a checkout of another commit, it times that
+commit's kernels, so two commits compare in one call (parent, change,
+change, parent). Prints the card's name and power limit first; exits
+non-zero without a card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -40,33 +54,51 @@ sys.path.insert(0, str(ROOT))
 from jamun_tpu_torch.ops.cuda.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
 
 OUT = BUILD_DIR / "phase_split"
-SLOTS = 32  # stamp slots; the last holds the CTA count
-# builds that leave one step of conv_block_mma.cuh out: (text, replacement)
+SLOTS = 48  # stamp slots; the last holds the CTA count
+END = 40  # the slot of each kernel's end
+# the sources of each kernel of the split
+SOURCES = {"K2": "conv_block", "K3": "e3_stack", "K5": "fused_block_tiled", "K9": "dense_conv"}
+# the shared steps stamped in the headers: header -> (tag, first slot,
+# functions); a kernel's own stamps take 0..19
+HEADER_SLOTS = {
+    "tiled_pairs_mma.cuh": ("pairs", 20, ("void pair_loop(",)),
+    "conv_block_mma.cuh": ("mma", 30, ("void post_linear(", "void epilogue(")),
+    "conv_block_body.cuh": ("body", 36, ("void epilogue(",)),
+}
+# builds that leave one step out: label -> (text, replacement), applied to
+# every copied file that holds the text (at least one must)
 SKIPS = {
-    "without the message loop": ("if (c < W) mma::messages(", "if (c < 0) mma::messages("),
-    "without radial layer 2": ("    radial_layer2(t, b2, W, m0, warp, lane);\n", "\n"),
-    "without the message flushes": (
+    "without the message loop": [
+        ("if (c < W) mma::messages(", "if (c < 0) mma::messages("),  # tensor-core builds
+        ("if (has_c) messages<T>(", "if (false) messages<T>("),  # FMA builds (layer 2 with it)
+    ],
+    "without radial layer 2": [
+        ("    radial_layer2(t, b2, W, m0, warp, lane);\n", "\n"),
+        ("    for (int k = 0; k < H; ++k) {\n      float4 hv", "    for (int k = 0; k < 0; ++k) {\n      float4 hv"),
+    ],
+    "without the message flushes": [(
         "      if (td != st.cur) {\n        flush(s, st, c, true, nt);\n        st.cur = td;\n      }",
         "      st.cur = td;",
-    ),
+    )],
 }
 PRELUDE = r"""
-__device__ unsigned long long g_phase[32];
-__device__ __forceinline__ long long* phase_slots() { __shared__ long long ph[33]; return ph; }
+__device__ unsigned long long g_phase[48];
+__device__ __forceinline__ long long* phase_slots() { __shared__ long long ph[49]; return ph; }
 #define STAMP(k) if (threadIdx.x == 0) { long long* ph_ = phase_slots(); long long t_ = clock64(); \
-  ph_[k] += t_ - ph_[32]; ph_[32] = t_; }
+  ph_[k] += t_ - ph_[48]; ph_[48] = t_; }
 #define STAMP_INIT if (threadIdx.x == 0) { long long* ph_ = phase_slots(); \
-  for (int i_ = 0; i_ < 32; ++i_) ph_[i_] = 0; ph_[32] = clock64(); }
+  for (int i_ = 0; i_ < 48; ++i_) ph_[i_] = 0; ph_[48] = clock64(); }
 #define STAMP_FIN __syncthreads(); if (threadIdx.x == 0) { long long* ph_ = phase_slots(); \
-  for (int i_ = 0; i_ < 31; ++i_) atomicAdd(&g_phase[i_], (unsigned long long)ph_[i_]); \
-  atomicAdd(&g_phase[31], 1ull); }
+  for (int i_ = 0; i_ < 47; ++i_) atomicAdd(&g_phase[i_], (unsigned long long)ph_[i_]); \
+  atomicAdd(&g_phase[47], 1ull); }
 extern "C" __attribute__((weak)) int phase_read(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
-  unsigned long long z[32] = {0};
+  unsigned long long z[48] = {0};
   cudaMemcpyToSymbol(g_phase, z, sizeof(z));
   return (int)e;
 }
 """
+KERNEL_RE = re.compile(r"__global__ void __launch_bounds__\(MAX_THREADS\) (\w+)\(")
 
 
 def _body(src: str, start: int) -> tuple:
@@ -97,56 +129,65 @@ def _stamp(src: str, signature: str, first: int, tag: str, labels: dict) -> tupl
     return src[:i] + "\n".join(out) + src[j:], k
 
 
-def make_copies() -> dict:
-    """Write the stamped copies; returns the labels of the stamps."""
+def make_copies(names) -> dict:
+    """Write the stamped copies of the sources `names`; returns the labels
+    of the stamps, keyed 'kernel function:slot' and 'pairs:slot' /
+    'mma:slot' / 'body:slot' for the headers' shared steps."""
     OUT.mkdir(parents=True, exist_ok=True)
     for h in CSRC.glob("*.cuh"):
         shutil.copy(h, OUT / h.name)
     labels = {}
-    hdr = (CSRC / "conv_block_mma.cuh").read_text()
-    hdr = hdr.replace("namespace conv_block {\nnamespace mma {",
-                      PRELUDE + "namespace conv_block {\nnamespace mma {", 1)
-    hdr, k = _stamp(hdr, "void post_linear(", 20, "mma", labels)
-    hdr, _ = _stamp(hdr, "void epilogue(", k, "mma", labels)
-    (OUT / "conv_block_mma.cuh").write_text(hdr)
-    for name, kernel in (("conv_block", "conv_block_mma_kernel("), ("e3_stack", "e3_stack_mma_kernel(")):
+    body = (CSRC / "conv_block_body.cuh").read_text()
+    body = body.replace("namespace conv_block {", PRELUDE + "namespace conv_block {", 1)
+    (OUT / "conv_block_body.cuh").write_text(body)
+    for header, (tag, first, functions) in HEADER_SLOTS.items():
+        hdr = (OUT / header).read_text()
+        k = first
+        for fn in functions:
+            hdr, k = _stamp(hdr, fn, k, tag, labels)
+        (OUT / header).write_text(hdr)
+    for name in names:
         src = (CSRC / f"{name}.cu").read_text()
-        src, k = _stamp(src, f"__global__ void __launch_bounds__(MAX_THREADS) {kernel}", 0, name, labels)
-        assert k <= 20, k
-        i, _ = _body(src, src.index(f"__global__ void __launch_bounds__(MAX_THREADS) {kernel}"))
-        src = src[:i + 1] + "\n  STAMP_INIT" + src[i + 1:]
-        _, j = _body(src, src.index(f"__global__ void __launch_bounds__(MAX_THREADS) {kernel}"))
-        src = src[:j] + "  __syncthreads();\n  STAMP(30)\n  STAMP_FIN\n" + src[j:]
-        labels[f"{name}:30"] = "the kernel's end"
+        for kernel in KERNEL_RE.findall(src):
+            sig = f"__global__ void __launch_bounds__(MAX_THREADS) {kernel}("
+            src, k = _stamp(src, sig, 0, kernel, labels)
+            assert k <= 20, (kernel, k)
+            i, _ = _body(src, src.index(sig))
+            src = src[:i + 1] + "\n  STAMP_INIT" + src[i + 1:]
+            _, j = _body(src, src.index(sig))
+            src = src[:j] + f"  __syncthreads();\n  STAMP({END})\n  STAMP_FIN\n" + src[j:]
+            labels[f"{kernel}:{END}"] = "the kernel's end"
         (OUT / f"{name}.cu").write_text(src)
     return labels
 
 
-def make_skips() -> dict:
+def make_skips(names) -> dict:
     """Write one directory of unstamped copies per entry of SKIPS."""
     dirs = {}
-    for i, (label, (text, repl)) in enumerate(SKIPS.items()):
+    for i, (label, edits) in enumerate(SKIPS.items()):
         d = OUT / f"skip{i}"
         d.mkdir(parents=True, exist_ok=True)
-        for f in (*CSRC.glob("*.cuh"), CSRC / "conv_block.cu", CSRC / "e3_stack.cu"):
+        hits = 0
+        for f in (*CSRC.glob("*.cuh"), *(CSRC / f"{n}.cu" for n in names)):
             src = f.read_text()
-            if f.name == "conv_block_mma.cuh":
-                assert src.count(text) == 1, label
+            for text, repl in edits:
+                hits += src.count(text)
                 src = src.replace(text, repl)
             (d / f.name).write_text(src)
+        assert hits, label
         dirs[label] = d
     return dirs
 
 
-def build(dirs) -> dict:
-    """Build conv_block.cu and e3_stack.cu in each directory, all at once;
-    returns the loaded libraries by (directory, source)."""
+def build(dirs, names) -> dict:
+    """Build the sources `names` in each directory, all at once; returns the
+    loaded libraries by (directory, source)."""
     procs = {
         (d, name): subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(d / f"{name}.so"), str(d / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for d in dirs for name in ("conv_block", "e3_stack")
+        for d in dirs for name in names
     }
     libs = {}
     for (d, name), proc in procs.items():
@@ -154,7 +195,7 @@ def build(dirs) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {d / name}.cu:\n{log}")
         libs[d, name] = ctypes.CDLL(str(d / f"{name}.so"))
-    for name in ("conv_block", "e3_stack"):
+    for name in names:
         libs[OUT, name].phase_read.argtypes = [ctypes.c_void_p]
         libs[OUT, name].phase_read.restype = ctypes.c_int
     return libs
@@ -183,29 +224,35 @@ def main() -> int:
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import conv_block as k2
+    from jamun_tpu_torch.ops.cuda import dense_conv as k89
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
     from jamun_tpu_torch.utils.testing import make_test_batch
 
     args = sys.argv[1:]
     out_path = args[args.index("--out") + 1] if "--out" in args else None
+    wanted = args[args.index("--kernels") + 1].split(",") if "--kernels" in args else list(SOURCES)
+    names = [SOURCES[k] for k in wanted]
+    time_only = "--time-only" in args
     print(cs.card_line(), flush=True)
-    labels = make_copies()
-    skips = make_skips()
-    libs = build([OUT, *skips.values()])
-    dev, cdt = torch.device("cuda"), torch.bfloat16
+    if not time_only:
+        labels = make_copies(names)
+        skips = make_skips(names)
+        libs = build([OUT, *skips.values()], names)
+    dev = torch.device("cuda")
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(cs.SIGMA, config.average_squared_distance)
-    model = E3Conv(dtype=cdt, device=dev, seed=0)
-    stack = E3Conv(dtype=cdt, fused_stack=True, device=dev, seed=0)
-    for m in (model, stack):
+    models = {cdt: E3Conv(dtype=cdt, device=dev, seed=0) for cdt in (torch.bfloat16, torch.float32)}
+    stack = E3Conv(dtype=torch.bfloat16, fused_stack=True, device=dev, seed=0)
+    for m in (*models.values(), stack):
         m.output_gain.data.fill_(1.0)
         m.requires_grad_(False)
-    cutoff = Denoiser(model, config).effective_radial_cutoff(cs.SIGMA) / c_in
+    cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(cs.SIGMA) / c_in
     gen = torch.Generator(device=dev).manual_seed(1)
     report = {}
 
-    def measure(tag, kernel, lib, name, fn):
+    def measure(tag, kernel, lib, fn, cdt):
         use(kernel, lib)
         ms = cs.cuda_time_ms(fn, 10)
         slots(lib)
@@ -214,12 +261,21 @@ def main() -> int:
         torch.cuda.synchronize()
         st = slots(lib)
         total = sum(st[:SLOTS - 1])
-        split = {
-            f"{i} {labels.get(f'{name}:{i}') or labels.get(f'mma:{i}')}": st[i] / total
-            for i in range(SLOTS - 1) if st[i]
-        }
-        report[tag] = dict(ms=ms, cycles_per_cta=total / st[SLOTS - 1], split=split)
-        print(f"{tag}: {ms:.4f} ms (stamped build), {total / st[SLOTS - 1]:.0f} cycles per CTA", flush=True)
+        # the kernel function of this build: the tensor-core one in bf16
+        kernels = [k for k in KERNEL_RE.findall((OUT / kernel.source.name).read_text())
+                   if ("_mma_kernel" in k) == (cdt == torch.bfloat16)]
+
+        def label(i):
+            for key in (*kernels, "pairs", "mma", "body"):
+                if f"{key}:{i}" in labels:
+                    return f"{key}: {labels[f'{key}:{i}']}"
+            return "?"
+
+        split = {f"{i} {label(i)}": st[i] / total for i in range(SLOTS - 1) if st[i]}
+        report[tag] = dict(ms=ms, cycles_per_cta=total / st[SLOTS - 1], ctas=st[SLOTS - 1] // 5,
+                           split=split)
+        print(f"{tag}: {ms:.4f} ms (stamped build), {total / st[SLOTS - 1]:.0f} cycles per CTA, "
+              f"{st[SLOTS - 1] // 5} CTAs per launch", flush=True)
         for k, v in split.items():
             print(f"    {v:.4f}  {k}", flush=True)
 
@@ -233,34 +289,74 @@ def main() -> int:
         report[tag]["skip_ms"] = times
         print(f"{tag}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
 
-    for label, (N, G) in (("4AA", (44, 256)), ("5AA", (112, 128)), ("2AA", (19, 256))):
-        batch = make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=[N] * G, max_bonds=2 * N,
-                                scale=0.35, device=dev)
+    def split(tag, kernel, name, fn, cdt):
+        if time_only:
+            kernel._lib = None  # the real build
+            ms = cs.cuda_time_ms(fn, 20)
+            report[f"{tag} {str(cdt).split('.')[-1]}"] = dict(ms=ms)
+            print(f"{tag} {str(cdt).split('.')[-1]}: the real build {ms:.4f} ms", flush=True)
+            return
+        measure(f"{tag} {str(cdt).split('.')[-1]}", kernel, libs[OUT, name], fn, cdt)
+        if cdt == torch.bfloat16:
+            skipped(f"{tag} bfloat16", kernel, name, fn)
+
+    def block_weights(model, blk, S, V, cdt):
+        conv = blk.Conv_0
+        return k2.pack_block_weights(conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1,
+                                     blk.IrrepsLinear_0, model.embed_bondedness[0],
+                                     model.embed_bondedness[1], S=S, V=V, cdt=cdt)
+
+    def blocks(model):
+        return (("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32), ("projector", model.ConvBlock_0, 56, 0))
+
+    for label, (N, G) in (("4AA", (44, 256)), ("5AA", (112, 128)), ("2AA", (19, 256)), ("N256", (256, 64)),
+                          ("N512", (512, 16)), ("N256 G16", (256, 16))):
+        if label.startswith("N"):
+            batch = cs.tiled_batch(N, G, dev)
+        else:
+            batch = make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=[N] * G,
+                                    max_bonds=2 * N, scale=0.35, device=dev)
         pos = (batch.pos * c_in).contiguous()
-        if label != "2AA":
+        if "conv_block" in names and label in ("4AA", "5AA"):
+            cdt, model = torch.bfloat16, models[torch.bfloat16]
             geo = (pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, cutoff, 32)
             ef, bf = k1.edge_features(*geo, cdt)
-            for block_name, blk, S, V in (("hidden", model._HiddenLayer_0.ConvBlock_0, 120, 32),
-                                          ("projector", model.ConvBlock_0, 56, 0)):
-                conv = blk.Conv_0
-                w = k2.pack_block_weights(conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1,
-                                          blk.IrrepsLinear_0, model.embed_bondedness[0],
-                                          model.embed_bondedness[1], S=S, V=V, cdt=cdt)
+            for block_name, blk, S, V in blocks(model):
+                w = block_weights(model, blk, S, V, cdt)
                 x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
                 a = (x, ef, bf, batch.bond_src, batch.bond_dst, w)
-                measure(f"K2 {block_name} {label}", k2.KERNEL, libs[OUT, "conv_block"], "conv_block",
-                        lambda: k2.fused_conv_block(*a))
-                skipped(f"K2 {block_name} {label}", k2.KERNEL, "conv_block", lambda: k2.fused_conv_block(*a))
-        if N <= k3.MAX_ATOMS:
+                split(f"K2 {block_name} {label}", k2.KERNEL, "conv_block", lambda: k2.fused_conv_block(*a), cdt)
+            del ef, bf
+        if "e3_stack" in names and label in ("4AA", "2AA"):
             scaled = batch.replace_pos(pos)
             c_noise_t = torch.full((1,), c_noise, dtype=torch.float32, device=dev)
             nf0 = stack.NoiseConditionalScaling_0(stack.AtomEmbeddingWithResidueInformation_0(scaled),
                                                   c_noise_t)
             sargs = stack._stack_args(scaled, nf0, c_noise_t, cutoff)
-            measure(f"K3 {label}", k3.KERNEL, libs[OUT, "e3_stack"], "e3_stack",
-                    lambda: k3.e3conv_stack(*sargs))
-            skipped(f"K3 {label}", k3.KERNEL, "e3_stack", lambda: k3.e3conv_stack(*sargs))
-    k2.KERNEL._lib = k3.KERNEL._lib = None
+            split(f"K3 {label}", k3.KERNEL, "e3_stack", lambda: k3.e3conv_stack(*sargs), torch.bfloat16)
+        if "fused_block_tiled" in names and label in ("4AA", "N256", "N512"):
+            geo = k5.tiled_geometry_inputs(pos, batch.node_mask, batch.bond_src, batch.bond_dst,
+                                           batch.bond_mask, cutoff, 32)
+            for cdt, model in models.items():
+                for block_name, blk, S, V in blocks(model):
+                    w = block_weights(model, blk, S, V, cdt)
+                    x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                    split(f"K5 {block_name} {label}", k5.KERNEL, "fused_block_tiled",
+                          lambda: k5.fused_block_tiled(x, geo, w), cdt)
+        if "dense_conv" in names and label in ("4AA", "5AA", "N256 G16"):
+            for cdt, model in models.items():
+                for block_name, blk, S, V in blocks(model):
+                    if V == 0 and label != "4AA":
+                        continue
+                    d0, d1 = blk.Conv_0.radial_nn.layer(0), blk.Conv_0.radial_nn.layer(1)
+                    x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                    a = (pos, batch.node_mask, x, d0.kernel, d0.bias, d1.kernel, d1.bias,
+                         model.embed_bondedness[0], cutoff, S, V)
+                    kernel, fn = (k89.K9, k89.fused_uvu_conv_dense) if V else (k89.K8, k89.packed_uvu_conv_dense)
+                    split(f"{'K9' if V else 'K8'} {block_name} {label}", kernel, "dense_conv",
+                          lambda: fn(*a), cdt)
+    for k in (k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K8, k89.K9):
+        k._lib = None
     if out_path:
         Path(out_path).write_text(json.dumps(report, indent=1))
     return 0

@@ -104,17 +104,20 @@ def test_tiled_block_matches_plain_twin(cuda, cdt, nodes):
             want, deg_p = k5.fused_block_tiled_plain(x, geo, w, return_degree=True)
             assert torch.isfinite(got).all() and torch.equal(deg, deg_p) and deg.max() > 8
             assert _rel(got, want) <= TOL[cdt]
-            smem = k5.KERNEL.fn("fused_block_tiled_smem")(N, 2 * N, S, V, w.Sc, w.Vg)
+            smem = k5.KERNEL.fn("fused_block_tiled_smem")(int(cdt == torch.bfloat16), N, 2 * N, S, V,
+                                                          w.Sc, w.Vg)
             assert 4 * (8 * N + 2 * N) < smem <= k5.MAX_SHARED_BYTES  # the pair list and more
+            assert smem == k5.layout(N, 2 * N, S, V, w.Sc, w.Vg, cdt)["smem_bytes"]
     assert k5.KERNEL.launches - n5 == 2
 
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
-    """K5 against K2 on K1's features at N = 112, where both run. In f32 the
-    same FMA device code over the same pairs in the same order (1e-6); in
-    bf16 K2 sums its products on the tensor cores in another order, with
-    the same rounding points: the twins' tolerance."""
+    """K5 against K2 on K1's features at N = 112, where both run, bit for
+    bit: in each dtype both builds run the same device steps (f32: the FMA
+    steps of conv_block_body.cuh, 8 atoms per CTA; bf16: the tensor-core
+    steps of conv_block_mma.cuh, 16 atoms per CTA) over the same pairs in
+    the same order, on geometry that rounds alike."""
     batch, model, geo, blocks = _tiled_case(cuda, cdt, [112, 97, 40], 0.45)
     gen = torch.Generator(device=cuda).manual_seed(1)
     ef, bf = k1.edge_features(*geo[:7], cdt)
@@ -126,7 +129,7 @@ def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
             want, _, deg2 = k2.fused_conv_block(x, ef, bf, batch.bond_src, batch.bond_dst, w,
                                                 residuals=True)
             assert torch.equal(deg, deg2)
-            assert _rel(got, want) <= (1e-6 if cdt == torch.float32 else TOL[cdt])
+            assert torch.equal(got, want), _rel(got, want)
 
 
 def test_model_above_128_atoms_takes_the_tiled_kernel(cuda):
@@ -361,6 +364,46 @@ def test_dense_conv_kernels_match_plain_twins(cuda, cdt):
             with pytest.raises(ValueError):
                 k89.fused_uvu_conv_dense(*args)
     assert (k89.K8.launches - n8, k89.K9.launches - n9) == (2, 1)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["K5", "K8/K9"])
+def test_tiled_kernels_in_passes_match_plain_twins(cuda, cdt, kernel):
+    """K5 (N = 1200) and the K8/K9 kernel (N = 1500) at the flagship hidden
+    width, where the bf16 build lists the pairs in passes over the sources
+    (`layout`: two passes each), against their twins: the degree exactly,
+    K9 equal to K8 bit for bit; the library's launch shape is the mirror's."""
+    from jamun_tpu_torch.ops.cuda import dense_conv as k89
+
+    nodes = [1200, 1111] if kernel == "K5" else [1500, 1400]
+    N = max(nodes)
+    batch = make_test_batch(num_graphs=2, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
+                            scale=0.35 * (N / 44) ** (1 / 3), device=cuda)
+    model = E3Conv(dtype=cdt, device=cuda, seed=0)
+    blk, S, V = model._HiddenLayer_0.ConvBlock_0, 120, 32
+    x = torch.randn((2, N, S + 3 * V), generator=torch.Generator(device=cuda).manual_seed(8),
+                    device=cuda).to(cdt)
+    with torch.no_grad():
+        if kernel == "K5":
+            geo = k5.tiled_geometry_inputs(batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst,
+                                           batch.bond_mask, 0.8, 32)
+            w = _block_weights(model, blk, S, V, cdt)
+            got, deg = k5.fused_block_tiled(x, geo, w, return_degree=True)
+            want, deg_p = k5.fused_block_tiled_plain(x, geo, w, return_degree=True)
+            occ, mirror = k5.occupancy(N, 2 * N, S, V, w.Sc, w.Vg, cdt), k5.layout(N, 2 * N, S, V, w.Sc, w.Vg, cdt)
+        else:
+            d0, d1 = blk.Conv_0.radial_nn.layer(0), blk.Conv_0.radial_nn.layer(1)
+            args = (batch.pos, batch.node_mask, x, d0.kernel, d0.bias, d1.kernel, d1.bias,
+                    model.embed_bondedness[0], 0.8, S, V)
+            got, deg = k89.packed_uvu_conv_dense(*args)
+            want, deg_p = k89.packed_uvu_conv_dense_plain(*args)
+            got9, deg9 = k89.fused_uvu_conv_dense(*args)
+            assert torch.equal(got9, got) and torch.equal(deg9, deg)
+            occ, mirror = k89.occupancy(N, S, V, cdt), k89.layout(N, S, V, cdt)
+    assert torch.isfinite(got).all() and torch.equal(deg, deg_p) and deg.max() > 8
+    assert _rel(got, want) <= TOL[cdt]
+    assert {k: occ[k] for k in mirror} == mirror
+    assert mirror["sources_per_pass"] < N if cdt == torch.bfloat16 else mirror["sources_per_pass"] == N
 
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

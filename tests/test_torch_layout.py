@@ -1,7 +1,9 @@
-"""The Python mirrors of the kernels' shared-memory reckoning and K3's launch
-shape (`ops/cuda/conv_block.smem_bytes`, `ops/cuda/e3_stack.stack_shape`),
-on the CPU. On the card `tests/test_torch_cuda.py` holds them to the
-libraries' own query functions (`conv_block_occupancy`, `e3_stack_shape`);
+"""The Python mirrors of the kernels' shared-memory reckoning and launch
+shapes (`ops/cuda/conv_block.smem_bytes`, `ops/cuda/e3_stack.stack_shape`,
+`ops/cuda/fused_block_tiled.layout`, `ops/cuda/dense_conv.layout`), on the
+CPU. On the card `tests/test_torch_cuda.py` and `chip_smoke.py` hold them to
+the libraries' own query functions (`conv_block_occupancy`,
+`e3_stack_shape`, `fused_block_tiled_occupancy`, `dense_conv_occupancy`);
 here they are held to what the kernels must be able to launch: every shape
 the wrappers accept fits the 227 KB a block may use, and the flagship shapes
 take the launch shapes the design notes give.
@@ -11,7 +13,9 @@ import pytest
 import torch
 
 from jamun_tpu_torch.ops.cuda import conv_block as k2
+from jamun_tpu_torch.ops.cuda import dense_conv as k89
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
+from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 
 WIDTHS = [(120, 32), (56, 0), (24, 5), (24, 8), (1, 1), (120, 40), (192, 0)]  # W <= 384
 
@@ -85,3 +89,95 @@ def test_stack_shape_at_the_walk_sizes(cdt):
     assert (shape(19)["ctas_per_cluster"], shape(19)["atoms_per_cta"]) == (2, 10)
     assert (shape(64)["ctas_per_cluster"], shape(64)["atoms_per_cta"]) == (4, 16)
     assert (shape(44, 8)["ctas_per_cluster"], shape(44, 8)["atoms_per_cta"]) == (6, 8)
+
+
+# ---- K5 and the K8/K9 kernel (`fused_block_tiled.layout`, `dense_conv.layout`) ----
+
+FLAGSHIP = [("hidden", 120, 32), ("projector", 56, 0)]  # the blocks' (S, V); gate 120x0e + 32x1e
+
+
+def _fma_max_atoms(smem) -> int:
+    """The largest N whose FMA-build CTA fits a block (smem(N) grows with N)."""
+    n = 1
+    while smem(n + 1) <= k2.MAX_SMEM:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tiled_kernels_fit_every_accepted_shape(cdt):
+    """What the wrappers accept (the reckoned bytes within 227 KB) is a CTA
+    whose parts fit: for the bf16 builds, the pair loop's region with a pass
+    list of 16 J + B entries and, for K5, the epilogue's region; J is every
+    source or a multiple of 32, never below 32."""
+    for S, V in WIDTHS:
+        for N in (1, 8, 19, 44, 112, 129, 203, 256, 512, 1024, 2000, 3000):
+            for B in (N, 2 * N):
+                k5l = k5.layout(N, B, S, V, S, max(V, 1), cdt)
+                k89l = k89.layout(N, S, V, cdt)
+                for lay in (k5l, k89l):
+                    J = lay["sources_per_pass"]
+                    assert J == N or (J % 32 == 0 and 32 <= J < N), (S, V, N, lay)
+                    assert lay["threads"] == k2.threads_for(2 * S + 3 * V)
+                if cdt == torch.bfloat16 and k5l["smem_bytes"] <= k2.MAX_SMEM:
+                    J, nt = k5l["sources_per_pass"], k5l["threads"]
+                    persistent = 16 * 3 * nt * 4 + 64 + 64 + 16  # acc, degree, counts, length
+                    pair = (N * 16 + 32 * 16 + k2.pair_tiles_bytes(2 * S + 3 * V)
+                            + k2._align16(32 * (S + 3 * V) * 2) + (16 * J + B) * 4)
+                    epi = k2.epilogue_tiles_bytes(S, V, S + max(V, 1), max(V, 1), S, max(V, 1), 16,
+                                                  k5l["staged"])
+                    assert persistent + max(pair, epi) <= k5l["smem_bytes"] <= k2.MAX_SMEM
+
+
+@pytest.mark.parametrize("block,S,V", FLAGSHIP, ids=[b for b, _, _ in FLAGSHIP])
+@pytest.mark.parametrize("bonds", [1, 2], ids=["B=N", "B=2N"])
+def test_tiled_block_range_no_narrower_than_fma(block, S, V, bonds):
+    """K5's bf16 build accepts every N that its FMA build accepts at the
+    flagship width (2902 atoms with two bonds per atom, 3125 with one, for
+    the hidden block), by walking the sources in passes."""
+    fma = _fma_max_atoms(lambda n: k5.layout(n, bonds * n, S, V, 120, 32, torch.float32)["smem_bytes"])
+    assert fma == {("hidden", 1): 3125, ("hidden", 2): 2902, ("projector", 1): 3539,
+                   ("projector", 2): 3286}[block, bonds]
+    for N in range(1, fma + 1):
+        assert k5.layout(N, bonds * N, S, V, 120, 32)["smem_bytes"] <= k2.MAX_SMEM, N
+
+
+@pytest.mark.parametrize("block,S,V", FLAGSHIP, ids=[b for b, _, _ in FLAGSHIP])
+def test_dense_messages_range_no_narrower_than_fma(block, S, V):
+    """The K8/K9 kernel's bf16 build accepts every N that its FMA build
+    accepts at the flagship width (3695 atoms for the hidden block, the
+    bound of ROADMAP item A9) and more."""
+    fma = _fma_max_atoms(lambda n: k89.layout(n, S, V, torch.float32)["smem_bytes"])
+    assert fma == {"hidden": 3695, "projector": 4143}[block]
+    for N in range(1, fma + 1):
+        assert k89.layout(N, S, V)["smem_bytes"] <= k2.MAX_SMEM, N
+    assert k89.layout(5127, 120, 32)["smem_bytes"] <= k2.MAX_SMEM < k89.layout(5128, 120, 32)["smem_bytes"]
+
+
+def test_tiled_layouts_at_the_walk_shapes():
+    """The bf16 CTAs at the walks' shapes (flagship width, two bonds per
+    atom): 16 dst atoms, every source in one pass, K5's epilogue staging its
+    B operands; the hidden block's CTA takes one SM (the accumulators of 16
+    atoms x 3 x 352 channels and the tiles), the projector's two. Above
+    about 950 atoms K5's hidden block walks its sources in passes; the dense
+    messages at 3695 atoms in passes of 384."""
+    hidden = k5.layout(256, 512, 120, 32, 120, 32)
+    assert hidden == dict(threads=352, smem_bytes=194960, atoms_per_cta=16, sources_per_pass=256,
+                          staged=True)
+    persistent = 16 * 3 * 352 * 4 + 64 + 64 + 16  # acc, degree, counts, the list's length
+    assert hidden["smem_bytes"] == persistent + k2.epilogue_tiles_bytes(120, 32, 152, 32, 120, 32, 16, True)
+    assert 233472 // (hidden["smem_bytes"] + 1024) == 1
+    projector = k5.layout(256, 512, 56, 0, 120, 32)
+    assert projector["staged"] and projector["sources_per_pass"] == 256
+    assert 233472 // (projector["smem_bytes"] + 1024) == 2
+    assert k5.layout(512, 1024, 120, 32, 120, 32)["sources_per_pass"] == 512
+    assert k5.layout(955, 1910, 120, 32, 120, 32)["sources_per_pass"] == 955
+    assert k5.layout(1200, 2400, 120, 32, 120, 32)["sources_per_pass"] == 832
+    assert k5.layout(112, 224, 120, 32, 120, 32)["sources_per_pass"] == 112  # K2's list, one pass
+    four_aa = k89.layout(44, 120, 32)
+    assert four_aa == dict(threads=352, smem_bytes=151888, atoms_per_cta=16, sources_per_pass=44,
+                           staged=False)
+    assert k89.layout(256, 120, 32)["sources_per_pass"] == 256
+    assert k89.layout(1500, 120, 32)["sources_per_pass"] == 928
+    assert k89.layout(3695, 120, 32)["sources_per_pass"] == 384
+    assert k89.layout(44, 120, 32, torch.float32)["atoms_per_cta"] == 8

@@ -221,11 +221,12 @@ def test_tiled_twin_matches_conv_block_twin(cdt, monkeypatch):
 def test_shared_memory_and_limits():
     """The limits the wrapper holds a launch to: the pair list's index field,
     the grid's graph axis and a block's shared memory, which the kernel's
-    library reckons itself (the list of 8 N + B entries grows it)."""
+    library reckons itself for the build of the compute dtype (its first
+    argument; the f32 build's list of 8 N + B entries grows it)."""
     assert k5.MAX_ATOMS == 2**19 - 1 and k5.MAX_GRAPHS == 65535
     assert k5.MAX_SHARED_BYTES == 227 * 1024
     assert k5.KERNEL.name == "fused_block_tiled" and k5.KERNEL.source.name == "fused_block_tiled.cu"
-    assert k5.KERNEL.entries["fused_block_tiled_smem"] == [ctypes.c_int] * 6
+    assert k5.KERNEL.entries["fused_block_tiled_smem"] == [ctypes.c_int] * 7
     assert "fused_block_tiled_smem" in k5.KERNEL.source.read_text()
     assert 4 * (8 * 8192 + 8192) > k5.MAX_SHARED_BYTES  # the list alone at N = 8192
 
