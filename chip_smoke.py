@@ -7,11 +7,13 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build the hand-written kernels from jamun_tpu_torch/csrc/ (one nvcc per
      source, started together), print the card's name and power limit,
      each kernel's registers and spills, and the tensor-core instructions
-     (HMMA) of the bf16 kernels of K2, K3, K5 and K8/K9 in the built
+     (HMMA) of the bf16 kernels of K2, K3, K5, K8/K9, K6 and K4 in the built
      libraries (each must issue some); for K5 and K8/K9, both builds at the
      walks' shapes, the launch shape (dst atoms per CTA, sources per pass of
      the pair list, staged epilogue), registers, spills, CTAs per SM and
-     shared bytes, the library's reckoning held to its Python mirror;
+     shared bytes, the library's reckoning held to its Python mirror; the
+     same for K6 (A = 64 and 32, K = 32 slots) and K4's pair pass (the
+     training shape and N = 112), both builds, hidden block and projector;
   2. hold each kernel against its plain PyTorch version on the card, at the
      flagship width (hidden 120x0e + 32x1e, projector 56x0e) and the walk's
      shapes, in bf16 and f32, and time kernel and plain version with CUDA
@@ -32,8 +34,9 @@ Phases (any failure exits non-zero; nothing is caught):
      Verlet list, N = 1024, G = 2, a ragged N = 203): the edge features on a
      cached list (K7), mask and indices exactly, and the messages (K6) for
      the projector and a hidden block, on the model's attributes and on
-     K7's radial half, the degree exactly; both once more at the load the
-     cached N = 512 walk of phase 3d ends at; K2's and K3's rows also give
+     K7's radial half (also on the ragged batch with the skin-1.0 list),
+     the degree exactly; both once more at the load the cached N = 512 walk
+     of phase 3d ends at; K2's, K3's, K6's and K4's rows also give
      registers per thread, CTAs per SM and the time before their
      tensor-core redesign (`PREV_MS`), and the library's shared-memory
      reckoning against its Python mirror; the Kabsch
@@ -163,6 +166,27 @@ PREV_MS = {
     ("fused_uvu_conv_dense", "K9 hidden 4AA N=44 G=256 bfloat16"): 0.6479,
     ("fused_uvu_conv_dense", "K9 hidden 5AA N=112 G=128 bfloat16"): 1.7957,
     ("fused_uvu_conv_dense", "K9 hidden N256 N=256 G=16 bfloat16"): 0.3666,
+    # K6's and K4's bf16 rows before their tensor-core redesign (PERF.md
+    # section 6: the FMA builds' times from this script's run on the
+    # committed files before it)
+    ("nbr_conv", "projector A64 N512 N=512 G=8 bfloat16"): 0.2401,
+    ("nbr_conv", "hidden A64 N512 N=512 G=8 bfloat16"): 0.2806,
+    ("nbr_conv", "projector A64 N512 cached N=512 G=8 bfloat16"): 0.2361,
+    ("nbr_conv", "hidden A64 N512 cached N=512 G=8 bfloat16"): 0.2799,
+    ("nbr_conv", "projector A32 N512 cached N=512 G=8 bfloat16"): 0.2097,
+    ("nbr_conv", "hidden A32 N512 cached N=512 G=8 bfloat16"): 0.2485,
+    ("nbr_conv", "projector A64 N1024 N=1024 G=2 bfloat16"): 0.2380,
+    ("nbr_conv", "hidden A64 N1024 N=1024 G=2 bfloat16"): 0.2202,
+    ("nbr_conv", "projector A64 ragged N=203 G=3 bfloat16"): 0.1056,
+    ("nbr_conv", "hidden A64 ragged N=203 G=3 bfloat16"): 0.0990,
+    ("nbr_conv", "projector A64 N512 walk end N=512 G=8 bfloat16"): 0.4349,
+    ("nbr_conv", "hidden A64 N512 walk end N=512 G=8 bfloat16"): 0.7467,
+    ("nbr_conv", "projector A32 N512 walk end N=512 G=8 bfloat16"): 0.3397,
+    ("nbr_conv", "hidden A32 N512 walk end N=512 G=8 bfloat16"): 0.6446,
+    ("conv_block_bwd", "projector train N=48 G=32 bfloat16"): 0.7477,
+    ("conv_block_bwd", "hidden train N=48 G=32 bfloat16"): 0.9681,
+    ("conv_block_bwd", "projector N112 N=112 G=32 bfloat16"): 1.6731,
+    ("conv_block_bwd", "hidden N112 N=112 G=32 bfloat16"): 2.4849,
 }
 
 
@@ -205,8 +229,9 @@ def ef_bytes(ef: torch.Tensor, n_dense: int) -> int:
 
 def tensor_core_counts(kernels) -> dict:
     """Phase 1: the HMMA/HGMMA instructions of each kernel function in the
-    built libraries of K2, K3, K5 and K8/K9 (`cuobjdump -sass`); the bf16
-    kernels (`*_mma_kernel`) must issue some."""
+    built libraries of K2, K3, K5, K8/K9, K6 and K4 (`cuobjdump -sass`);
+    every library has bf16 kernels (`*_mma_kernel`) and each must issue
+    some."""
     from jamun_tpu_torch.ops.cuda.build import library_path
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -214,18 +239,21 @@ def tensor_core_counts(kernels) -> dict:
     for kernel in kernels:
         sass = subprocess.run([cuobjdump, "-sass", str(library_path(kernel.source))],
                               check=True, capture_output=True, text=True).stdout
-        fn = None
+        fn, mine = None, {}
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = 0
+                mine[fn] = 0
             elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-                counts[fn] += 1
+                mine[fn] += 1
+        mma = {f: n for f, n in mine.items() if "_mma_kernel" in f}
+        assert mma and all(mma.values()), (kernel.source.name, mine)
+        counts.update(mine)
     for fn, n in counts.items():
         log(f"phase 1: {n:4d} HMMA/HGMMA in {fn[:100]}")
-    mma = {fn: n for fn, n in counts.items() if "_mma_kernel" in fn}
-    # K2's block and layer modes, K3, K5 and the dense messages (K8/K9)
-    assert len(mma) == 5 and all(mma.values()), mma
+    # K2's block and layer modes, K3, K5, the dense messages (K8/K9), K6 at
+    # A = 64 and 32, and K4's node pass, row products and pair pass
+    assert sum("_mma_kernel" in fn for fn in counts) == 10, sorted(counts)
     return counts
 
 
@@ -252,6 +280,31 @@ def tiled_launch_shapes(k5, k89) -> dict:
                 assert all(occ[k] == v for k, v in mirror.items()), (N, block, dt, occ, mirror)
                 out[f"K8/K9 {block} N={N} {dt}"] = occ
                 log(f"phase 1: K8/K9 {dt} {block} N={N}: {occ}")
+    return out
+
+
+def sparse_bwd_launch_shapes(k6, k4) -> dict:
+    """Phase 1: how K6 (A = 64 and 32, K = 32 slots) and K4's pair pass (the
+    training shape N = 48 and N = 112, two bonds per atom) launch, both
+    builds, hidden block and projector: the library's own reckoning
+    (`occupancy`: threads, shared bytes, registers, spills, CTAs per SM,
+    atoms per CTA) held to the Python mirror (`layout`, `pair_layout`)."""
+    out = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        dt = str(cdt).split(".")[-1]
+        for block, S, V in (("hidden", 120, 32), ("projector", 56, 0)):
+            for A in (64, 32):
+                occ = k6.occupancy(A, 32, S, V, cdt)
+                mirror = k6.layout(A, 32, S, V, cdt)
+                assert all(occ[k] == v for k, v in mirror.items()), (A, block, dt, occ, mirror)
+                out[f"K6 {block} A={A} {dt}"] = occ
+                log(f"phase 1: K6 {dt} {block} A={A} K=32: {occ}")
+            for N in (48, 112):
+                occ = k4.occupancy(N, 2 * N, S, V, cdt)
+                mirror = k4.pair_layout(N, 2 * N, S, V, cdt)
+                assert all(occ[k] == v for k, v in mirror.items()), (N, block, dt, occ, mirror)
+                out[f"K4 pair pass {block} N={N} {dt}"] = occ
+                log(f"phase 1: K4 pair pass {dt} {block} N={N} B={2 * N}: {occ}")
     return out
 
 
@@ -422,22 +475,28 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
                 )
                 t_ops = flops / PEAK_FLOPS[cdt] * 1e3
                 t_bytes = k4_bytes / PEAK_BYTES_PER_S * 1e3
+                occ = k4.occupancy(N, B, S, V, cdt)
+                assert occ["smem_bytes"] == k4.pair_layout(N, B, S, V, cdt)["smem_bytes"]
                 row = dict(
                     shape=f"{block_name} {tag}", max_abs_err=abs_e, max_rel_err=errs[worst],
                     worst_leaf=worst, rel_err_by_leaf=errs, residual_rel_err=res_err,
                     tol=card_tol[cdt],
                     ms=cuda_time_ms(lambda: k4.conv_block_bwd(*args), 10),
+                    prev_ms=PREV_MS.get(("conv_block_bwd", f"{block_name} {tag}")),
                     plain_ms=cuda_time_ms(lambda: k4.conv_block_bwd_plain(*args), 2),
                     bound_ms=max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
                     visited_pairs=n_pairs, flops=flops, dtype=str(cdt), N=N, G=G,
-                    block=block_name, label=label,
+                    block=block_name, label=label, pair_pass=occ,
                 )
                 rows.append(row)
+                prev = f" (before the redesign: {row['prev_ms']:.4f})" if row["prev_ms"] else ""
                 log(f"phase 5: K4 {block_name} {tag}: worst rel err {errs[worst]:.3g} ({worst}), "
                     f"max abs {abs_e:.3g} (tol {card_tol[cdt]}); K2 residuals rel {res_err:.3g}; "
-                    f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs")
+                    f"kernel {row['ms']:.4f} ms{prev}, plain {row['plain_ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs; "
+                    f"pair pass {occ['registers']} registers, {occ['spill_bytes']} spill bytes, "
+                    f"{occ['smem_bytes']} B shared, {occ['ctas_per_sm']} CTAs per SM")
                 del got, want, out, agg, deg, agg_p, deg_p
             del ef, bf
             torch.cuda.empty_cache()
@@ -825,9 +884,10 @@ def check_nbr_kernels(k6, k7, models, dev, c_in: float, cutoff: float, shapes=No
     """Phase 2, K6 and K7 against their plain versions, bf16 and f32, on
     `bench.py`'s chain geometry: N = 512, G = 8 with the list of one forward
     and with the skin-1.0 Verlet list, N = 1024, G = 2, and a ragged batch
-    (N = 203). K7 on each list; K6 for the projector and a hidden block on
-    the model's edge attributes (A = 64), and on the cached N = 512 list also
-    on K7's radial half (A = 32, the bondedness block folded into b1). The
+    (N = 203, with the list of one forward and with the skin-1.0 list). K7
+    on each list; K6 for the projector and a hidden block on the model's
+    edge attributes (A = 64), and on the cached lists also on K7's radial
+    half (A = 32, the bondedness block folded into b1). The
     degree, the mask and the kept slots' indices must be exactly equal. The
     bounds count the kept slots only (the data's work, not K's). `shapes`
     (label -> (batch, cached)) gives other batches to hold them on."""
@@ -838,6 +898,7 @@ def check_nbr_kernels(k6, k7, models, dev, c_in: float, cutoff: float, shapes=No
         "N512 cached": (chain_batch(512, 8, dev), True),
         "N1024": (chain_batch(1024, 2, dev), False),
         "ragged": (chain_batch(203, 3, dev, [203, 190, 150]), False),
+        "ragged cached": (chain_batch(203, 3, dev, [203, 190, 150]), True),
     }
     gen = torch.Generator(device=dev).manual_seed(8)
     rows = {"nbr_conv": [], "nbr_edge_features": []}
@@ -912,20 +973,27 @@ def check_nbr_kernels(k6, k7, models, dev, c_in: float, cutoff: float, shapes=No
                     )
                     t_ops = flops / PEAK_FLOPS[cdt] * 1e3
                     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                    occ = k6.occupancy(A, K, S, V, cdt)
+                    assert occ["smem_bytes"] == k6.layout(A, K, S, V, cdt)["smem_bytes"]
                     row = dict(
                         shape=f"{block_name} {variant} {tag}", max_abs_err=abs_e, max_rel_err=rel_e,
                         tol=TOL[cdt], ms=cuda_time_ms(lambda: k6.nbr_uvu_conv(*args6), 10),
+                        prev_ms=PREV_MS.get(("nbr_conv", f"{block_name} {variant} {tag}")),
                         plain_ms=cuda_time_ms(lambda: k6.nbr_uvu_conv_plain(*args6), 2),
                         bound_ms=max(t_ops, t_bytes),
                         bound_by="operations" if t_ops >= t_bytes else "bytes",
                         kept_slots=n_kept, slots=slots, flops=flops, bytes=nbytes, dtype=str(cdt),
                         N=N, G=G, block=block_name, variant=variant, label=label,
+                        registers=occ["registers"], spill_bytes=occ["spill_bytes"],
+                        ctas_per_sm=occ["ctas_per_sm"], smem_bytes=occ["smem_bytes"],
                     )
                     rows["nbr_conv"].append(row)
+                    prev = f" (before the redesign: {row['prev_ms']:.4f})" if row["prev_ms"] else ""
                     log(f"phase 2: {name}: max abs err {abs_e:.3g}, rel {rel_e:.3g} "
-                        f"(tol {TOL[cdt]}), degree equal on all atoms; kernel {row['ms']:.4f} ms, "
+                        f"(tol {TOL[cdt]}), degree equal on all atoms; kernel {row['ms']:.4f} ms{prev}, "
                         f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                        f"({row['bound_by']}), {n_kept} kept slots of {slots}")
+                        f"({row['bound_by']}), {n_kept} kept slots of {slots}; {occ['registers']} "
+                        f"registers, {occ['ctas_per_sm']} CTAs per SM, {occ['smem_bytes']} B shared")
                     del got, want, deg, deg_p
             del got7, want7, edges, variants
             torch.cuda.empty_cache()
@@ -1825,8 +1893,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    hmma = tensor_core_counts((k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K9))
+    hmma = tensor_core_counts((k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K9, k6.KERNEL, k4.KERNEL))
     tiled_shapes = tiled_launch_shapes(k5, k89)
+    tiled_shapes.update(sparse_bwd_launch_shapes(k6, k4))
 
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)

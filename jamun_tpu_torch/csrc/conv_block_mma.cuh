@@ -1,12 +1,13 @@
 // Tensor-core (mma.sync bf16 -> f32) steps of one separable ConvBlock, for
 // the bf16 builds of the per-layer kernel (conv_block.cu, block and layer
-// modes), the whole-model kernel (e3_stack.cu) and, through the pair loop
-// of tiled_pairs_mma.cuh, the tiled ConvBlock (fused_block_tiled.cu) and the
-// dense messages (dense_conv.cu, no epilogue). The f32 builds, and the
-// sparse kernel (nbr_conv.cu), keep conv_block_body.cuh's FP32 FMA steps.
+// modes), the whole-model kernel (e3_stack.cu), through the pair loop of
+// tiled_pairs_mma.cuh the tiled ConvBlock (fused_block_tiled.cu) and the
+// dense messages (dense_conv.cu, no epilogue), and the sparse messages
+// (nbr_conv.cu: layer 1 A = 64 or 32 wide, no epilogue). The f32 builds
+// keep conv_block_body.cuh's FP32 FMA steps.
 //
 // What moves to the tensor cores (m16n8k16, bf16 operands, f32 sums):
-//   radial layer 1   [PT, 32] . [32, 64]  -> + b1 (bond or dense row), SiLU,
+//   radial layer 1   [PT, A] . [A, 64]    -> + b1 (bond or dense row), SiLU,
 //                    rounded to bf16 (the FMA path's rounding point) into h
 //   radial layer 2   [16, 64] . [64, W]   -> + b2, rounded to bf16: the
 //                    message weights of half a tile, stored as bf16
@@ -34,7 +35,7 @@
 //   A operands: row-major [M][ld_of(K)], K padded to 16 with zeros, and 8
 //     more columns so that the eight rows a fragment load touches sit in
 //     eight different bank groups (ld/2 is 4 mod 8 words);
-//   w1: n-major [64][ld_of(32)] (B of layer 1, transposed on the load);
+//   w1: n-major [64][ld_of(A)] (B of layer 1, transposed on the load);
 //   w2: n-major [Wp][64], Wp = W rounded up to 8 (zero rows past W), with
 //     its 16-byte chunks XOR-swizzled by (n & 7), conflict-free without
 //     padding;
@@ -134,33 +135,37 @@ __device__ __forceinline__ void load_b_global(uint32_t (&b)[2], const bf16* B, i
 // ---------------------------------------------------------------------------
 // the pair loop
 
-// the pair loop's operand tiles (bf16), in the union region of the caller
+// the pair loop's operand tiles (bf16), in the union region of the caller;
+// A is the width of layer 1's input: the NR radial basis values of a dense
+// pair or bond, or a sparse slot's edge attributes (nbr_conv.cu: 64, or 32)
 struct PairTiles {
-  bf16* w1t;  // [H][ld_of(NR)]
+  bf16* w1t;  // [H][ld_of(A)]
   bf16* w2t;  // [Wp][H], swizzled
-  bf16* rs;   // [PT][ld_of(NR)] radial basis values of the tile
+  bf16* rs;   // [PT][ld_of(A)] layer 1's input of the tile
   bf16* h;    // [PT][ld_of(H)]
   bf16* wt;   // [16][ldw] message weights of half a tile
   int Wp, ldw;
 };
 
+template <int A = NR>
 __host__ __device__ inline size_t pair_tiles_bytes(int W) {
   const int Wp = round_up(W, 8);
-  return align16((size_t)H * ld_of(NR) * 2) + align16((size_t)Wp * H * 2) +
-         align16((size_t)PT * ld_of(NR) * 2) + align16((size_t)PT * ld_of(H) * 2) +
+  return align16((size_t)H * ld_of(A) * 2) + align16((size_t)Wp * H * 2) +
+         align16((size_t)PT * ld_of(A) * 2) + align16((size_t)PT * ld_of(H) * 2) +
          align16((size_t)16 * ld_of(Wp) * 2);
 }
 
+template <int A = NR>
 __device__ __forceinline__ PairTiles carve_pair_tiles(char* base, int W) {
   PairTiles t;
   t.Wp = round_up(W, 8);
   t.ldw = ld_of(t.Wp);
   t.w1t = reinterpret_cast<bf16*>(base);
-  base += align16((size_t)H * ld_of(NR) * 2);
+  base += align16((size_t)H * ld_of(A) * 2);
   t.w2t = reinterpret_cast<bf16*>(base);
   base += align16((size_t)t.Wp * H * 2);
   t.rs = reinterpret_cast<bf16*>(base);
-  base += align16((size_t)PT * ld_of(NR) * 2);
+  base += align16((size_t)PT * ld_of(A) * 2);
   t.h = reinterpret_cast<bf16*>(base);
   base += align16((size_t)PT * ld_of(H) * 2);
   t.wt = reinterpret_cast<bf16*>(base);
@@ -172,15 +177,16 @@ __device__ __forceinline__ PairTiles carve_pair_tiles(char* base, int W) {
 // one row) per load where the rows allow it, every thread's loads issued
 // together; the input row varies fastest across a warp, so the transposed
 // stores fall into different banks
+template <int A = NR>
 __device__ __forceinline__ void load_pair_weights(const PairTiles& t, const Weights& w, int W,
                                                   int tid, int nt) {
   const bf16* w1 = (const bf16*)w.w1;
   const bf16* w2 = (const bf16*)w.w2;
-  constexpr int L1 = ld_of(NR);
+  constexpr int L1 = ld_of(A);
   if ((((uintptr_t)w1 | (uintptr_t)w2) & 15) == 0 && (W & 7) == 0) {
 #pragma unroll 2
-    for (int o = tid; o < NR * H / 8; o += nt) {  // w1 [NR][H] -> w1t [H][L1]
-      const int r = o % NR, m0 = (o / NR) * 8;
+    for (int o = tid; o < A * H / 8; o += nt) {  // w1 [A][H] -> w1t [H][L1]
+      const int r = o % A, m0 = (o / A) * 8;
       const uint4 v = __ldg(reinterpret_cast<const uint4*>(w1 + r * H + m0));
       const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
@@ -196,7 +202,7 @@ __device__ __forceinline__ void load_pair_weights(const PairTiles& t, const Weig
     }
     return;
   }
-  for (int k = tid; k < NR * H; k += nt) {  // w1 [NR][H] -> w1t [H][L1]
+  for (int k = tid; k < A * H; k += nt) {  // w1 [A][H] -> w1t [H][L1]
     const int r = k / H, m = k % H;
     t.w1t[m * L1 + r] = w1[k];
   }
@@ -208,15 +214,16 @@ __device__ __forceinline__ void load_pair_weights(const PairTiles& t, const Weig
 
 // radial layer 1 of a tile: h = rnd(silu(rs . w1 + b1)), b1 the bond or
 // dense bias of each pair's list entry; 16 output tiles over the warps
+template <int A = NR>
 __device__ __forceinline__ void radial_layer1(const PairTiles& t, const Weights& w,
                                               const int* tile, int np, int warp, int nwarps,
                                               int lane) {
-  constexpr int L1 = ld_of(NR), LH = ld_of(H);
+  constexpr int L1 = ld_of(A), LH = ld_of(H);
   for (int o = warp; o < (PT / 16) * (H / 8); o += nwarps) {
     const int m0 = (o / (H / 8)) * 16, n0 = (o % (H / 8)) * 8;
     float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int k0 = 0; k0 < NR; k0 += 16) {
+    for (int k0 = 0; k0 < A; k0 += 16) {
       uint32_t a[4], b[2];
       load_a(a, t.rs, L1, m0, k0, lane);
       load_bt(b, t.w1t, L1, n0, k0, lane);
@@ -280,6 +287,16 @@ struct TileRows {
   int F;
   __device__ __forceinline__ float operator()(int q, int, int ch) const {
     return __bfloat162float(x[q * F + ch]);
+  }
+};
+
+// the source rows in device memory, [atoms][F] bf16, read through L2 as the
+// messages need them: xq(q, src, ch)
+struct SourceRows {
+  const bf16* x;
+  int F;
+  __device__ __forceinline__ float operator()(int, int src, int ch) const {
+    return __bfloat162float(x[(long long)src * F + ch]);
   }
 };
 

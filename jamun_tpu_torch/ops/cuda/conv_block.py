@@ -102,12 +102,13 @@ def scratch_bytes(N: int, B: int, nt: int, Sc: int, Vg: int, td: int) -> int:
     return 4 * (floats + 2 * _PT + td * N + B + 1)
 
 
-def pair_tiles_bytes(W: int) -> int:
-    """The bf16 pair loop's tiles: w1 and w2 (n-major), the radial values,
-    h and half a tile of message weights."""
+def pair_tiles_bytes(W: int, A: int = N_RADIAL) -> int:
+    """The bf16 pair loop's tiles: w1 and w2 (n-major), layer 1's input (the
+    radial values, or A edge attributes of a sparse slot), h and half a tile
+    of message weights."""
     Wp = (W + 7) // 8 * 8
-    return (_align16(_H * _ld(N_RADIAL) * 2) + _align16(Wp * _H * 2)
-            + _align16(_PT * _ld(N_RADIAL) * 2) + _align16(_PT * _ld(_H) * 2)
+    return (_align16(_H * _ld(A) * 2) + _align16(Wp * _H * 2)
+            + _align16(_PT * _ld(A) * 2) + _align16(_PT * _ld(_H) * 2)
             + _align16(16 * _ld(Wp) * 2))
 
 

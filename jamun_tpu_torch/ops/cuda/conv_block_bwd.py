@@ -3,7 +3,12 @@
 Replaces `packed_conv_block_bwd` of `jamun_tpu/ops/pallas/packed_conv.py`
 (pallas_call at line 2220, kernel body `_block_bwd_kernel`). The CUDA kernel
 is `csrc/conv_block_bwd.cu`; `ops/cuda/conv_block.conv_block_trainable`
-calls it as the backward of K2.
+calls it as the backward of K2. Its f32 build runs FP32 FMAs throughout;
+its bf16 build runs the node pass's eight products (16 atoms per CTA), the
+row products (split over the rows) and the pair pass's five products (16
+source atoms per CTA) on the tensor cores. `pair_layout` and `node_layout`
+mirror the shared-memory reckoning of the pair pass and the node pass;
+`occupancy` asks the library how the card launches the pair pass.
 
 Inputs: the cotangent g of K2's output [G, N, Sc + 3Vg] f32, K2's inputs
 (x, edge features, bond indices, the packed weights of `pack_block_weights`)
@@ -31,20 +36,99 @@ import torch.nn.functional as F
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 from jamun_tpu_torch.ops.cuda.edge_features import EF_GEOM
 
-__all__ = ["conv_block_bwd", "conv_block_bwd_plain", "KERNEL", "MAX_WIDTH", "GRAD_NAMES"]
+__all__ = [
+    "conv_block_bwd", "conv_block_bwd_plain", "KERNEL", "MAX_WIDTH", "GRAD_NAMES", "pair_layout",
+    "node_layout", "occupancy",
+]
 
 N_RADIAL = 32
 MAX_WIDTH = 384  # 2S + 3V: one thread per radial channel, at most 384 threads
-TS = 8  # source atoms per block of the pair pass (csrc/conv_block_bwd.cu)
+MAX_SMEM = 232448  # bytes of shared memory one block may use on the H100
+TS = {torch.float32: 8, torch.bfloat16: 16}  # source atoms per CTA of the pair pass
 PART = (N_RADIAL + 2) * 64  # per-block partial of [dw1; db1d; db1b], then dw2, db2
+_PT = 32  # pairs per tile of the bf16 pair pass
+_AT, _RC = 32, 256  # the bf16 row products: output tile edge, rows per chunk
 GRAD_NAMES = ("w1", "b1d", "b1b", "w2", "b2", "pl0", "pl1", "lin20", "lin21", "sk0", "sk1")
 _INV_SQRT3 = 1.0 / math.sqrt(3.0)
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 34 + [_I] * 7 + [_P]
-KERNEL = CudaKernel("conv_block_bwd", {"conv_block_bwd_f32": _ARGS, "conv_block_bwd_bf16": _ARGS})
+KERNEL = CudaKernel("conv_block_bwd", {
+    "conv_block_bwd_f32": _ARGS, "conv_block_bwd_bf16": _ARGS, "conv_block_bwd_smem": [_I] * 5,
+    "conv_block_bwd_occupancy": [_I] * 5 + [_P],
+})
 _ENTRY = {torch.float32: "conv_block_bwd_f32", torch.bfloat16: "conv_block_bwd_bf16"}
+_OCCUPANCY = ("threads", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "sources_per_cta")
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _ld(k: int) -> int:
+    return (k + 15) // 16 * 16 + 8
+
+
+def pair_layout(N: int, B: int, S: int, V: int, cdt=torch.bfloat16) -> dict:
+    """How K4's pair pass is launched at these sizes (the mirror of
+    `conv_block_bwd_smem`): threads, bytes of shared memory per CTA and
+    source atoms per CTA. bf16 (`pair_layout` of the source): the weights
+    (w2 n-major), the tile's operand tiles of 32 pairs (radial features both
+    ways, h both ways, h32, w, d_w_all both ways, d_h32), the CTA's 16 source
+    rows and their dx sums, the dW1 sums, the tile's pair data and the list
+    of 16 N + B entries. f32 (`pair_smem`): the FMA pass's f32 scratch for 8
+    sources."""
+    W, F = 2 * S + 3 * V, S + 3 * V
+    nt = max(64, (W + 31) // 32 * 32)
+    if cdt == torch.bfloat16:
+        Wk = (W + 15) // 16 * 16
+        LR, LH, LP, ldw = _ld(N_RADIAL), _ld(64), _ld(_PT), _ld(Wk)
+        parts = [64 * LR * 2, Wk * 64 * 2, _PT * LR * 2, 48 * LP * 2, _PT * LH * 2, 64 * LP * 2,
+                 _PT * 64 * 4, _PT * ldw * 2, _PT * ldw * 2, Wk * LP * 2, 64 * LP * 2, 16 * F * 2,
+                 16 * F * 4, PART * 4, _PT * 6 * 4, 17 * 4, (16 * N + B) * 4]
+        smem = sum(_a16(b) for b in parts)
+    else:
+        CS = 2 * S + 9 * V
+        floats = (2 * 64 * 16 + N_RADIAL * 64 + W * 65 + 16 * N_RADIAL + 16 * W + 16 * CS
+                  + 2 * 8 * F + PART + 16 * 3)
+        smem = 4 * (floats + 3 * 16 + 8 * N + B + 1)
+    return dict(threads=nt, smem_bytes=smem, sources_per_cta=TS[cdt])
+
+
+def node_layout(S: int, V: int, Sc: int, Vg: int, cdt=torch.bfloat16) -> dict:
+    """How K4's node pass is launched (the mirror of `node_layout` and
+    `node_smem`): bytes of shared memory per CTA and atoms per CTA. bf16:
+    the A tiles of 16 atoms (in0, in1 per component, g0, g1, d_conv0,
+    d_conv1; [rows][ld(K)] bf16) and the f32 results (conv0, conv1,
+    d_gated, d_scal). f32: 8 atoms' f32 scratch."""
+    C0 = Sc + Vg
+    if cdt == torch.bfloat16:
+        parts = [16 * _ld(S + V) * 2, 48 * _ld(S + 2 * V) * 2, 16 * _ld(Sc) * 2, 48 * _ld(Vg) * 2,
+                 16 * _ld(C0) * 2, 48 * _ld(Vg) * 2, 16 * C0 * 4, 48 * Vg * 4, 48 * Vg * 4, 16 * Sc * 4]
+        return dict(smem_bytes=sum(_a16(b) for b in parts), atoms_per_cta=16)
+    return dict(smem_bytes=8 * (2 * C0 + 9 * Vg + Sc) * 4, atoms_per_cta=8)
+
+
+def occupancy(N: int, B: int, S: int, V: int, cdt=torch.bfloat16) -> dict:
+    """`pair_layout` as the library reckons it, with what the current card
+    makes of the pair pass: registers and local (spill) bytes per thread,
+    CTAs resident per SM."""
+    out = (ctypes.c_int * len(_OCCUPANCY))()
+    err = KERNEL.fn("conv_block_bwd_occupancy")(int(cdt == torch.bfloat16), N, B, S, V,
+                                                ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"conv_block_bwd.conv_block_bwd_occupancy failed with CUDA error {err}")
+    return dict(zip(_OCCUPANCY, out))
+
+
+def _row_product_partials(M: int, S: int, V: int, Sc: int, Vg: int) -> int:
+    """Floats of the bf16 row products' chunk partials: per product [K, Q]
+    over M * ncomp rows, one 32 x 32 tile per chunk of 256 rows."""
+    jobs = [(S + V, Sc + Vg, 1), (S + 2 * V, Vg, 3), (Sc, Sc, 1), (Vg, Vg, 3), (S, Sc, 1), (V, Vg, 3)]
+    tiles = lambda n: (n + _AT - 1) // _AT  # noqa: E731
+    return sum(tiles(K) * tiles(Q) * ((M * c + _RC - 1) // _RC) * _AT * _AT
+               for K, Q, c in jobs if K and Q)
 
 
 def node_row_width(S: int, V: int, Sc: int, Vg: int) -> int:
@@ -202,6 +286,12 @@ def conv_block_bwd(g, x, ef, bf, bond_src, bond_dst, w, agg, deg) -> dict:
             f"conv_block_bwd: radial width {W} (max {MAX_WIDTH}) / "
             f"{ef.shape[-1] - EF_GEOM} radial functions (want {N_RADIAL})"
         )
+    if cdt in TS and pair_layout(N, B, S, V, cdt)["smem_bytes"] > MAX_SMEM:
+        raise NotImplementedError(
+            f"conv_block_bwd: N={N}, B={B}: the pair pass's list of its sources' pairs does not "
+            f"fit a block's shared memory (K2's regime, N <= 128, does); see ROADMAP.md queue A, "
+            f"'What training still lacks'"
+        )
     f32 = torch.float32
     checks = [
         ("g", g, f32, (G, N, Sc + 3 * Vg)),
@@ -239,11 +329,15 @@ def conv_block_bwd(g, x, ef, bf, bond_src, bond_dst, w, agg, deg) -> dict:
         "pl0": empty(S + V, Sc + Vg), "pl1": empty(S + 2 * V, Vg),
         "lin20": empty(Sc, Sc), "lin21": empty(Vg, Vg), "sk0": empty(S, Sc), "sk1": empty(V, Vg),
     }
-    # scratch: d_pre per atom, the node pass's rows, the pair pass's partials
-    n_blocks = G * ((N + TS - 1) // TS)
+    # scratch: d_pre per atom, the node pass's rows, the pair pass's block
+    # partials (in bf16 also the row products' chunk partials, first)
+    n_blocks = G * ((N + TS[cdt] - 1) // TS[cdt])
     d_pre = empty(G, N, 3, W)
     rows = empty(G * N, node_row_width(S, V, Sc, Vg))
-    partials = empty(n_blocks, PART + 64 * W + W)
+    n_part = n_blocks * (PART + 64 * W + W)
+    if cdt == torch.bfloat16:
+        n_part = max(n_part, _row_product_partials(G * N, S, V, Sc, Vg))
+    partials = empty(n_part)
     KERNEL.launch(
         _ENTRY[cdt],
         g.data_ptr(), x.data_ptr(), ef.data_ptr(), bf.data_ptr(), bond_src.data_ptr(),

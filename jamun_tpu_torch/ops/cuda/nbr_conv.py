@@ -4,7 +4,11 @@ plain twin).
 Replaces `nbr_uvu_conv` of `jamun_tpu/ops/pallas/nbr_conv.py` (pallas_call
 at line 371), which the JAX model runs in every ConvBlock of a forward
 without a gradient on the sparse path. The CUDA kernel is
-`csrc/nbr_conv.cu`.
+`csrc/nbr_conv.cu`: its f32 build runs FP32 FMAs for 16 destination atoms
+per CTA, its bf16 build runs both radial layers on the tensor cores for 8
+atoms per CTA (`csrc/conv_block_mma.cuh`); `layout` mirrors their
+shared-memory reckoning and `occupancy` asks the library how the card
+launches them.
 
 Inputs: source features x [G, N, S + 3V] (packed irreps, compute dtype),
 per slot the spherical harmonics sh [G, N, K, 4] and edge attributes
@@ -25,21 +29,65 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 from jamun_tpu_torch.ops.cuda.conv_block import MAX_WIDTH
 from jamun_tpu_torch.ops.fast_uvu import uvu_messages
 from jamun_tpu_torch.ops.neighbors import gather_neighbors
 
-__all__ = ["nbr_uvu_conv", "nbr_uvu_conv_plain", "KERNEL", "ATTR_WIDTHS", "MAX_SLOTS"]
+__all__ = [
+    "nbr_uvu_conv", "nbr_uvu_conv_plain", "KERNEL", "ATTR_WIDTHS", "MAX_SLOTS", "MAX_ATOMS_BF16",
+    "layout", "occupancy",
+]
 
 ATTR_WIDTHS = (32, 64)  # A: the radial half, or the whole edge attributes
 RADIAL_HIDDEN = 64
 MAX_SLOTS = 256  # K the kernel takes (`nbr_conv.cu`'s MAX_SLOTS)
+# N the bf16 build takes: a tile's pair data packs dst slot << 16 | source
+# atom into one word (`mma::pair_info`)
+MAX_ATOMS_BF16 = (1 << 16) - 1
+_LIMITS = "ROADMAP.md queue A, 'Sparse messages from 65536 atoms on'"
+_TD = {torch.float32: 16, torch.bfloat16: 8}  # dst atoms per CTA (TDN, TDM)
+_PT = 32  # slots per tile
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 11 + [_I] * 6 + [_P]
-KERNEL = CudaKernel("nbr_conv", {"nbr_conv_f32": _ARGS, "nbr_conv_bf16": _ARGS})
+KERNEL = CudaKernel("nbr_conv", {
+    "nbr_conv_f32": _ARGS, "nbr_conv_bf16": _ARGS, "nbr_conv_smem": [_I] * 5,
+    "nbr_conv_occupancy": [_I] * 5 + [_P],
+})
 _ENTRY = {torch.float32: "nbr_conv_f32", torch.bfloat16: "nbr_conv_bf16"}
+_OCCUPANCY = ("threads", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "atoms_per_cta")
+
+
+def layout(A: int, K: int, S: int, V: int, cdt=torch.bfloat16) -> dict:
+    """How K6 is launched at these sizes (the mirror of `nbr_conv_smem`):
+    threads, bytes of shared memory per CTA and dst atoms per CTA. bf16
+    (`mma_layout`): the accumulators, degree and list length of 8 atoms,
+    then a tile's pair data, the operand tiles (layer 1 A wide) and the
+    list of 8 K slots with their sources. f32 (`nbr_words`): the FMA CTA's
+    f32 scratch and its list for 16 atoms."""
+    nt, W = k2.threads_for(2 * S + 3 * V), 2 * S + 3 * V
+    td = _TD[cdt]
+    if cdt == torch.bfloat16:
+        a16 = k2._align16
+        smem = (a16(td * 3 * nt * 4) + a16(td * 4) + 16 + a16(_PT * 16)
+                + k2.pair_tiles_bytes(W, A) + 2 * a16(td * K * 4))
+    else:
+        floats = A * 64 + 64 * _PT + _PT * A + _PT * 3 + td + td * 3 * nt
+        smem = 4 * (floats + 2 * _PT + td * K + 1)
+    return dict(threads=nt, smem_bytes=smem, atoms_per_cta=td)
+
+
+def occupancy(A: int, K: int, S: int, V: int, cdt=torch.bfloat16) -> dict:
+    """`layout` as the library reckons it, with what the current card makes
+    of the build: registers and local (spill) bytes per thread, CTAs
+    resident per SM."""
+    out = (ctypes.c_int * len(_OCCUPANCY))()
+    err = KERNEL.fn("nbr_conv_occupancy")(int(cdt == torch.bfloat16), A, K, S, V, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"nbr_conv.nbr_conv_occupancy failed with CUDA error {err}")
+    return dict(zip(_OCCUPANCY, out))
 
 
 def nbr_uvu_conv_plain(x, sh, attr, idx, mask, w1, b1, w2, b2, S: int, V: int):
@@ -62,7 +110,8 @@ def nbr_uvu_conv(
     """(messages [G, N, 4S + 7V] f32, degree [G, N] f32). CPU tensors take
     the plain version; CUDA tensors launch the kernel. Shapes outside the
     kernel (A not 32 or 64, a hidden width other than 64, 2S + 3V above
-    384, K above 256) raise NotImplementedError on the card."""
+    384, K above 256, in bf16 N from 65536 atoms on) raise
+    NotImplementedError on the card."""
     if x.device.type == "cpu":
         return nbr_uvu_conv_plain(x, sh, attr, idx, mask, w1, b1, w2, b2, S, V)
     if x.device.type != "cuda":
@@ -77,6 +126,11 @@ def nbr_uvu_conv(
             f"nbr_uvu_conv: {A} edge attributes (want one of {ATTR_WIDTHS}), radial hidden width "
             f"{w1.shape[-1]} (want {RADIAL_HIDDEN}), radial width {W} (max {MAX_WIDTH}), "
             f"K={K} (max {MAX_SLOTS})"
+        )
+    if cdt == torch.bfloat16 and N > MAX_ATOMS_BF16:
+        raise NotImplementedError(
+            f"nbr_uvu_conv: N={N} atoms in bf16 (max {MAX_ATOMS_BF16}: a tile packs the source "
+            f"atom into 16 bits); see {_LIMITS}"
         )
     f32 = torch.float32
     checks = [

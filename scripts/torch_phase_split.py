@@ -1,33 +1,41 @@
 """Where the time of the ConvBlock kernels goes, by phase: the per-layer
 kernel (K2, `csrc/conv_block.cu`), the whole-model kernel (K3,
 `csrc/e3_stack.cu`), the tiled ConvBlock from the positions (K5,
-`csrc/fused_block_tiled.cu`) and the dense messages (K8/K9,
-`csrc/dense_conv.cu`).
+`csrc/fused_block_tiled.cu`), the dense messages (K8/K9,
+`csrc/dense_conv.cu`), the sparse messages (K6, `csrc/nbr_conv.cu`) and the
+ConvBlock backward (K4, `csrc/conv_block_bwd.cu`).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
-    python3 scripts/torch_phase_split.py [--kernels K2,K3,K5,K9] [--time-only] [--out FILE]
+    python3 scripts/torch_phase_split.py [--kernels K2,K3,K5,K9,K6,K4] [--time-only] [--out FILE]
 
 Copies the sources and the headers into `jamun_tpu_torch/_build/
 phase_split/` and adds a `clock64()` stamp after every `__syncthreads()` (and
-`cluster.sync()`) of every ConvBlock kernel of those sources, both builds
-(f32 and bf16), of the pair loop of `tiled_pairs_mma.cuh` and of the
-epilogue steps of `conv_block_body.cuh` and `conv_block_mma.cuh`: thread 0
-of each CTA adds the cycles since the previous stamp to that stamp's slot,
-and the slots are summed over the CTAs of five launches. Builds the copies
-with nvcc beside the real libraries, loads them into the wrappers, and
-prints, at the flagship width with random weights from seed 0 and in bf16
-(K5 and K9 also in f32): K2 (hidden block and projector, 4AA N = 44,
-G = 256 and 5AA N = 112, G = 128), K3 (4AA and 2AA N = 19, G = 256), K5
-(hidden block and projector at 4AA, at the N = 256 walk's first frame,
-G = 64, and at N = 512, G = 16) and K9 (hidden block at 4AA, 5AA and
-N = 256, G = 16) with K8 at the projector's width (V = 0, 4AA): each
-launch's time (CUDA events, of the stamped build), the cycles per CTA and
-each stamp's share, labelled with the line before it. A stamp's share is the time of
-thread 0 between two barriers, so it counts the slowest warp of that step.
-Then it times, at the same shapes in bf16, builds that leave out one step
-(the message loop, radial layer 2, the message loop's flushes; their
-outputs are wrong, their times say what the step costs) against the real
-build. The kernels' own builds are untouched. With `--time-only` it times
+`cluster.sync()`) of every ConvBlock kernel of those sources (of K4 its pair
+pass alone), both builds (f32 and bf16), of the pair loop of
+`tiled_pairs_mma.cuh` and of the epilogue steps of `conv_block_body.cuh` and
+`conv_block_mma.cuh`: thread 0 of each CTA adds the cycles since the
+previous stamp to that stamp's slot, and the slots are summed over the CTAs
+of five launches. Builds the copies with nvcc beside the real libraries,
+loads them into the wrappers, and prints, at the flagship width with random
+weights from seed 0 and in bf16 (K5, K9, K6 and K4 also in f32): K2 (hidden
+block and projector, 4AA N = 44, G = 256 and 5AA N = 112, G = 128), K3 (4AA
+and 2AA N = 19, G = 256), K5 (hidden block and projector at 4AA, at the
+N = 256 walk's first frame, G = 64, and at N = 512, G = 16), K9 (hidden
+block at 4AA, 5AA and N = 256, G = 16) with K8 at the projector's width
+(V = 0, 4AA), K6 (hidden block and projector on `bench.py`'s N = 512, G = 8
+chain with the skin-1.0 Verlet list, on the model's edge attributes, A = 64,
+and on the edge-features kernel's radial half, A = 32, and at N = 1024,
+G = 2 with the list of one forward) and K4 (hidden block and projector at
+the training shape, G = 32 graphs of 44 atoms padded to N = 48, and at
+N = 112, G = 32): each launch's time (CUDA events, of the stamped build),
+the cycles per CTA and each stamp's share, labelled with the line before
+it. A stamp's share is the time of thread 0 between two barriers, so it
+counts the slowest warp of that step. K4 launches four kernels; a copy with
+a CUDA event after each (and no stamps) times them one by one. Then it
+times, at the same shapes in bf16, builds that leave out one step (the
+message loop, radial layer 2, the message loop's flushes; K4's dh product
+and its dW1 sums; their outputs are wrong, their times say what the step
+costs) against the real build. The kernels' own builds are untouched. With `--time-only` it times
 the real builds alone at the same shapes (20 launches each), builds nothing
 else and needs nothing of this script beyond the wrappers and
 `chip_smoke.py`: copied into a checkout of another commit, it times that
@@ -39,6 +47,7 @@ non-zero without a card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import re
 import shutil
@@ -54,10 +63,16 @@ sys.path.insert(0, str(ROOT))
 from jamun_tpu_torch.ops.cuda.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
 
 OUT = BUILD_DIR / "phase_split"
+EVENTS = OUT / "events"  # K4's copy with a CUDA event after each launch
 SLOTS = 48  # stamp slots; the last holds the CTA count
 END = 40  # the slot of each kernel's end
 # the sources of each kernel of the split
-SOURCES = {"K2": "conv_block", "K3": "e3_stack", "K5": "fused_block_tiled", "K9": "dense_conv"}
+SOURCES = {"K2": "conv_block", "K3": "e3_stack", "K5": "fused_block_tiled", "K9": "dense_conv",
+           "K6": "nbr_conv", "K4": "conv_block_bwd"}
+# the kernel functions stamped where a source has others (K4: the pair pass)
+STAMPED = {"conv_block_bwd": ("pair_kernel", "pair_mma_kernel")}
+# the sources that run the ConvBlock steps of the headers
+FORWARD = ("conv_block", "e3_stack", "fused_block_tiled", "dense_conv", "nbr_conv")
 # the shared steps stamped in the headers: header -> (tag, first slot,
 # functions); a kernel's own stamps take 0..19
 HEADER_SLOTS = {
@@ -65,23 +80,37 @@ HEADER_SLOTS = {
     "conv_block_mma.cuh": ("mma", 30, ("void post_linear(", "void epilogue(")),
     "conv_block_body.cuh": ("body", 36, ("void epilogue(",)),
 }
-# builds that leave one step out: label -> (text, replacement), applied to
-# every copied file that holds the text (at least one must)
+# builds that leave one step out: label -> (the sources it applies to,
+# [(text, replacement)]), applied to every copied file that holds the text
+# (at least one must)
 SKIPS = {
-    "without the message loop": [
+    "without the message loop": (FORWARD, [
         ("if (c < W) mma::messages(", "if (c < 0) mma::messages("),  # tensor-core builds
         ("if (has_c) messages<T>(", "if (false) messages<T>("),  # FMA builds (layer 2 with it)
-    ],
-    "without radial layer 2": [
+    ]),
+    "without radial layer 2": (FORWARD, [
         ("    radial_layer2(t, b2, W, m0, warp, lane);\n", "\n"),
         ("    for (int k = 0; k < H; ++k) {\n      float4 hv", "    for (int k = 0; k < 0; ++k) {\n      float4 hv"),
-    ],
-    "without the message flushes": [(
+    ]),
+    "without the message flushes": (FORWARD, [(
         "      if (td != st.cur) {\n        flush(s, st, c, true, nt);\n        st.cur = td;\n      }",
         "      st.cur = td;",
-    )],
+    )]),
+    "without the dh product": (("conv_block_bwd",), [
+        # the FMA pair pass (both builds before the tensor-core redesign, f32 after it)
+        ("for (int cc = 0; cc < W; ++cc) s += dws[", "for (int cc = 0; cc < 0; ++cc) s += dws["),
+        # the tensor-core pair pass
+        ("for (int k0 = 0; k0 < Wk; k0 += 16) {  // dh", "for (int k0 = 0; k0 < 0; k0 += 16) {  // dh"),
+    ]),
+    "without the dW1 sums": (("conv_block_bwd",), [
+        ("for (int q = 0; q < np; ++q) {\n        // rows NR and NR + 1",
+         "for (int q = 0; q < 0; ++q) {\n        // rows NR and NR + 1"),
+        ("for (int k0 = 0; k0 < PTM; k0 += 16) {  // dW1", "for (int k0 = 0; k0 < 0; k0 += 16) {  // dW1"),
+    ]),
 }
 PRELUDE = r"""
+#ifndef PHASE_PRELUDE
+#define PHASE_PRELUDE
 __device__ unsigned long long g_phase[48];
 __device__ __forceinline__ long long* phase_slots() { __shared__ long long ph[49]; return ph; }
 #define STAMP(k) if (threadIdx.x == 0) { long long* ph_ = phase_slots(); long long t_ = clock64(); \
@@ -97,8 +126,39 @@ extern "C" __attribute__((weak)) int phase_read(unsigned long long* out) {
   cudaMemcpyToSymbol(g_phase, z, sizeof(z));
   return (int)e;
 }
+// CUDA events between the launches of one wrapper call (K4's kernels): event
+// k follows launch k of the source's text; a launch the call skips (the
+// other build's) records none and reads -1
+static cudaEvent_t g_phase_ev[16];
+static int g_phase_hit[16];
+static int g_phase_nev = 0;
+#define PHASE_EVENT(k, s) if (g_phase_nev > (k)) { cudaEventRecord(g_phase_ev[k], (cudaStream_t)(s)); \
+  g_phase_hit[k] = 1; }
+extern "C" __attribute__((weak)) int phase_events(int n) {
+  for (int k = g_phase_nev; k < n; ++k) cudaEventCreate(&g_phase_ev[k]);
+  for (int k = 0; k < 16; ++k) g_phase_hit[k] = 0;
+  g_phase_nev = n;
+  return (int)cudaGetLastError();
+}
+extern "C" __attribute__((weak)) int phase_event_ms(float* out) {
+  int last = 0;
+  for (int k = 0; k < g_phase_nev; ++k) last = g_phase_hit[k] ? k : last;
+  cudaError_t e = cudaEventSynchronize(g_phase_ev[last]);
+  int prev = 0;
+  for (int k = 1; k < g_phase_nev; ++k) {
+    out[k - 1] = -1.0f;
+    if (g_phase_hit[k]) {
+      cudaEventElapsedTime(&out[k - 1], g_phase_ev[prev], g_phase_ev[k]);
+      prev = k;
+    }
+  }
+  for (int k = 0; k < 16; ++k) g_phase_hit[k] = 0;
+  return (int)e;
+}
+#endif
 """
-KERNEL_RE = re.compile(r"__global__ void __launch_bounds__\(MAX_THREADS\) (\w+)\(")
+KERNEL_RE = re.compile(r"__global__ void __launch_bounds__\(MAX_THREADS(?:, \d+)?\) (\w+)\(")
+LAUNCH_RE = re.compile(r"^\s*(\w+)(?:<[^<>]*>)?<<<")
 
 
 def _body(src: str, start: int) -> tuple:
@@ -124,9 +184,35 @@ def _stamp(src: str, signature: str, first: int, tag: str, labels: dict) -> tupl
             out.append(f"STAMP({k})")
             labels[f"{tag}:{k}"] = f"after '{prev.strip()[:70]}'"
             k += 1
-        if line.strip():
+        if line.strip().strip("{};"):  # the label skips lines of braces alone
             prev = line
     return src[:i] + "\n".join(out) + src[j:], k
+
+
+def _with_prelude(src: str) -> str:
+    """A source with the stamps' prelude after its last #include (a no-op
+    where a header brought it already)."""
+    at = src.index("\n", src.rindex("#include")) + 1
+    return src[:at] + PRELUDE + src[at:]
+
+
+def _with_events(src: str) -> tuple:
+    """K4's source with a CUDA event before the first launch of each branch
+    (one build's launches, then the other's after `} else {`) and after each
+    launch of its `launch` function; returns it and the launches' names."""
+    i, j = _body(src, src.index("int launch(const Params& p, void* stream)"))
+    out, names, first = [], [], True
+    for line in src[i:j].split("\n"):
+        first = first or (bool(names) and "} else {" in line)
+        m = LAUNCH_RE.match(line)
+        if m and first:
+            first = False
+            out.append("  PHASE_EVENT(0, stream)")
+        out.append(line)
+        if m:
+            names.append(m.group(1))
+            out.append(f"  PHASE_EVENT({len(names)}, stream)")
+    return src[:i] + "\n".join(out) + src[j:], names
 
 
 def make_copies(names) -> dict:
@@ -147,9 +233,12 @@ def make_copies(names) -> dict:
             hdr, k = _stamp(hdr, fn, k, tag, labels)
         (OUT / header).write_text(hdr)
     for name in names:
-        src = (CSRC / f"{name}.cu").read_text()
-        for kernel in KERNEL_RE.findall(src):
-            sig = f"__global__ void __launch_bounds__(MAX_THREADS) {kernel}("
+        src = _with_prelude((CSRC / f"{name}.cu").read_text())
+        for m in KERNEL_RE.finditer(src):
+            kernel = m.group(1)
+            if kernel not in STAMPED.get(name, (kernel,)):
+                continue
+            sig = m.group(0)
             src, k = _stamp(src, sig, 0, kernel, labels)
             assert k <= 20, (kernel, k)
             i, _ = _body(src, src.index(sig))
@@ -162,32 +251,49 @@ def make_copies(names) -> dict:
 
 
 def make_skips(names) -> dict:
-    """Write one directory of unstamped copies per entry of SKIPS."""
+    """Write one directory of unstamped copies per entry of SKIPS that
+    applies to one of `names`; returns label -> (directory, its sources)."""
     dirs = {}
-    for i, (label, edits) in enumerate(SKIPS.items()):
+    for i, (label, (applies, edits)) in enumerate(SKIPS.items()):
+        mine = [n for n in names if n in applies]
+        if not mine:
+            continue
         d = OUT / f"skip{i}"
         d.mkdir(parents=True, exist_ok=True)
         hits = 0
-        for f in (*CSRC.glob("*.cuh"), *(CSRC / f"{n}.cu" for n in names)):
+        for f in (*CSRC.glob("*.cuh"), *(CSRC / f"{n}.cu" for n in mine)):
             src = f.read_text()
             for text, repl in edits:
                 hits += src.count(text)
                 src = src.replace(text, repl)
             (d / f.name).write_text(src)
         assert hits, label
-        dirs[label] = d
+        dirs[label] = (d, mine)
     return dirs
 
 
-def build(dirs, names) -> dict:
-    """Build the sources `names` in each directory, all at once; returns the
-    loaded libraries by (directory, source)."""
+def make_events(names) -> dict:
+    """K4's unstamped copy with a CUDA event around each launch; returns
+    source -> the names of its launches (empty without K4)."""
+    if "conv_block_bwd" not in names:
+        return {}
+    EVENTS.mkdir(parents=True, exist_ok=True)
+    for h in CSRC.glob("*.cuh"):
+        shutil.copy(h, EVENTS / h.name)
+    src, launches = _with_events(_with_prelude((CSRC / "conv_block_bwd.cu").read_text()))
+    (EVENTS / "conv_block_bwd.cu").write_text(src)
+    return {"conv_block_bwd": launches}
+
+
+def build(jobs) -> dict:
+    """Build the sources of each directory (directory -> names), all at
+    once; returns the loaded libraries by (directory, source)."""
     procs = {
         (d, name): subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(d / f"{name}.so"), str(d / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for d in dirs for name in names
+        for d, names in jobs.items() for name in names
     }
     libs = {}
     for (d, name), proc in procs.items():
@@ -195,9 +301,11 @@ def build(dirs, names) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {d / name}.cu:\n{log}")
         libs[d, name] = ctypes.CDLL(str(d / f"{name}.so"))
-    for name in names:
-        libs[OUT, name].phase_read.argtypes = [ctypes.c_void_p]
-        libs[OUT, name].phase_read.restype = ctypes.c_int
+        for fn, argtypes in (("phase_read", [ctypes.c_void_p]), ("phase_events", [ctypes.c_int]),
+                             ("phase_event_ms", [ctypes.c_void_p])):
+            if hasattr(libs[d, name], fn):
+                getattr(libs[d, name], fn).argtypes = argtypes
+                getattr(libs[d, name], fn).restype = ctypes.c_int
     return libs
 
 
@@ -224,10 +332,14 @@ def main() -> int:
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import conv_block as k2
+    from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
     from jamun_tpu_torch.ops.cuda import dense_conv as k89
     from jamun_tpu_torch.ops.cuda import e3_stack as k3
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+    from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+    from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
     from jamun_tpu_torch.utils.testing import make_test_batch
 
     args = sys.argv[1:]
@@ -239,7 +351,8 @@ def main() -> int:
     if not time_only:
         labels = make_copies(names)
         skips = make_skips(names)
-        libs = build([OUT, *skips.values()], names)
+        launch_names = make_events(names)
+        libs = build({OUT: names, EVENTS: list(launch_names), **dict(skips.values())})
     dev = torch.device("cuda")
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(cs.SIGMA, config.average_squared_distance)
@@ -262,8 +375,11 @@ def main() -> int:
         st = slots(lib)
         total = sum(st[:SLOTS - 1])
         # the kernel function of this build: the tensor-core one in bf16
-        kernels = [k for k in KERNEL_RE.findall((OUT / kernel.source.name).read_text())
-                   if ("_mma_kernel" in k) == (cdt == torch.bfloat16)]
+        # where the source has one, else the one template of both builds
+        found = KERNEL_RE.findall((OUT / kernel.source.name).read_text())
+        kernels = [k for k in found if ("_mma_kernel" in k) == (cdt == torch.bfloat16)]
+        if not any("_mma_kernel" in k for k in found):
+            kernels = found
 
         def label(i):
             for key in (*kernels, "pairs", "mma", "body"):
@@ -282,12 +398,33 @@ def main() -> int:
     def skipped(tag, kernel, name, fn):
         kernel._lib = None  # the real build
         times = {"the real build": cs.cuda_time_ms(fn, 10)}
-        for label, d in skips.items():
-            use(kernel, libs[d, name])
-            times[label] = cs.cuda_time_ms(fn, 10)
+        for label, (d, mine) in skips.items():
+            if name in mine:
+                use(kernel, libs[d, name])
+                times[label] = cs.cuda_time_ms(fn, 10)
         kernel._lib = None
         report[tag]["skip_ms"] = times
         print(f"{tag}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+
+    def by_launch(tag, kernel, name, fn, reps=20):
+        """The time of each launch of one wrapper call (CUDA events between
+        them, in the unstamped copy), averaged over `reps` calls."""
+        lib = libs[EVENTS, name]
+        use(kernel, lib)
+        n = len(launch_names[name])
+        assert lib.phase_events(n + 1) == 0
+        buf, total = (ctypes.c_float * n)(), [0.0] * n
+        fn()
+        for _ in range(reps):
+            fn()
+            assert lib.phase_event_ms(ctypes.addressof(buf)) == 0
+            total = [t + b for t, b in zip(total, buf)]
+        assert lib.phase_events(0) == 0
+        kernel._lib = None
+        times = {k: t / reps for k, t in zip(launch_names[name], total) if t >= 0}
+        report[tag]["launch_ms"] = times
+        print(f"{tag}: by launch " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
+              flush=True)
 
     def split(tag, kernel, name, fn, cdt):
         if time_only:
@@ -297,6 +434,8 @@ def main() -> int:
             print(f"{tag} {str(cdt).split('.')[-1]}: the real build {ms:.4f} ms", flush=True)
             return
         measure(f"{tag} {str(cdt).split('.')[-1]}", kernel, libs[OUT, name], fn, cdt)
+        if name in launch_names:
+            by_launch(f"{tag} {str(cdt).split('.')[-1]}", kernel, name, fn)
         if cdt == torch.bfloat16:
             skipped(f"{tag} bfloat16", kernel, name, fn)
 
@@ -355,7 +494,55 @@ def main() -> int:
                     kernel, fn = (k89.K9, k89.fused_uvu_conv_dense) if V else (k89.K8, k89.packed_uvu_conv_dense)
                     split(f"{'K9' if V else 'K8'} {block_name} {label}", kernel, "dense_conv",
                           lambda: fn(*a), cdt)
-    for k in (k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K8, k89.K9):
+    if "nbr_conv" in names:
+        # K6 on `bench.py`'s chains: N = 512, G = 8 with the skin-1.0 list (the
+        # model's attributes, A = 64, and K7's radial half, A = 32), and
+        # N = 1024, G = 2 with the list of one forward (A = 64)
+        for label, (N, G), cached in (("N512 cached", (512, 8), True), ("N1024", (1024, 2), False)):
+            batch = cs.chain_batch(N, G, dev)
+            scaled = batch.replace_pos((batch.pos * c_in).contiguous())
+            list_cutoff = cutoff + cs.NBR_SKIN * c_in if cached else cutoff
+            idx, superset, _ = capped_neighbor_lists(scaled.pos, batch.node_mask, list_cutoff, 32)
+            for cdt, model in models.items():
+                edges, _ = model._sparse_edges(scaled, cutoff, (idx, superset) if cached else None, True)
+                variants = [("A64", edges)]
+                if cached:
+                    sh, rad, mask, nidx = k7.nbr_edge_features(scaled.pos, idx, superset, cutoff, 32, cdt)
+                    variants.append(("A32", dataclasses.replace(
+                        edges, sh_nbr=sh, attr_nbr=rad, nbr_mask=mask, nbr_idx=nidx)))
+                for variant, ed in variants:
+                    for block_name, blk, S, V in blocks(model):
+                        x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                        a = blk.Conv_0.nbr_kernel_args(x, ed)
+                        split(f"K6 {block_name} {variant} {label}", k6.KERNEL, "nbr_conv",
+                              lambda: k6.nbr_uvu_conv(*a), cdt)
+    if "conv_block_bwd" in names:
+        # K4 on K2's residuals at the training shape (G = 32 graphs of 44
+        # atoms, N = 48) and at N = 112, G = 32, as chip_smoke's phase 5
+        bconfig = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3)
+        bc_in = normalization_factors(cs.SIGMA, bconfig.average_squared_distance)[0]
+        bcutoff = Denoiser(models[torch.float32], bconfig).effective_radial_cutoff(cs.SIGMA) / bc_in
+        for label, kw in (
+            ("train", dict(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96)),
+            ("N112", dict(num_graphs=32, max_nodes=112, nodes_per_graph=[112] * 32, max_bonds=224,
+                          scale=0.35)),
+        ):
+            batch = make_test_batch(**kw, device=dev)
+            G, N = batch.pos.shape[:2]
+            geo = ((batch.pos * bc_in).contiguous(), batch.node_mask, batch.bond_src, batch.bond_dst,
+                   batch.bond_mask, bcutoff, 32)
+            for cdt, model in models.items():
+                ef, bf = k1.edge_features(*geo, cdt)
+                for block_name, blk, S, V in blocks(model):
+                    w = block_weights(model, blk, S, V, cdt)
+                    x = torch.randn((G, N, S + 3 * V), generator=gen, device=dev).to(cdt)
+                    out, agg, deg = k2.fused_conv_block(x, ef, bf, batch.bond_src, batch.bond_dst, w,
+                                                        residuals=True)
+                    g = torch.randn(out.shape, generator=gen, device=dev)
+                    a = (g, x, ef, bf, batch.bond_src, batch.bond_dst, w, agg, deg)
+                    split(f"K4 {block_name} {label}", k4.KERNEL, "conv_block_bwd",
+                          lambda: k4.conv_block_bwd(*a), cdt)
+    for k in (k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K8, k89.K9, k6.KERNEL, k4.KERNEL):
         k._lib = None
     if out_path:
         Path(out_path).write_text(json.dumps(report, indent=1))

@@ -238,6 +238,96 @@ def test_conv_block_bwd_matches_plain_twin(cuda, cdt):
     assert k4.KERNEL.launches - n4 == 2
 
 
+@pytest.mark.parametrize("A", [64, 32])
+def test_sparse_messages_bf16_at_the_flagship_width(cuda, A):
+    """K6's bf16 build (both radial layers on the tensor cores) at the
+    flagship widths (hidden 120x0e + 32x1e, projector 56x0e) on a ragged
+    chain batch (N = 203: the last CTA of 16 atoms short, a graph of 150
+    atoms padded) against its twin, the degree exactly; A = 64 on the model's
+    attributes, A = 32 on K7's radial half. Its launch shape is the Python
+    mirror's."""
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+    from jamun_tpu_torch.utils.testing import make_chain_positions
+
+    cdt = torch.bfloat16
+    batch = make_test_batch(num_graphs=2, max_nodes=203, nodes_per_graph=[203, 150],
+                            max_bonds=406, device=cuda)
+    pos = torch.from_numpy(make_chain_positions(2, 203, seed=1)).to(cuda)
+    batch = batch.replace_pos(pos * batch.node_mask[..., None])
+    model = E3Conv(dtype=cdt, device=cuda, seed=0).requires_grad_(False)
+    cutoff = 0.45
+    idx, sup, _ = capped_neighbor_lists(batch.pos, batch.node_mask, cutoff + 0.3, 32)
+    edges, _ = model._sparse_edges(batch, cutoff, (idx, sup), True)
+    if A == 32:
+        sh, rad, mask, nidx = k7.nbr_edge_features(batch.pos, idx, sup, cutoff, 32, cdt)
+        edges = dataclasses.replace(edges, sh_nbr=sh, attr_nbr=rad, nbr_mask=mask, nbr_idx=nidx)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n6 = k6.KERNEL.launches
+    for blk, (S, V) in ((model.ConvBlock_0, (56, 0)), (model._HiddenLayer_0.ConvBlock_0, (120, 32))):
+        x = torch.randn((2, 203, S + 3 * V), generator=gen, device=cuda).to(cdt)
+        args = blk.Conv_0.nbr_kernel_args(x, edges)
+        assert args[2].shape[-1] == A
+        got, deg = k6.nbr_uvu_conv(*args)
+        want, deg_p = k6.nbr_uvu_conv_plain(*args)
+        assert torch.equal(deg, deg_p) and _rel(got, want) <= TOL[cdt]
+        occ = k6.occupancy(A, idx.shape[-1], S, V, cdt)
+        assert all(occ[k] == v for k, v in k6.layout(A, idx.shape[-1], S, V, cdt).items())
+        assert occ["spill_bytes"] == 0
+    assert k6.KERNEL.launches - n6 == 2
+
+
+def test_sparse_messages_refuse_65536_atoms_in_bf16(cuda):
+    """The bf16 build packs a slot's source atom into 16 bits: from 65536
+    atoms on its wrapper raises NotImplementedError, before any launch."""
+    N, K, S, V, A = 1 << 16, 1, 8, 0, 64
+    bf, f32 = torch.bfloat16, torch.float32
+    args = (
+        torch.zeros((1, N, S), dtype=bf, device=cuda), torch.zeros((1, N, K, 4), dtype=bf, device=cuda),
+        torch.zeros((1, N, K, A), dtype=bf, device=cuda),
+        torch.zeros((1, N, K), dtype=torch.int64, device=cuda), torch.zeros((1, N, K), device=cuda),
+        torch.zeros((A, 64), dtype=bf, device=cuda), torch.zeros(64, dtype=f32, device=cuda),
+        torch.zeros((64, 2 * S), dtype=bf, device=cuda), torch.zeros(2 * S, dtype=f32, device=cuda),
+    )
+    n6 = k6.KERNEL.launches
+    with pytest.raises(NotImplementedError, match="65536"):
+        k6.nbr_uvu_conv(*args, S, V)
+    assert k6.KERNEL.launches == n6
+
+
+def test_conv_block_bwd_bf16_at_the_flagship_width(cuda):
+    """K4's bf16 build (node pass, row products and pair pass on the tensor
+    cores) at the flagship widths on ragged graphs (44, 41 and 30 atoms in
+    N = 48) against its twin, every gradient leaf; the pair pass's launch
+    shape is the Python mirror's."""
+    cdt = torch.bfloat16
+    batch = make_test_batch(num_graphs=3, max_nodes=48, nodes_per_graph=[44, 41, 30],
+                            max_bonds=96, device=cuda)
+    model = E3Conv(dtype=cdt, device=cuda, seed=0).requires_grad_(False)
+    geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
+    ef, bf = k1.edge_features(*geo, cdt)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n4 = k4.KERNEL.launches
+    for blk, (S, V) in ((model.ConvBlock_0, (56, 0)), (model._HiddenLayer_0.ConvBlock_0, (120, 32))):
+        conv = blk.Conv_0
+        w = k2.pack_block_weights(
+            conv.radial_nn, conv._post_linear, blk.IrrepsLinear_1, blk.IrrepsLinear_0,
+            model.embed_bondedness[0], model.embed_bondedness[1], S=S, V=V, cdt=cdt,
+        )
+        x = torch.randn((3, 48, S + 3 * V), generator=gen, device=cuda).to(cdt)
+        out, agg, deg = k2.fused_conv_block(x, ef, bf, batch.bond_src, batch.bond_dst, w, residuals=True)
+        g = torch.randn(out.shape, generator=gen, device=cuda)
+        args = (g, x, ef, bf, batch.bond_src, batch.bond_dst, w, agg, deg)
+        got, want = k4.conv_block_bwd(*args), k4.conv_block_bwd_plain(*args)
+        for name, ref in want.items():
+            if ref.numel():
+                assert _rel(got[name], ref) <= TOL[cdt], name
+        B = batch.bond_src.shape[1]
+        occ = k4.occupancy(48, B, S, V, cdt)
+        assert all(occ[k] == v for k, v in k4.pair_layout(48, B, S, V, cdt).items())
+        assert occ["spill_bytes"] == 0
+    assert k4.KERNEL.launches - n4 == 2
+
+
 def test_trainable_block_grads_match_cpu(cuda):
     """`ConvBlock.fused` under autograd on the card (K2 + K4) against the same
     block on the CPU (plain twins), f32: x and every parameter."""

@@ -1,9 +1,11 @@
 """The Python mirrors of the kernels' shared-memory reckoning and launch
 shapes (`ops/cuda/conv_block.smem_bytes`, `ops/cuda/e3_stack.stack_shape`,
-`ops/cuda/fused_block_tiled.layout`, `ops/cuda/dense_conv.layout`), on the
-CPU. On the card `tests/test_torch_cuda.py` and `chip_smoke.py` hold them to
-the libraries' own query functions (`conv_block_occupancy`,
-`e3_stack_shape`, `fused_block_tiled_occupancy`, `dense_conv_occupancy`);
+`ops/cuda/fused_block_tiled.layout`, `ops/cuda/dense_conv.layout`,
+`ops/cuda/nbr_conv.layout`, `ops/cuda/conv_block_bwd.pair_layout` and
+`node_layout`), on the CPU. On the card `tests/test_torch_cuda.py` and
+`chip_smoke.py` hold them to the libraries' own query functions
+(`conv_block_occupancy`, `e3_stack_shape`, `fused_block_tiled_occupancy`,
+`dense_conv_occupancy`, `nbr_conv_occupancy`, `conv_block_bwd_occupancy`);
 here they are held to what the kernels must be able to launch: every shape
 the wrappers accept fits the 227 KB a block may use, and the flagship shapes
 take the launch shapes the design notes give.
@@ -13,9 +15,11 @@ import pytest
 import torch
 
 from jamun_tpu_torch.ops.cuda import conv_block as k2
+from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
 from jamun_tpu_torch.ops.cuda import dense_conv as k89
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+from jamun_tpu_torch.ops.cuda import nbr_conv as k6
 
 WIDTHS = [(120, 32), (56, 0), (24, 5), (24, 8), (1, 1), (120, 40), (192, 0)]  # W <= 384
 
@@ -181,3 +185,108 @@ def test_tiled_layouts_at_the_walk_shapes():
     assert k89.layout(1500, 120, 32)["sources_per_pass"] == 928
     assert k89.layout(3695, 120, 32)["sources_per_pass"] == 384
     assert k89.layout(44, 120, 32, torch.float32)["atoms_per_cta"] == 8
+
+
+# ---- K6 and K4 (`nbr_conv.layout`, `conv_block_bwd.pair_layout`, `node_layout`) ----
+
+def _ctas_per_sm(nbytes: int) -> int:
+    """CTAs whose shared memory fits one SM (228 KB, 1 KB reserved per CTA)."""
+    return 233472 // (nbytes + 1024)
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("A", [32, 64])
+def test_nbr_conv_fits_every_accepted_shape(cdt, A):
+    """K6 takes A = 32 or 64 attributes, K <= 256 slots and 2S + 3V <= 384:
+    each such CTA (8 dst atoms in bf16, 16 in f32) fits a block's shared
+    memory, with one thread per radial channel."""
+    for S, V in WIDTHS:
+        for K in (1, 8, 31, 32, 100, k6.MAX_SLOTS):
+            lay = k6.layout(A, K, S, V, cdt)
+            assert lay["threads"] == k2.threads_for(2 * S + 3 * V)
+            assert lay["atoms_per_cta"] == (8 if cdt == torch.bfloat16 else 16)
+            assert lay["smem_bytes"] <= k2.MAX_SMEM, (S, V, K, lay)
+
+
+def test_nbr_conv_bf16_layout_at_the_walk_shape():
+    """The bf16 CTA at the sparse walk's hidden block (A = 64, K = 32 slots),
+    item by item (`nbr_conv.cu` `mma_layout`): the accumulators, degree and
+    list length of 8 atoms, a tile's pair data, the operand tiles with a
+    layer 1 64 wide (w2 among them, out of the registers), the list of 8 K
+    slots and their sources; the source rows are read from device memory.
+    Two CTAs share an SM (108848 B), the projector's four; A = 32 takes
+    6144 B less (w1 and the tile's attributes)."""
+    nt, W = 352, 336
+    persistent = 8 * 3 * nt * 4 + 32 + 16
+    tiles = 64 * 72 * 2 + W * 64 * 2 + 32 * 72 * 2 + 32 * 72 * 2 + 16 * 344 * 2
+    assert k2.pair_tiles_bytes(W, 64) == tiles
+    assert k2.pair_tiles_bytes(W, 32) == tiles - 6144  # w1t and the tile's A operand, 40 wide
+    total = persistent + 32 * 16 + tiles + 2 * 8 * 32 * 4
+    assert total == 108848
+    assert k6.layout(64, 32, 120, 32) == dict(threads=nt, smem_bytes=total, atoms_per_cta=8)
+    assert k6.layout(32, 32, 120, 32)["smem_bytes"] == total - 6144
+    assert _ctas_per_sm(total) == 2
+    projector = k6.layout(64, 32, 56, 0)
+    assert projector["threads"] == 128 and _ctas_per_sm(projector["smem_bytes"]) == 4
+    assert k2.pair_tiles_bytes(W) == k2.pair_tiles_bytes(W, 32)  # the dense kernels' A = 32
+
+
+def test_nbr_conv_ctas_at_the_walk_shapes():
+    """8 dst atoms per CTA (bf16): the N = 512, G = 8 chain launches 512
+    CTAs (under two waves of 264 at two per SM), N = 1024, G = 2 launches
+    256, the ragged N = 203, G = 3 batch 78."""
+    td = k6.layout(64, 32, 120, 32)["atoms_per_cta"]
+    for N, G, ctas in ((512, 8, 512), (1024, 2, 256), (203, 3, 78)):
+        assert G * -(-N // td) == ctas
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_conv_block_bwd_fits_every_accepted_shape(cdt):
+    """K4 runs where K2 does (N <= 128, bonds at up to two per atom): its pair
+    pass (a list of 16 N + B entries in bf16, 8 N + B in f32) and its node
+    pass fit a block's shared memory at every accepted width."""
+    for S, V in WIDTHS:
+        for N in (1, 8, 19, 44, 48, 64, 112, 128):
+            for B in (N, 2 * N):
+                lay = k4.pair_layout(N, B, S, V, cdt)
+                assert lay["threads"] == k2.threads_for(2 * S + 3 * V)
+                assert lay["smem_bytes"] <= k2.MAX_SMEM, (S, V, N, B, lay)
+            Sc, Vg = S, max(V, 1)
+            assert k4.node_layout(S, V, Sc, Vg, cdt)["smem_bytes"] <= k2.MAX_SMEM
+
+
+def test_conv_block_bwd_layouts_at_the_training_shape():
+    """The bf16 pair pass at the training shape (hidden block, N = 48 with
+    two bonds per atom), item by item (`conv_block_bwd.cu` `pair_layout`):
+    w1 and w2 n-major, a tile of 32 pairs' operands (radial features both
+    ways with the bias rows, h both ways, h32, w, d_w_all both ways, d_h32),
+    16 source rows and their dx sums, the dW1 sums, the pair data and the
+    list. 16 sources per CTA: 96 CTAs at G = 32, one wave at one per SM (the
+    FMA build: 8 sources, 192 CTAs, 1.45 waves). The node pass: 16 atoms,
+    71680 B."""
+    N, B, W, F = 48, 96, 336, 216
+    parts = [64 * 40 * 2, W * 64 * 2, 32 * 40 * 2, 48 * 40 * 2, 32 * 72 * 2, 64 * 40 * 2, 32 * 64 * 4,
+             32 * 344 * 2, 32 * 344 * 2, W * 40 * 2, 64 * 40 * 2, 16 * F * 2, 16 * F * 4, 34 * 64 * 4,
+             32 * 24, 80, (16 * N + B) * 4]
+    bf16 = k4.pair_layout(N, B, 120, 32)
+    assert bf16 == dict(threads=352, smem_bytes=sum(parts), sources_per_cta=16)
+    assert sum(parts) == 182224 and _ctas_per_sm(sum(parts)) == 1
+    assert 32 * -(-N // bf16["sources_per_cta"]) == 96 <= 132
+    f32 = k4.pair_layout(N, B, 120, 32, torch.float32)
+    assert f32["sources_per_cta"] == 8 and 32 * -(-N // 8) == 192
+    node = k4.node_layout(120, 32, 120, 32)
+    assert node == dict(smem_bytes=71680, atoms_per_cta=16)
+    projector = k4.pair_layout(N, B, 56, 0)
+    assert projector["threads"] == 128 and _ctas_per_sm(projector["smem_bytes"]) == 2
+
+
+def test_conv_block_bwd_row_product_scratch():
+    """The bf16 row products keep one 32 x 32 partial per output tile and
+    chunk of 256 (row, component) pairs; at the training shape (1536 rows,
+    hidden block) that is 486 tiles, inside the pair pass's block partials
+    that share the scratch (96 x (34 x 64 + 65 x 336) floats)."""
+    M, S, V, Sc, Vg = 32 * 48, 120, 32, 120, 32
+    tiles = (25 + 16 + 16) * 6 + (6 + 1 + 1) * 18
+    assert k4._row_product_partials(M, S, V, Sc, Vg) == tiles * 1024 == 497664
+    assert tiles * 1024 < 96 * (34 * 64 + 65 * 336)
+    assert k4._row_product_partials(1, S, V, Sc, Vg) == 65 * 1024  # one chunk per tile
