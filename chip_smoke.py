@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
      the pair list, staged epilogue), registers, spills, CTAs per SM and
      shared bytes, the library's reckoning held to its Python mirror; the
      same for K6 (A = 64 and 32, K = 32 slots) and K4's pair pass (the
-     training shape and N = 112), both builds, hidden block and projector;
+     training shape and N = 112), both builds, hidden block and projector,
+     and for K1 (4AA, 5AA, the training shape) and K7 (N = 512, 1024 and the
+     ragged 203, K = 32): CTAs, edges per tile, shared bytes;
   2. hold each kernel against its plain PyTorch version on the card, at the
      flagship width (hidden 120x0e + 32x1e, projector 56x0e) and the walk's
      shapes, in bf16 and f32, and time kernel and plain version with CUDA
@@ -39,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught):
      of phase 3d ends at; K2's, K3's, K6's and K4's rows also give
      registers per thread, CTAs per SM and the time before their
      tensor-core redesign (`PREV_MS`), and the library's shared-memory
-     reckoning against its Python mirror; the Kabsch
+     reckoning against its Python mirror; K1's and K7's rows their device
+     time alone (`device_time_ms`) beside the time through the wrapper and
+     the time before their redesign for the memory path, and K7 against K1
+     bit for bit on every kept slot of the 4AA and 5AA lists; the Kabsch
      rotation (Horn's quaternion, `csrc/kabsch.cu`) against its plain
      version and the SVD alignment at G = 32, N = 48 (random, mirrored,
      near-planar and single-atom graphs), with no host wait;
@@ -187,6 +192,20 @@ PREV_MS = {
     ("conv_block_bwd", "hidden train N=48 G=32 bfloat16"): 0.9681,
     ("conv_block_bwd", "projector N112 N=112 G=32 bfloat16"): 1.6731,
     ("conv_block_bwd", "hidden N112 N=112 G=32 bfloat16"): 2.4849,
+    # K1's and K7's bf16 rows before their redesign for the memory path
+    # (PERF.md section 6: this script's `cuda_time_ms` figure before it,
+    # through the wrapper)
+    ("edge_features", "4AA N=44 G=256 bfloat16"): 0.1530,
+    ("edge_features", "5AA N=112 G=128 bfloat16"): 0.4326,
+    ("nbr_edge_features", "N512 cached N=512 G=8 bfloat16"): 0.0626,
+}
+# the same rows' device time alone before the redesign (PERF.md section 6:
+# `scripts/torch_phase_split.py --time-only` on the committed files before
+# it, `device_time_ms`, NVIDIA H100 80GB HBM3, 700.00 W)
+PREV_DEVICE_MS = {
+    ("edge_features", "4AA N=44 G=256 bfloat16"): 0.1487,
+    ("edge_features", "5AA N=112 G=128 bfloat16"): 0.4313,
+    ("nbr_edge_features", "N512 cached N=512 G=8 bfloat16"): 0.0567,
 }
 
 
@@ -212,6 +231,48 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time_ms(fn, reps: int = 50) -> float:
+    """The device time per call of `fn` alone: a spin kernel holds the stream
+    while the host queues `reps` calls, so the CUDA events bracket
+    back-to-back kernels, not the host's pace (`cuda_time_ms` reads the
+    host's time per call where it is the longer). Raises if the spin ended
+    before the host had queued every call, four times over."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spun = torch.cuda.Event()
+    cycles = 40_000_000  # about 20 ms at the H100's clock
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not spun.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("device_time_ms: the host did not queue the calls while the stream was held")
+
+
+def prev_times(row: dict) -> tuple:
+    """K1's and K7's log: the row's times before the redesign, through the
+    wrapper and on the device alone, each beside its own measure."""
+    prev = f" (before the redesign: {row['prev_ms']:.4f})" if row["prev_ms"] else ""
+    prev_dev = f" (before: {row['prev_device_ms']:.4f})" if row["prev_device_ms"] else ""
+    return prev, prev_dev
+
+
+def bits_differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The elements of two tensors of one dtype whose bits differ."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if got.dtype in ints:
+        got, want = got.contiguous().view(ints[got.dtype]), want.contiguous().view(ints[want.dtype])
+    return int((got != want).sum())
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -305,6 +366,62 @@ def sparse_bwd_launch_shapes(k6, k4) -> dict:
                 assert all(occ[k] == v for k, v in mirror.items()), (N, block, dt, occ, mirror)
                 out[f"K4 pair pass {block} N={N} {dt}"] = occ
                 log(f"phase 1: K4 pair pass {dt} {block} N={N} B={2 * N}: {occ}")
+    return out
+
+
+def edge_launch_shapes(k1, k7) -> dict:
+    """Phase 1: how K1 (4AA, 5AA and the training shape, two bonds per
+    atom) and K7 (the N = 512, G = 8 and N = 1024, G = 2 chains and the
+    ragged N = 203, G = 3 batch, K = 32 slots) launch, both builds: the
+    library's own reckoning (`occupancy`: threads, shared bytes, registers,
+    spills, CTAs per SM, edges or slots in the largest tile, rows per tile,
+    CTAs) held to the Python mirror (`layout`)."""
+    out = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        dt = str(cdt).split(".")[-1]
+        for G, N, B in ((256, 44, 88), (128, 112, 224), (32, 48, 96)):
+            occ, mirror = k1.occupancy(G, N, B, 32, cdt), k1.layout(G, N, B, 32, cdt)
+            assert all(occ[k] == v for k, v in mirror.items()), (G, N, dt, occ, mirror)
+            out[f"K1 N={N} G={G} {dt}"] = occ
+            log(f"phase 1: K1 {dt} N={N} G={G} B={B}: {occ}")
+        for G, N in ((8, 512), (2, 1024), (3, 203)):
+            occ, mirror = k7.occupancy(G, N, 32, 32, cdt), k7.layout(G, N, 32, 32, cdt)
+            assert all(occ[k] == v for k, v in mirror.items()), (G, N, dt, occ, mirror)
+            out[f"K7 N={N} G={G} {dt}"] = occ
+            log(f"phase 1: K7 {dt} N={N} G={G} K=32: {occ}")
+    return out
+
+
+def check_nbr_against_dense(k1, k7, batches: dict, dev, c_in: float, cutoff: float) -> dict:
+    """Phase 2: K7 against K1 on the same pairs, bit for bit, in both dtypes:
+    on the 4AA and 5AA batches with their capped lists (K = 32, the true
+    cutoff), every kept slot (g, i, k) with source j must have
+    sh[..., 1:4] == ef[g, i, j, 0:3], radial == ef[g, i, j, 4:] and K1's
+    adjacency set. Returns the kept slots and the differing values."""
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+
+    out = {}
+    for label in ("4AA", "5AA"):
+        batch = batches[label]
+        G, N = batch.pos.shape[:2]
+        pos = (batch.pos * c_in).contiguous()
+        idx, superset, _ = capped_neighbor_lists(pos, batch.node_mask, cutoff, 32)
+        for cdt in (torch.bfloat16, torch.float32):
+            tag = f"{label} N={N} G={G} {str(cdt).split('.')[-1]}"
+            ef, _ = k1.edge_features(pos, batch.node_mask, batch.bond_src, batch.bond_dst,
+                                     batch.bond_mask, cutoff, 32, cdt)
+            sh, rad, mask, nidx = k7.nbr_edge_features(pos, idx, superset, cutoff, 32, cdt)
+            kept = mask > 0
+            g, i, _ = kept.nonzero(as_tuple=True)
+            pair = ef[g, i, nidx[kept]]
+            differ = dict(sh=bits_differ(sh[kept][:, 1:4], pair[:, 0:3]),
+                          radial=bits_differ(rad[kept], pair[:, 4:]),
+                          adjacency=int((pair[:, 3] != 1).sum()))
+            assert not any(differ.values()), f"K7 against K1 {tag}: {differ} values differ"
+            out[tag] = dict(kept=int(g.numel()), **differ)
+            log(f"phase 2: K7 against K1 {tag}: sh and radial bit for bit on all {g.numel()} kept "
+                f"slots, each an adjacent pair of K1's")
+            del ef, sh, rad, mask, nidx, pair
     return out
 
 
@@ -926,19 +1043,28 @@ def check_nbr_kernels(k6, k7, models, dev, c_in: float, cutoff: float, shapes=No
             k7_bytes = scaled.pos.numel() * 4 + slots * (8 + 1) + slots * ((4 + 32) * esz + 4 + 8)
             k7_flops = slots * (32 * 7 + 30)  # per slot: 32 Gaussians, the distance, the harmonics
             t_ops, t_bytes = k7_flops / PEAK_FLOPS[torch.float32] * 1e3, k7_bytes / PEAK_BYTES_PER_S * 1e3
+            occ = k7.occupancy(G, N, K, 32, cdt)
             row = dict(
                 shape=tag, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                 ms=cuda_time_ms(lambda: k7.nbr_edge_features(*args7), 20),
+                device_ms=device_time_ms(lambda: k7.nbr_edge_features(*args7)),
+                prev_ms=PREV_MS.get(("nbr_edge_features", tag)),
+                prev_device_ms=PREV_DEVICE_MS.get(("nbr_edge_features", tag)),
                 plain_ms=cuda_time_ms(lambda: k7.nbr_edge_features_plain(*args7), 3),
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 slots=slots, in_list=in_list, kept=kept, bytes=k7_bytes, dtype=str(cdt), N=N, G=G,
-                label=label,
+                label=label, registers=occ["registers"], ctas_per_sm=occ["ctas_per_sm"],
+                smem_bytes=occ["smem_bytes"], ctas=occ["ctas"],
             )
             rows["nbr_edge_features"].append(row)
+            prev, prev_dev = prev_times(row)
             log(f"phase 2: K7 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}), "
-                f"mask and indices equal; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"mask and indices equal; kernel {row['ms']:.4f} ms through the wrapper{prev}, "
+                f"{row['device_ms']:.4f} on the device alone{prev_dev}; plain {row['plain_ms']:.4f} ms, "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); {slots} slots, {in_list} in the "
-                f"list, {kept} kept ({100 * kept / slots:.1f}%), overflow {overflow.tolist()}")
+                f"list, {kept} kept ({100 * kept / slots:.1f}%), overflow {overflow.tolist()}; "
+                f"{occ['ctas']} CTAs, {occ['registers']} registers, {occ['ctas_per_sm']} CTAs per SM, "
+                f"{occ['smem_bytes']} B shared")
 
             edges, _ = model._sparse_edges(scaled, cutoff, (idx, superset) if cached else None, True)
             variants = [("A64", edges)]
@@ -1896,6 +2022,7 @@ def main() -> int:
     hmma = tensor_core_counts((k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K9, k6.KERNEL, k4.KERNEL))
     tiled_shapes = tiled_launch_shapes(k5, k89)
     tiled_shapes.update(sparse_bwd_launch_shapes(k6, k4))
+    tiled_shapes.update(edge_launch_shapes(k1, k7))
 
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
@@ -1943,16 +2070,25 @@ def main() -> int:
                 pos.numel() * 4 + batch.node_mask.numel() + batch.bond_src.numel() * 16
                 + batch.bond_mask.numel() + (ef.numel() + bf.numel()) * ef.element_size()
             )
+            occ = k1.occupancy(G, N, batch.bond_src.shape[1], 32, cdt)
             row = dict(
                 shape=tag, max_abs_err=abs_e, max_rel_err=rel_e, tol=TOL[cdt],
                 ms=cuda_time_ms(lambda: k1.edge_features(*geo, cdt), 20),
+                device_ms=device_time_ms(lambda: k1.edge_features(*geo, cdt)),
+                prev_ms=PREV_MS.get(("edge_features", tag)),
+                prev_device_ms=PREV_DEVICE_MS.get(("edge_features", tag)),
                 plain_ms=cuda_time_ms(lambda: k1.edge_features_plain(*geo, cdt), 3),
                 bound_ms=k1_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
-                dtype=str(cdt), N=N, G=G,
+                dtype=str(cdt), N=N, G=G, registers=occ["registers"],
+                ctas_per_sm=occ["ctas_per_sm"], smem_bytes=occ["smem_bytes"], ctas=occ["ctas"],
             )
             results["edge_features"].append(row)
-            log(f"phase 2: K1 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}); "
-                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+            prev, prev_dev = prev_times(row)
+            log(f"phase 2: K1 {tag}: max abs err {abs_e:.3g}, rel {rel_e:.3g} (tol {TOL[cdt]}), "
+                f"adjacency equal; kernel {row['ms']:.4f} ms through the wrapper{prev}, "
+                f"{row['device_ms']:.4f} on the device alone{prev_dev}; plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms; {occ['ctas']} CTAs, {occ['registers']} registers, "
+                f"{occ['ctas_per_sm']} CTAs per SM, {occ['smem_bytes']} B shared")
 
             model = models[cdt]
             for block_name, blk, S, V in (
@@ -2012,6 +2148,7 @@ def main() -> int:
         k1, k2, k5, models, batches, dev, c_in, cutoff
     )
     results.update(check_nbr_kernels(k6, k7, models, dev, c_in, cutoff))
+    k7_against_k1 = check_nbr_against_dense(k1, k7, batches, dev, c_in, cutoff)
     dense_rows = check_dense_conv(k89, models, batches, dev, c_in, cutoff)
     for name in ("packed_uvu_conv_dense", "fused_uvu_conv_dense"):
         results[name] = [r for r in dense_rows if r["kernel"] == name]
@@ -2230,7 +2367,8 @@ def main() -> int:
                   plane_score=plane_score, conv_level_calls=conv_calls, train_sync=train_waits,
                   launches=launches, train=train,
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
-                  kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes)
+                  kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
+                  k7_against_k1=k7_against_k1)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

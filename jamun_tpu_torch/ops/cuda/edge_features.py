@@ -1,7 +1,10 @@
 """K1: per-forward edge features of the dense E3Conv (wrapper + plain twin).
 
 Replaces `packed_edge_features` of `jamun_tpu/ops/pallas/packed_conv.py`
-(pallas_call at line 806). The CUDA kernel is `csrc/edge_features.cu`.
+(pallas_call at line 806). The CUDA kernel is `csrc/edge_features.cu`: a
+CTA of 256 threads owns a tile of at most 256 edges of one graph (whole
+destination rows, or one row's chunk), stages the rows in shared memory and
+writes them out as one contiguous run; `layout` mirrors its launch shape.
 
 Outputs, in the compute dtype (EC = 4 + n_radial channels per edge):
     ef [G, N, N, EC]: dense pair src j -> dst i, vector pos[j] - pos[i]
@@ -22,16 +25,88 @@ from jamun_tpu_torch.ops.cuda.build import CudaKernel
 
 __all__ = [
     "edge_features", "edge_features_plain", "pair_features_plain", "bond_features_plain",
-    "packed_rows", "KERNEL", "EF_GEOM",
+    "packed_rows", "layout", "occupancy", "check_limits", "tiling", "staged_bytes", "KERNEL",
+    "EF_GEOM",
+    "MAX_ELEMENTS",
 ]
 
 EF_GEOM = 4  # channels before the radial basis: shy, shz, shx, adj
 _SQRT3 = math.sqrt(3.0)
+# the kernel's 32-bit offsets: ef and bf together hold at most this many elements
+MAX_ELEMENTS = 0x7FFFFFFF - 65536 * 256
+THREADS = 256  # per CTA; a tile holds at most one edge per thread
+STAGE_BYTES = 36864  # staged rows per CTA at most, K1 and K7: 256 f32 rows of EC = 36
+_LIMITS = "ROADMAP.md queue A, 'Edge features at sizes no configuration reaches'"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P]
-KERNEL = CudaKernel("edge_features", {"edge_features_f32": _ARGS, "edge_features_bf16": _ARGS})
+KERNEL = CudaKernel("edge_features", {
+    "edge_features_f32": _ARGS, "edge_features_bf16": _ARGS,
+    "edge_features_occupancy": [_I] * 5 + [_P],
+})
 _ENTRY = {torch.float32: "edge_features_f32", torch.bfloat16: "edge_features_bf16"}
+ESZ = {torch.float32: 4, torch.bfloat16: 2}  # bytes per stored value
+_OCCUPANCY = ("threads", "smem_bytes", "registers", "spill_bytes", "ctas_per_sm", "edges_per_tile",
+              "rows_per_tile", "ctas")
+
+
+def tiling(rows: int, length: int, edges: int) -> Tuple[int, int, int, int]:
+    """How one graph's [rows, length] edges split into tiles of at most
+    `edges` (the mirror of the kernels' `tiling`): (rows and columns per
+    tile, chunks per row, tiles per graph). Whole rows where a row fits,
+    else chunks of one row."""
+    if rows == 0 or length == 0 or edges < 1:
+        return 0, 0, 1, 0
+    if length <= edges:
+        r = edges // length
+        return r, length, 1, -(-rows // r)
+    chunks = -(-length // edges)
+    return 1, edges, chunks, rows * chunks
+
+
+def staged_bytes(cap: int, channels: int, esz: int) -> int:
+    """Shared bytes of a CTA whose largest tile holds `cap` rows of
+    `channels` values: the rows (16 bytes more for the shift that aligns
+    them with their output) and a f32 distance per row."""
+    return (cap * channels * esz + 31) // 16 * 16 + cap * 4
+
+
+def layout(G: int, N: int, B: int, n_radial: int = 32, cdt=torch.bfloat16) -> dict:
+    """How K1 is launched at these sizes (the mirror of `make_params`):
+    threads and shared bytes per CTA, edges in the largest tile, rows of
+    pairs per tile, CTAs (the dense pairs' tiles, then the bonds')."""
+    ec, esz = EF_GEOM + n_radial, ESZ[cdt]
+    edges = min(THREADS, STAGE_BYTES // (ec * esz))
+    dense, bonds = tiling(N, N, edges), tiling(1, B, edges)
+    cap = max(min(dense[0], N) * dense[1], min(bonds[0], 1) * bonds[1])
+    return dict(threads=THREADS, smem_bytes=staged_bytes(cap, ec, esz),
+                edges_per_tile=cap, rows_per_tile=dense[0], ctas=G * (dense[3] + bonds[3]))
+
+
+def check_limits(G: int, N: int, B: int, n_radial: int, cdt) -> None:
+    """Raise NotImplementedError for a shape the kernel does not take: more
+    than MAX_ELEMENTS values in ef and bf (its 32-bit offsets), or an edge
+    row wider than a CTA's staging buffer."""
+    ec = EF_GEOM + n_radial
+    total = G * (N * N + B) * ec
+    if total > MAX_ELEMENTS or ec * ESZ[cdt] > STAGE_BYTES:
+        raise NotImplementedError(
+            f"edge_features: {total} elements (max {MAX_ELEMENTS}: 32-bit offsets) or "
+            f"{n_radial} radial channels (a {ec}-channel row must fit {STAGE_BYTES} staged "
+            f"bytes); see {_LIMITS}"
+        )
+
+
+def occupancy(G: int, N: int, B: int, n_radial: int = 32, cdt=torch.bfloat16) -> dict:
+    """`layout` as the library reckons it, with what the current card makes
+    of the build: registers and local (spill) bytes per thread, CTAs
+    resident per SM."""
+    out = (ctypes.c_int * len(_OCCUPANCY))()
+    err = KERNEL.fn("edge_features_occupancy")(int(cdt == torch.bfloat16), G, N, B, n_radial,
+                                                ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"edge_features.edge_features_occupancy failed with CUDA error {err}")
+    return dict(zip(_OCCUPANCY, out))
 
 
 def _features(dx, dy, dz, flag, cutoff: float, n_radial: int, cdt) -> torch.Tensor:
@@ -125,6 +200,7 @@ def edge_features(
                 f"edge_features: want {dt} {shape} contiguous on {pos.device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+    check_limits(G, N, B, n_radial, compute_dtype)
     ec = EF_GEOM + n_radial
     ef = torch.empty((G, N, N, ec), dtype=compute_dtype, device=pos.device)
     bf = torch.empty((G, B, ec), dtype=compute_dtype, device=pos.device)

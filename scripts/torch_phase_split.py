@@ -3,10 +3,13 @@ kernel (K2, `csrc/conv_block.cu`), the whole-model kernel (K3,
 `csrc/e3_stack.cu`), the tiled ConvBlock from the positions (K5,
 `csrc/fused_block_tiled.cu`), the dense messages (K8/K9,
 `csrc/dense_conv.cu`), the sparse messages (K6, `csrc/nbr_conv.cu`) and the
-ConvBlock backward (K4, `csrc/conv_block_bwd.cu`).
+ConvBlock backward (K4, `csrc/conv_block_bwd.cu`); and where the time of the
+two edge-feature kernels goes (K1, `csrc/edge_features.cu`, and K7,
+`csrc/nbr_edge_features.cu`).
 
 Run on a machine with an NVIDIA GPU, from the repository root:
-    python3 scripts/torch_phase_split.py [--kernels K2,K3,K5,K9,K6,K4] [--time-only] [--out FILE]
+    python3 scripts/torch_phase_split.py [--kernels K2,K3,K5,K9,K6,K4,K1,K7] [--time-only]
+        [--same-bits PARENT] [--out FILE]
 
 Copies the sources and the headers into `jamun_tpu_torch/_build/
 phase_split/` and adds a `clock64()` stamp after every `__syncthreads()` (and
@@ -40,8 +43,29 @@ the real builds alone at the same shapes (20 launches each), builds nothing
 else and needs nothing of this script beyond the wrappers and
 `chip_smoke.py`: copied into a checkout of another commit, it times that
 commit's kernels, so two commits compare in one call (parent, change,
-change, parent). Prints the card's name and power limit first; exits
-non-zero without a card.
+change, parent).
+
+K1 and K7 have no barrier to stamp. For them it prints, at K1's shapes (4AA
+N = 44, G = 256; 5AA N = 112, G = 128; the training shape, 32 graphs of 44
+atoms padded to N = 48) and K7's (`bench.py`'s N = 512, G = 8 chain with the
+skin-1.0 list; the same chain at the last frame of a 101-step cached walk;
+N = 1024, G = 2 with the list of one forward; the ragged N = 203 batch with
+the skin-1.0 list), both dtypes: the device time alone
+(`chip_smoke.device_time_ms`: a spin kernel holds the stream while the host
+queues the calls, so the CUDA events bracket back-to-back kernels), the
+host's microseconds per wrapper call (no sync), the smoke's `cuda_time_ms`
+figure (20 wrapper calls between two events, which reads the host's pace
+where a call's host time is longer than its kernel), and the device time of
+two builds that leave one step out: stores of a constant (the sh values and
+the radial basis not computed) and the arithmetic alone (the values kept
+live by a store the data never takes, no output written). With
+`--time-only` the device time and the smoke's figure alone. `--same-bits
+PARENT` builds the two sources of the checkout at PARENT beside this one's,
+runs both on the same inputs at every shape above and prints the number of
+output elements whose bits differ. To time another commit, copy this
+script and `chip_smoke.py` into its checkout (its own may be older) and run
+it there. Prints the card's name and power limit first; exits non-zero
+without a card.
 """
 
 from __future__ import annotations
@@ -53,6 +77,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -60,7 +85,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from jamun_tpu_torch.ops.cuda.build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
+from jamun_tpu_torch.ops.cuda.build import BUILD_DIR, CSRC, EXTRA_FLAGS, NVCC_FLAGS, _nvcc  # noqa: E402
 
 OUT = BUILD_DIR / "phase_split"
 EVENTS = OUT / "events"  # K4's copy with a CUDA event after each launch
@@ -68,7 +93,12 @@ SLOTS = 48  # stamp slots; the last holds the CTA count
 END = 40  # the slot of each kernel's end
 # the sources of each kernel of the split
 SOURCES = {"K2": "conv_block", "K3": "e3_stack", "K5": "fused_block_tiled", "K9": "dense_conv",
-           "K6": "nbr_conv", "K4": "conv_block_bwd"}
+           "K6": "nbr_conv", "K4": "conv_block_bwd", "K1": "edge_features",
+           "K7": "nbr_edge_features"}
+# the edge-feature kernels: no barrier to stamp, timed whole
+EDGE = ("edge_features", "nbr_edge_features")
+EDGE_DIR = OUT / "edge"  # their builds that leave a step out
+PARENT_DIR = OUT / "parent"  # the parent checkout's builds of them (--same-bits)
 # the kernel functions stamped where a source has others (K4: the pair pass)
 STAMPED = {"conv_block_bwd": ("pair_kernel", "pair_mma_kernel")}
 # the sources that run the ConvBlock steps of the headers
@@ -107,6 +137,34 @@ SKIPS = {
          "for (int q = 0; q < 0; ++q) {\n        // rows NR and NR + 1"),
         ("for (int k0 = 0; k0 < PTM; k0 += 16) {  // dW1", "for (int k0 = 0; k0 < 0; k0 += 16) {  // dW1"),
     ]),
+}
+# the edge-feature kernels' builds that leave a step out: label ->
+# [(text, replacement)], applied to both sources and `edge_tiles.cuh` (each
+# must apply to one of them)
+EDGE_SKIPS = {
+    "stores of a constant": [
+        ("sh_component(dy, dist)", "1.0f"),
+        ("sh_component(dz, dist)", "1.0f"),
+        ("sh_component(dx, dist)", "1.0f"),
+        ("radial_at(center, dists[p], step)", "1.0f"),
+        ("radial_at(center_of(k, step), dist, step)", "1.0f"),
+    ],
+    "the arithmetic alone": [
+        # the staged rows stay in shared memory; K7's direct stores are guarded
+        ("  copy_out(stage, dst, n * ec);",
+         "  if (threadIdx.x < n * ec && *(const unsigned char*)(stage + threadIdx.x) == 0x5a)\n"
+         "    dst[threadIdx.x] = stage[threadIdx.x];"),
+        ("    put_sh((T*)p.sh + slot * 4, sh_component(dy, dist), sh_component(dz, dist),\n"
+         "           sh_component(dx, dist));\n    p.mask[slot] = kept ? 1.0f : 0.0f;\n"
+         "    p.idx_out[slot] = kept ? nbr : (int64_t)p.N;",
+         "    const float acc = sh_component(dy, dist) + sh_component(dz, dist) + sh_component(dx, dist);\n"
+         "    if (acc == -7.0f) put_sh((T*)p.sh + slot * 4, acc, acc, acc);\n"
+         "    if (acc == -8.0f) p.mask[slot] = kept ? 1.0f : 0.0f;\n"
+         "    if (acc == -9.0f) p.idx_out[slot] = kept ? nbr : (int64_t)p.N;"),
+        ("  copy_out(stage, rad, n * p.nr);",
+         "  if (threadIdx.x < n * p.nr && *(const unsigned char*)(stage + threadIdx.x) == 0x5a)\n"
+         "    rad[threadIdx.x] = stage[threadIdx.x];"),
+    ],
 }
 PRELUDE = r"""
 #ifndef PHASE_PRELUDE
@@ -290,7 +348,8 @@ def build(jobs) -> dict:
     once; returns the loaded libraries by (directory, source)."""
     procs = {
         (d, name): subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(d / f"{name}.so"), str(d / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", str(d / f"{name}.so"),
+             str(d / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for d, names in jobs.items() for name in names
@@ -310,7 +369,7 @@ def build(jobs) -> dict:
 
 
 def use(kernel, lib) -> None:
-    """Point a CudaKernel's entries at the stamped library."""
+    """Point a CudaKernel's entries at another build's library."""
     for entry, argtypes in kernel.entries.items():
         f = getattr(lib, entry)
         f.argtypes = argtypes
@@ -322,6 +381,146 @@ def slots(lib) -> list:
     buf = (ctypes.c_ulonglong * SLOTS)()
     assert lib.phase_read(ctypes.addressof(buf)) == 0
     return list(buf)
+
+
+def make_edge_copies(names, parent, skips: bool) -> dict:
+    """With `skips` the edge-feature kernels' builds that leave a step out
+    (one directory per entry of EDGE_SKIPS) and, with `parent`, that
+    checkout's sources; returns label -> (directory, names)."""
+    dirs = {}
+    files = [*(f"{n}.cu" for n in EDGE), "edge_tiles.cuh"]
+    for i, (label, edits) in enumerate(EDGE_SKIPS.items() if skips else ()):
+        d = EDGE_DIR / f"skip{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        for h in CSRC.glob("*.cuh"):
+            shutil.copy(h, d / h.name)
+        texts = {f: (CSRC / f).read_text() for f in files}
+        for text, repl in edits:
+            assert any(text in t for t in texts.values()), (label, text)
+            texts = {f: t.replace(text, repl) for f, t in texts.items()}
+        for f, t in texts.items():
+            (d / f).write_text(t)
+        dirs[label] = (d, names)
+    if parent:
+        csrc = Path(parent) / "jamun_tpu_torch" / "csrc"
+        PARENT_DIR.mkdir(parents=True, exist_ok=True)
+        for f in (*csrc.glob("*.cuh"), *(csrc / f"{n}.cu" for n in names)):
+            shutil.copy(f, PARENT_DIR / f.name)
+        dirs["parent"] = (PARENT_DIR, names)
+    return dirs
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's microseconds per call of `fn` (no sync inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def walk_end_batch(model, config, dev):
+    """`bench.py`'s N = 512, G = 8 chain at the last frame of the 101-step
+    cached BAOAB walk of `chip_smoke` phase 3d (skin 1.0, seed 2)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from jamun_tpu_torch.models.denoiser import Denoiser
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.sampler import Sampler
+    from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler
+
+    batch = cs.chain_batch(512, 8, dev)
+    cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=101, save_every_n_steps=1,
+                     score_fn_clip=100.0)
+    walk = SingleMeasurementSampler(BAOAB(cfg), cs.SIGMA, neighbor_skin=cs.NBR_SKIN)
+    out = Sampler(device=dev).sample(Denoiser(model, config), walk, 1, batch, seed=2)
+    last = np.stack([entry["y_traj"][:, cfg.steps - 1] for entry in out[0]])
+    return batch.replace_pos(torch.from_numpy(last).to(dev))
+
+
+def edge_cases(names, models, config, cutoff: float, c_in: float, dev) -> list:
+    """(tag, kernel, call) at K1's and K7's shapes, both dtypes; `call()`
+    launches the wrapper and returns its outputs."""
+    import chip_smoke as cs
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
+    from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    dtypes = (torch.bfloat16, torch.float32)
+    cases = []
+    if "edge_features" in names:
+        # the walks' shapes, and the training shape of `chip_smoke` phase 5
+        tconfig = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3)
+        t_in = normalization_factors(cs.SIGMA, tconfig.average_squared_distance)[0]
+        t_cut = Denoiser(models[torch.float32], tconfig).effective_radial_cutoff(cs.SIGMA) / t_in
+        for label, kw, scale, cut in (
+            ("4AA", dict(num_graphs=256, max_nodes=44, nodes_per_graph=[44] * 256, max_bonds=88,
+                         scale=0.35), c_in, cutoff),
+            ("5AA", dict(num_graphs=128, max_nodes=112, nodes_per_graph=[112] * 128, max_bonds=224,
+                         scale=0.35), c_in, cutoff),
+            ("train", dict(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96),
+             t_in, t_cut),
+        ):
+            b = make_test_batch(**kw, device=dev)
+            geo = ((b.pos * scale).contiguous(), b.node_mask, b.bond_src, b.bond_dst, b.bond_mask,
+                   cut, 32)
+            G, N = b.pos.shape[:2]
+            for cdt in dtypes:
+                cases.append((f"K1 {label} N={N} G={G} {str(cdt).split('.')[-1]}", k1.KERNEL,
+                              lambda geo=geo, cdt=cdt: k1.edge_features(*geo, cdt)))
+    if "nbr_edge_features" in names:
+        for label, batch, cached in (
+            ("N512 cached", cs.chain_batch(512, 8, dev), True),
+            ("N512 walk end", walk_end_batch(models[torch.bfloat16], config, dev), True),
+            ("N1024", cs.chain_batch(1024, 2, dev), False),
+            ("ragged cached", cs.chain_batch(203, 3, dev, [203, 190, 150]), True),
+        ):
+            pos = (batch.pos * c_in).contiguous()
+            list_cutoff = cutoff + cs.NBR_SKIN * c_in if cached else cutoff
+            idx, superset, _ = capped_neighbor_lists(pos, batch.node_mask, list_cutoff, 32)
+            G, N = pos.shape[:2]
+            for cdt in dtypes:
+                a = (pos, idx, superset, cutoff, 32, cdt)
+                cases.append((f"K7 {label} N={N} G={G} {str(cdt).split('.')[-1]}", k7.KERNEL,
+                              lambda a=a: k7.nbr_edge_features(*a)))
+    return cases
+
+
+def edge_split(cases, libs: dict, dirs: dict, time_only: bool, report: dict) -> None:
+    """Time each case (device alone, the smoke's figure; unless
+    `time_only` also the host's time per call and the builds that leave a
+    step out) and, where a parent's build is in `dirs`, count the output
+    elements whose bits differ from it."""
+    import chip_smoke as cs
+
+    for tag, kernel, call in cases:
+        name = kernel.source.stem
+        kernel._lib = None  # the real build
+        row = dict(device_ms=cs.device_time_ms(call), smoke_ms=cs.cuda_time_ms(call, 20))
+        if not time_only:
+            row["host_us"] = host_us(call)
+            for label, (d, _) in dirs.items():
+                if label != "parent":
+                    use(kernel, libs[d, name])
+                    row[label] = cs.device_time_ms(call)
+            kernel._lib = None
+        if "parent" in dirs:
+            want = call()
+            use(kernel, libs[dirs["parent"][0], name])
+            got = call()
+            kernel._lib = None
+            row["differing"] = [cs.bits_differ(g, w) for g, w in zip(got, want)]
+            del got, want
+        report[tag] = row
+        print(f"{tag}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()), flush=True)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -345,14 +544,18 @@ def main() -> int:
     args = sys.argv[1:]
     out_path = args[args.index("--out") + 1] if "--out" in args else None
     wanted = args[args.index("--kernels") + 1].split(",") if "--kernels" in args else list(SOURCES)
-    names = [SOURCES[k] for k in wanted]
+    edge = [SOURCES[k] for k in wanted if SOURCES[k] in EDGE]
+    names = [SOURCES[k] for k in wanted if SOURCES[k] not in EDGE]
     time_only = "--time-only" in args
+    parent = args[args.index("--same-bits") + 1] if "--same-bits" in args else None
     print(cs.card_line(), flush=True)
+    edge_dirs = make_edge_copies(edge, parent, not time_only) if edge else {}
+    libs = build(dict(edge_dirs.values()))
     if not time_only:
         labels = make_copies(names)
         skips = make_skips(names)
         launch_names = make_events(names)
-        libs = build({OUT: names, EVENTS: list(launch_names), **dict(skips.values())})
+        libs.update(build({OUT: names, EVENTS: list(launch_names), **dict(skips.values())}))
     dev = torch.device("cuda")
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(cs.SIGMA, config.average_squared_distance)
@@ -542,7 +745,11 @@ def main() -> int:
                     a = (g, x, ef, bf, batch.bond_src, batch.bond_dst, w, agg, deg)
                     split(f"K4 {block_name} {label}", k4.KERNEL, "conv_block_bwd",
                           lambda: k4.conv_block_bwd(*a), cdt)
-    for k in (k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K8, k89.K9, k6.KERNEL, k4.KERNEL):
+    if edge:
+        edge_split(edge_cases(edge, models, config, cutoff, c_in, dev), libs, edge_dirs, time_only,
+                   report)
+    for k in (k1.KERNEL, k2.KERNEL, k3.KERNEL, k5.KERNEL, k89.K8, k89.K9, k6.KERNEL, k7.KERNEL,
+              k4.KERNEL):
         k._lib = None
     if out_path:
         Path(out_path).write_text(json.dumps(report, indent=1))

@@ -202,6 +202,58 @@ def test_sparse_kernels_match_plain_twins(cuda, cdt):
     assert (k6.KERNEL.launches - n6, k7.KERNEL.launches - n7) == (4, 1)
 
 
+def _bits(t):
+    return t.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nodes,cap", [([37, 29, 13], 32), ([300], 260)], ids=["ragged", "chunked"])
+def test_edge_kernels_match_twins_and_each_other(cuda, cdt, nodes, cap):
+    """K1 and K7 against their plain twins at a ragged N (tiles of whole rows
+    that end inside a graph) and at N = 300 (a row of 300 pairs, 600 bonds
+    and K = 260 slots, each longer than a 256-edge tile: chunks of one row):
+    K1's adjacency and K7's mask and indices exactly, the rest within the
+    dtype's tolerance; and K7 equal to K1 bit for bit on every kept slot's
+    pair (sh[..., 1:4] against ef[..., 0:3], the radial basis against
+    ef[..., 4:])."""
+    from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+
+    N = max(nodes)
+    batch = make_test_batch(num_graphs=len(nodes), max_nodes=N, nodes_per_graph=nodes,
+                            max_bonds=2 * N, scale=0.35 * (N / 44) ** (1 / 3), device=cuda)
+    cutoff = 0.6
+    geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, cutoff, 32)
+    n1, n7 = k1.KERNEL.launches, k7.KERNEL.launches
+    ef, bf = k1.edge_features(*geo, cdt)
+    ef_p, bf_p = k1.edge_features_plain(*geo, cdt)
+    assert torch.equal(ef[..., 3], ef_p[..., 3]) and torch.equal(bf[..., 3], bf_p[..., 3])
+    assert _rel(ef, ef_p) <= TOL[cdt] and _rel(bf, bf_p) <= TOL[cdt]
+    idx, sup, _ = capped_neighbor_lists(batch.pos, batch.node_mask, cutoff + 0.3, cap)
+    got = k7.nbr_edge_features(batch.pos, idx, sup, cutoff, 32, cdt)
+    want = k7.nbr_edge_features_plain(batch.pos, idx, sup, cutoff, 32, cdt)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert _rel(got[0], want[0]) <= TOL[cdt] and _rel(got[1], want[1]) <= TOL[cdt]
+    kept = got[2] > 0
+    g, i, _ = kept.nonzero(as_tuple=True)
+    pair = ef[g, i, got[3][kept]]
+    assert g.numel() > 0 and bool((pair[:, 3] == 1).all())
+    assert torch.equal(_bits(got[0][kept][:, 1:4]), _bits(pair[:, 0:3]))
+    assert torch.equal(_bits(got[1][kept]), _bits(pair[:, 4:]))
+    assert (k1.KERNEL.launches - n1, k7.KERNEL.launches - n7) == (1, 1)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_edge_kernel_launch_shapes_match_their_mirrors(cuda, cdt):
+    """The libraries' own reckoning of K1's and K7's launch shapes equals the
+    Python mirrors (`layout`), whole rows and chunks of rows."""
+    for G, N, B in ((3, 19, 40), (256, 44, 88), (1, 300, 600)):
+        occ = k1.occupancy(G, N, B, 32, cdt)
+        assert all(occ[k] == v for k, v in k1.layout(G, N, B, 32, cdt).items()), occ
+    for G, N, K in ((8, 512, 32), (1, 300, 260)):
+        occ = k7.occupancy(G, N, K, 32, cdt)
+        assert all(occ[k] == v for k, v in k7.layout(G, N, K, 32, cdt).items()), occ
+
+
 def _small(cuda, cdt):
     batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
                             max_bonds=40, device=cuda)

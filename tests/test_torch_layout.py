@@ -2,10 +2,13 @@
 shapes (`ops/cuda/conv_block.smem_bytes`, `ops/cuda/e3_stack.stack_shape`,
 `ops/cuda/fused_block_tiled.layout`, `ops/cuda/dense_conv.layout`,
 `ops/cuda/nbr_conv.layout`, `ops/cuda/conv_block_bwd.pair_layout` and
-`node_layout`), on the CPU. On the card `tests/test_torch_cuda.py` and
-`chip_smoke.py` hold them to the libraries' own query functions
-(`conv_block_occupancy`, `e3_stack_shape`, `fused_block_tiled_occupancy`,
-`dense_conv_occupancy`, `nbr_conv_occupancy`, `conv_block_bwd_occupancy`);
+`node_layout`, `ops/cuda/edge_features.layout`,
+`ops/cuda/nbr_edge_features.layout`), on the CPU. On the card
+`tests/test_torch_cuda.py` and `chip_smoke.py` hold them to the libraries'
+own query functions (`conv_block_occupancy`, `e3_stack_shape`,
+`fused_block_tiled_occupancy`, `dense_conv_occupancy`, `nbr_conv_occupancy`,
+`conv_block_bwd_occupancy`, `edge_features_occupancy`,
+`nbr_edge_features_occupancy`);
 here they are held to what the kernels must be able to launch: every shape
 the wrappers accept fits the 227 KB a block may use, and the flagship shapes
 take the launch shapes the design notes give.
@@ -18,8 +21,10 @@ from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
 from jamun_tpu_torch.ops.cuda import dense_conv as k89
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
+from jamun_tpu_torch.ops.cuda import edge_features as k1
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
 
 WIDTHS = [(120, 32), (56, 0), (24, 5), (24, 8), (1, 1), (120, 40), (192, 0)]  # W <= 384
 
@@ -290,3 +295,107 @@ def test_conv_block_bwd_row_product_scratch():
     assert k4._row_product_partials(M, S, V, Sc, Vg) == tiles * 1024 == 497664
     assert tiles * 1024 < 96 * (34 * 64 + 65 * 336)
     assert k4._row_product_partials(1, S, V, Sc, Vg) == 65 * 1024  # one chunk per tile
+
+
+# ---- K1 and K7 (`edge_features.layout`, `nbr_edge_features.layout`) ----
+
+def _tile_runs(G: int, n_rows: int, length: int, channels: int, edges: int) -> list:
+    """(first element, elements) of each CTA's run in a [G, n_rows, length,
+    channels] output, tiled as the kernels' `tiling` and `tile_at` do."""
+    rows, cols, chunks, per_graph = k1.tiling(n_rows, length, edges)
+    runs = []
+    for g in range(G):
+        for t in range(per_graph):
+            if chunks == 1:
+                i0, j0, n = t * rows, 0, min(rows, n_rows - t * rows) * length
+            else:
+                i0, j0 = divmod(t, chunks)
+                j0 *= cols
+                n = min(cols, length - j0)
+            assert 0 < n <= edges
+            runs.append((((g * n_rows + i0) * length + j0) * channels, n * channels))
+    return runs
+
+
+def _covers_once(runs: list, total: int) -> bool:
+    covered = torch.zeros(total, dtype=torch.int32)
+    for start, n in runs:
+        covered[start:start + n] += 1
+    return bool((covered == 1).all())
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_edge_feature_tiles_cover_every_element_once(cdt):
+    """Each CTA of K1 writes one contiguous run of ef (whole rows of N pairs,
+    or one chunk of a row longer than a tile) or of bf (a graph's bonds, or
+    a chunk of them), and of K7 one run of the radial rows (whole rows of K
+    slots, or a chunk): the runs cover every element exactly once, and their
+    count is the layout's CTA count."""
+    for G, N, B, nr in ((3, 19, 40, 32), (2, 44, 88, 5), (1, 300, 600, 32), (2, 257, 0, 1),
+                        (1, 7, 3, 300)):
+        ec = k1.EF_GEOM + nr
+        edges = min(k1.THREADS, k1.STAGE_BYTES // (ec * k1.ESZ[cdt]))
+        dense, bonds = _tile_runs(G, N, N, ec, edges), _tile_runs(G, 1, B, ec, edges)
+        assert _covers_once(dense, G * N * N * ec) and _covers_once(bonds, G * B * ec)
+        assert len(dense) + len(bonds) == k1.layout(G, N, B, nr, cdt)["ctas"]
+    for G, N, K, nr in ((8, 512, 32, 32), (3, 203, 32, 32), (1, 30, 300, 32), (2, 21, 7, 5),
+                        (1, 9, 32, 300)):
+        slots = min(k1.THREADS, k1.STAGE_BYTES // (nr * k1.ESZ[cdt]))
+        runs = _tile_runs(G, N, K, nr, slots)
+        assert _covers_once(runs, G * N * K * nr)
+        assert len(runs) == k7.layout(G, N, K, nr, cdt)["ctas"]
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_edge_features_fit_every_accepted_shape(cdt):
+    """Every shape the wrappers accept launches: a CTA stages at most 256
+    edges (one per thread) in under 48 KB, so it needs no opt-in to more
+    shared memory and always fits the 227 KB a block may use; wider rows
+    than the staging buffer, or more elements than 32-bit offsets reach,
+    raise NotImplementedError naming their ROADMAP item."""
+    for N in (1, 8, 19, 44, 48, 112, 128, 255, 256, 257, 600, 2048):
+        for B in (0, N, 2 * N):
+            for nr in (1, 8, 32, 64, 300, 1000):
+                if 3 * (N * N + B) * (4 + nr) > k1.MAX_ELEMENTS:
+                    with pytest.raises(NotImplementedError, match="32-bit offsets"):
+                        k1.check_limits(3, N, B, nr, cdt)
+                    continue
+                k1.check_limits(3, N, B, nr, cdt)
+                lay = k1.layout(3, N, B, nr, cdt)
+                assert 1 <= lay["edges_per_tile"] <= lay["threads"] == 256
+                assert lay["smem_bytes"] <= 48 * 1024 and lay["ctas"] >= 1, (N, B, nr, lay)
+                for K in (1, 32, 256, 300):
+                    k7.check_limits(3, N, K, nr, cdt)
+                    lay = k7.layout(3, N, K, nr, cdt)
+                    assert 1 <= lay["slots_per_tile"] <= 256 and lay["smem_bytes"] <= 48 * 1024
+    for check, args in ((k1.check_limits, (1, 7700, 0, 32)), (k1.check_limits, (1, 8, 8, 20000)),
+                        (k7.check_limits, (1, 8, 8, 20000))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+            check(*args, cdt)
+
+
+def test_edge_feature_layouts_at_the_walk_shapes():
+    """K1 at 4AA (N = 44, G = 256), 5AA (N = 112, G = 128) and the training
+    shape (G = 32, N = 48) and K7 on the N = 512, G = 8 and N = 1024, G = 2
+    chains and the ragged N = 203, G = 3 batch (K = 32): rows per tile, the
+    largest tile, shared bytes (the rows, 16 bytes for the alignment shift,
+    a f32 distance per row) and CTAs. The bf16 CTAs stay under 19 KB and the
+    f32 ones under 36 KB, so shared memory leaves room for the six CTAs of
+    256 threads per SM that 40 registers allow."""
+    want = {
+        (torch.bfloat16, 44): (5, 220, 16736, 2560), (torch.float32, 44): (5, 220, 32576, 2560),
+        (torch.bfloat16, 112): (2, 224, 17040, 7296), (torch.float32, 112): (2, 224, 33168, 7296),
+        (torch.bfloat16, 48): (5, 240, 18256, 352), (torch.float32, 48): (5, 240, 35536, 352),
+    }
+    for (cdt, N), (rows, cap, smem, ctas) in want.items():
+        G = {44: 256, 112: 128, 48: 32}[N]
+        esz = k1.ESZ[cdt]
+        assert smem == (cap * 36 * esz + 31) // 16 * 16 + cap * 4
+        assert k1.layout(G, N, 2 * N, 32, cdt) == dict(
+            threads=256, smem_bytes=smem, edges_per_tile=cap, rows_per_tile=rows, ctas=ctas)
+        assert _ctas_per_sm(smem) >= 6
+    for cdt, smem in ((torch.bfloat16, 17424), (torch.float32, 33808)):
+        for G, N, ctas in ((8, 512, 512), (2, 1024, 256), (3, 203, 78)):
+            assert k7.layout(G, N, 32, 32, cdt) == dict(
+                threads=256, smem_bytes=smem, slots_per_tile=256, rows_per_tile=8, ctas=ctas)
+        assert _ctas_per_sm(smem) >= 6
