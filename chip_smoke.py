@@ -108,7 +108,27 @@ Phases (any failure exits non-zero; nothing is caught):
      validation, which takes K5; then a few `Trainer.fit` steps with the
      default "auto" at N = 256, G = 4 (chain positions), which take the
      plain sparse path (every launch count 0, a finite loss, the cap's
-     overflow logged).
+     overflow logged);
+  6. the training CLI, `jamun_tpu_torch.cmdline.train.main`, in process on a
+     4AA dataset written by `build_peptide` (four uncapped tetrapeptides for
+     training, two for validation, 200 frames each: the structure plus
+     N(0, 0.02 nm) noise; every graph pads to the 48-atom bucket):
+     `experiment=train_uncapped_4AA` for 30 steps, validating every 15, at
+     the repo's full width (uvw, 120x0e + 32x1e, 5 layers, batch 32), then
+     the same with `model/arch=e3conv_separable` (uvu, bf16, kernels on).
+     Launch counts zeroed before each run and read after: K1, K2 and K4
+     launch in the separable run and none of them in the uvw run; the Kabsch
+     kernel in both (the alignment is on). Each run: ms/step (the median
+     gap between consecutive logged steps outside the profiled ones, each
+     logged read a synchronize),
+     peak device memory, first and last train loss and the val losses,
+     finite and falling, the device-busy share of the CLI's own steps 19-28
+     under torch.profiler (its fit's host work between steps included), and
+     its trained weights' f32 score on the card against the CPU plain path
+     (1e-3 of the max). Then `restore_checkpoint` of the uvw run's last.ckpt
+     equals the saved parameters, EMA, optimizer state and generators bit for
+     bit, and `resume_from_checkpoint` trains it 5 steps on: the step count
+     carries on and the manifest lists the top k.
 `--out FILE` writes every number as JSON. An earlier line is a JSON object
 {"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
 last is a JSON object of per-kernel numbers; the last line is {"ok": true,
@@ -117,12 +137,15 @@ last is a JSON object of per-kernel numbers; the last line is {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -207,6 +230,24 @@ PREV_DEVICE_MS = {
     ("edge_features", "5AA N=112 G=128 bfloat16"): 0.4313,
     ("nbr_edge_features", "N512 cached N=512 G=8 bfloat16"): 0.0567,
 }
+
+
+def fit_batches(den, dev, train, val=(), **config):
+    """`Trainer.fit` on fixed batches: Adam at lr 2e-3, ConstantSigma(0.04),
+    seed 0, checkpoints in a temporary directory. Returns the final state
+    and every logged (step, metrics)."""
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+    from jamun_tpu_torch.train.optim import adam
+    from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger
+
+    rec = RecordingLogger()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainerConfig(seed=0, checkpoint_dir=os.path.join(tmp, "checkpoints"), **config)
+        state = Trainer(cfg, rec, device=dev).fit(
+            den, adam(2.0e-3), ConstantSigma(SIGMA), FixedBatches(list(train), list(val))
+        )
+    return state, rec.metrics
 
 
 def log(msg: str) -> None:
@@ -947,7 +988,8 @@ def check_tiled_score(dense_models: dict, config, dev) -> dict:
     from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 
     small = tiled_batch(256, 2, dev, [256, 251])
-    ref_model = E3Conv(dtype=None, device="cpu", plain=True, neighbor_mode="dense")
+    ref_model = E3Conv(
+        tensor_product="uvu", dtype=None, device="cpu", plain=True, neighbor_mode="dense")
     ref_model.load_state_dict(dense_models[torch.float32].state_dict())
     ref_model.requires_grad_(False)
     before = k5.KERNEL.launches
@@ -1232,7 +1274,7 @@ def check_sparse_score(models: dict, config, dev) -> dict:
     from jamun_tpu_torch.ops.cuda import nbr_conv as k6
 
     small = chain_batch(512, 2, dev)
-    ref_model = E3Conv(dtype=None, device="cpu", plain=True)
+    ref_model = E3Conv(tensor_product="uvu", dtype=None, device="cpu", plain=True)
     ref_model.load_state_dict(models[torch.float32].state_dict())
     ref_model.requires_grad_(False)
     before = k6.KERNEL.launches
@@ -1271,28 +1313,22 @@ def train_sparse(dev, card: str, kernels: dict) -> dict:
     launch count 0, a finite loss, the cap's overflow in the logged aux."""
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
     from jamun_tpu_torch.models.e3conv import E3Conv
-    from jamun_tpu_torch.train.distributions import ConstantSigma
-    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
 
     steps, G, N = 5, 4, 256
-    model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
+    model = E3Conv(tensor_product="uvu", dtype=torch.bfloat16, device=dev, seed=0)
     den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.5,
                                          add_fixed_noise=True))
     batch = chain_batch(N, G, dev)
-    trainer = Trainer(
-        TrainerConfig(max_steps=steps, log_every_n_steps=1, learning_rate=2.0e-3, seed=0),
-        den, ConstantSigma(SIGMA), device=dev,
-    )
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state = trainer.fit([batch] * steps)
+    state, metrics = fit_batches(den, dev, [batch] * steps, max_steps=steps, log_every_n_steps=1)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     used = {name: k.launches for name, k in kernels.items()}
     assert state.step == steps and not any(used.values()), used
-    train = [m for _, m in trainer.metrics if "train/loss" in m]
+    train = [m for _, m in metrics if "train/loss" in m]
     losses = [m["train/loss"] for m in train]
     assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
     overflow = [m["train/neighbor_overflow_max"] for m in train]
@@ -1312,27 +1348,22 @@ def train_above_128(dev, card: str, kernels: dict) -> dict:
     wants none and takes K5."""
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
     from jamun_tpu_torch.models.e3conv import E3Conv
-    from jamun_tpu_torch.train.distributions import ConstantSigma
-    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
 
     steps, G, N = 5, 4, 256
-    model = E3Conv(dtype=torch.bfloat16, neighbor_mode="dense", device=dev, seed=0)
+    model = E3Conv(
+        tensor_product="uvu", dtype=torch.bfloat16, neighbor_mode="dense", device=dev, seed=0)
     den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.3,
                                          add_fixed_noise=True))
     batch = tiled_batch(N, G, dev)
-    trainer = Trainer(
-        TrainerConfig(max_steps=steps, log_every_n_steps=1, learning_rate=2.0e-3, seed=0),
-        den, ConstantSigma(SIGMA), device=dev,
-    )
     before = {name: k.launches for name, k in kernels.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state = trainer.fit([batch] * steps)
+    state, metrics = fit_batches(den, dev, [batch] * steps, max_steps=steps, log_every_n_steps=1)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     used = {name: k.launches - before[name] for name, k in kernels.items()}
     assert state.step == steps and not any(used.values()), used
-    train = [m for _, m in trainer.metrics if "train/loss" in m]
+    train = [m for _, m in metrics if "train/loss" in m]
     losses = [m["train/loss"] for m in train]
     assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
     t_at = [(i + 1) / m["train/steps_per_sec"] for i, m in enumerate(train)]
@@ -1342,10 +1373,9 @@ def train_above_128(dev, card: str, kernels: dict) -> dict:
         + f"; {steady:.3f} ms/step over steps 2-{steps}, peak device memory "
         f"{peak / 2**30:.3f} GiB, kernel launches {used} on {card}")
     # the validation forward wants no gradient: K5, six launches
-    val = Trainer(TrainerConfig(max_steps=0), den, ConstantSigma(SIGMA), device=dev)
-    val.fit([], [batch])
+    _, val_metrics = fit_batches(den, dev, [], [batch], max_epochs=1)
     val_used = {name: k.launches - before[name] for name, k in kernels.items()}
-    val_loss = [m for _, m in val.metrics if "val/loss" in m][0]["val/loss"]
+    val_loss = [m for _, m in val_metrics if "val/loss" in m][0]["val/loss"]
     log(f"phase 5: validation at N={N}: loss {val_loss:.5f}, launches {val_used}")
     assert math.isfinite(val_loss)
     assert val_used == {**{name: 0 for name in kernels}, "fused_block_tiled": 6}, val_used
@@ -1362,12 +1392,10 @@ def train_flagship(dev, card: str) -> dict:
     from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.ops.cuda import kabsch as kb
-    from jamun_tpu_torch.train.distributions import ConstantSigma
-    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
     from jamun_tpu_torch.utils.testing import make_test_batch
 
     steps, G = 20, 32
-    model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
+    model = E3Conv(tensor_product="uvu", dtype=torch.bfloat16, device=dev, seed=0)
     # one fixed noise draw for every step (`add_fixed_noise`): with fresh
     # draws the 20-step trend of the loss at lr 2e-3 is smaller than the
     # draw-to-draw spread, so falling loss would say nothing of the updates
@@ -1375,23 +1403,19 @@ def train_flagship(dev, card: str) -> dict:
                                          add_fixed_noise=True))
     batch = make_test_batch(num_graphs=G, max_nodes=48, nodes_per_graph=[44] * G, max_bonds=96,
                             device=dev)
-    trainer = Trainer(
-        TrainerConfig(max_steps=steps, log_every_n_steps=1, val_every_n_steps=steps,
-                      learning_rate=2.0e-3, seed=0),
-        den, ConstantSigma(SIGMA), device=dev,
-    )
     assert den.config.align_noisy_input_during_training  # the default: Kabsch in every batch
     for k in (k1, k2, k4, kb):
         k.KERNEL.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.fit([batch] * steps, [batch])
+    _, metrics = fit_batches(den, dev, [batch] * steps, [batch], max_steps=steps,
+                             log_every_n_steps=1, val_every_n_steps=steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"edge_features": k1.KERNEL.launches, "conv_block": k2.KERNEL.launches,
                 "conv_block_bwd": k4.KERNEL.launches, "kabsch": kb.KERNEL.launches}
-    train = [m for _, m in trainer.metrics if "train/loss" in m]
-    val = [m for _, m in trainer.metrics if "val/loss" in m]
+    train = [m for _, m in metrics if "train/loss" in m]
+    val = [m for _, m in metrics if "val/loss" in m]
     losses = [m["train/loss"] for m in train]
     forwards = steps + 1  # every step's forward, and the validation's
     log(f"phase 5: launches {launches} over {steps} steps and {forwards} forwards")
@@ -1444,9 +1468,10 @@ def profile_steps(den, batch, steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.optim import adam
     from jamun_tpu_torch.train.state import create_train_state, make_train_step
 
-    state = create_train_state(den, 2.0e-3, seed=1, device=batch.pos.device)
+    state = create_train_state(den, adam(2.0e-3), seed=1, device=batch.pos.device)
     step = make_train_step(den, ConstantSigma(SIGMA))
     step(state, batch)
     torch.cuda.synchronize()
@@ -1467,9 +1492,9 @@ def check_train_gradients(dev) -> float:
     from jamun_tpu_torch.utils.testing import make_test_batch
 
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3, add_fixed_ones=True)
-    card_model = E3Conv(device=dev, seed=0)
+    card_model = E3Conv(tensor_product="uvu", device=dev, seed=0)
     card_model.output_gain.data.fill_(1.0)
-    cpu_model = E3Conv(device="cpu", plain=True)
+    cpu_model = E3Conv(tensor_product="uvu", device="cpu", plain=True)
     cpu_model.load_state_dict(card_model.state_dict())
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
                             scale=0.35, device=dev)
@@ -1899,7 +1924,7 @@ def check_plane_score(plane_models: dict, config, dev) -> dict:
 
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
                             scale=0.35, device=dev)
-    ref_model = E3Conv(dtype=None, device="cpu", plain=True)
+    ref_model = E3Conv(tensor_product="uvu", dtype=None, device="cpu", plain=True)
     ref_model.load_state_dict(plane_models[torch.float32].state_dict())
     ref_model.requires_grad_(False)
     before = k89.K9.launches
@@ -1943,9 +1968,10 @@ def check_train_never_waits(dev) -> dict:
     from jamun_tpu_torch.ops.cuda import kabsch as kb
     from jamun_tpu_torch.train.distributions import ConstantSigma
     from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
-    from jamun_tpu_torch.utils.testing import make_test_batch
+    from jamun_tpu_torch.train.optim import adam
+    from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger, make_test_batch
 
-    model = E3Conv(dtype=torch.bfloat16, device=dev, seed=0)
+    model = E3Conv(tensor_product="uvu", dtype=torch.bfloat16, device=dev, seed=0)
     den = Denoiser(model, DenoiserConfig(
         max_radius=1.0, average_squared_distance=0.3, mirror_augmentation_rate=0.5,
         add_fixed_noise=True,
@@ -1953,25 +1979,300 @@ def check_train_never_waits(dev) -> dict:
     assert den.config.align_noisy_input_during_training
     host = make_test_batch(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96,
                            device="cpu")
-    cfg = TrainerConfig(max_steps=3, log_every_n_steps=1000, learning_rate=2.0e-3, seed=0)
-    Trainer(cfg, den, ConstantSigma(SIGMA), device=dev).fit([host])  # the cached constants
-    trainer = Trainer(cfg, den, ConstantSigma(SIGMA), device=dev)
+    fit_batches(den, dev, [host], max_steps=3, log_every_n_steps=1000)  # the cached constants
+    tmp = tempfile.TemporaryDirectory()
+    cfg = TrainerConfig(max_steps=3, log_every_n_steps=1000, seed=0,
+                        checkpoint_dir=os.path.join(tmp.name, "checkpoints"))
+    trainer = Trainer(cfg, RecordingLogger(), device=dev)
     before = kb.KERNEL.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state = trainer.fit([host] * 3)
+        state = trainer.fit(den, adam(2.0e-3), ConstantSigma(SIGMA), FixedBatches([host] * 3))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    tmp.cleanup()
     aligned = kb.KERNEL.launches - before
     assert state.step == 3 and aligned == 3, (state.step, aligned)
     log(f"phase 4: Trainer.fit with the alignment, 3 steps from host batches: no step makes the "
         f"host wait for the device ({dt * 1e3 / 3:.3f} ms/step with fit's set-up); "
         f"Kabsch launches {aligned}")
     return dict(steps=3, ms_per_step_with_setup=dt * 1e3 / 3, kabsch_launches=aligned)
+
+
+# phase 6: four uncapped tetrapeptides for training and two for validation,
+# each 33-48 heavy atoms, so that every graph pads to the 48-atom bucket
+CLI_TRAIN_SEQS = ("KWFE", "RYLD", "MHQT", "WYRK")
+CLI_VAL_SEQS = ("FNEY", "LKWS")
+CLI_FRAMES = 200
+CLI_STEPS, CLI_VAL_EVERY, CLI_RESUME_STEPS = 30, 15, 5
+CLI_PROFILED = (19, 29)  # the CLI's steps 19-28 profiled: between its two validations
+
+
+def write_4aa_dataset(root: str, seed: int = 0) -> dict:
+    """The Timewarp layout `timewarp/4AA-large/{train,val}/<seq>-traj-arrays.npz`
+    and `<seq>-traj-state0.pdb`: `build_peptide`'s structure and 200 frames
+    of it plus N(0, 0.02 nm) noise from a seeded generator. Returns each
+    sequence's heavy-atom count."""
+    from jamun_tpu_torch.data.peptide_builder import build_peptide
+    from jamun_tpu_torch.data.topology import save_pdb
+
+    rng = np.random.default_rng(seed)
+    atoms = {}
+    for split, seqs in (("train", CLI_TRAIN_SEQS), ("val", CLI_VAL_SEQS)):
+        out = os.path.join(root, "timewarp", "4AA-large", split)
+        os.makedirs(out, exist_ok=True)
+        for seq in seqs:
+            top, pos = build_peptide(seq)
+            frames = pos[None] + rng.normal(0.0, 0.02, (CLI_FRAMES,) + pos.shape)
+            save_pdb(os.path.join(out, f"{seq}-traj-state0.pdb"), top, pos)
+            np.savez(os.path.join(out, f"{seq}-traj-arrays.npz"), positions=frames.astype(np.float32))
+            atoms[seq] = len(top.atoms)
+    return atoms
+
+
+def read_metrics_csv(path: str):
+    """(train rows, val rows) of a run's metrics.csv, values as floats."""
+    import csv
+
+    with open(path) as f:
+        rows = [{k: float(v) for k, v in r.items() if v != ""} for r in csv.DictReader(f)]
+    return [r for r in rows if "train/loss" in r], [r for r in rows if "val/loss" in r]
+
+
+def cli_score_check(run_dir: str, batch, dev) -> float:
+    """The run's trained weights (last.ckpt) in f32: the score of the arch
+    on the card against the same score on the CPU plain path, relative to
+    the max."""
+    import pickle
+
+    from jamun_tpu_torch.cmdline.common import build_denoiser
+
+    with open(os.path.join(run_dir, "config.pkl"), "rb") as f:
+        cfg = pickle.load(f)  # written by this run's CLI
+    params = torch.load(os.path.join(run_dir, "checkpoints", "last.ckpt"), weights_only=True)["params"]
+    scores = []
+    for device, extra in ((dev, {}), ("cpu", {"plain": True})):
+        model_cfg = dict(cfg["model"], arch=dict(cfg["model"]["arch"], dtype=None, **extra))
+        den = build_denoiser(model_cfg, device=device, seed=0)
+        den.arch.load_state_dict(params)
+        den.arch.requires_grad_(False)
+        with torch.no_grad():
+            scores.append(den.score(batch.to_device(device), SIGMA).cpu())
+    return rel_err(scores[0], scores[1])[1]
+
+
+def check_restore_bits(run_dir: str, dev) -> int:
+    """`restore_checkpoint` of the run's last.ckpt into a fresh state: every
+    parameter, EMA parameter and optimizer tensor equal to the saved one bit
+    for bit, the step count and the generators too. Returns the step."""
+    import pickle
+
+    from jamun_tpu_torch.cmdline.common import build_denoiser, build_optimizer
+    from jamun_tpu_torch.train.checkpoints import restore_checkpoint
+    from jamun_tpu_torch.train.state import create_train_state
+
+    with open(os.path.join(run_dir, "config.pkl"), "rb") as f:
+        cfg = pickle.load(f)  # written by this run's CLI
+    path = os.path.join(run_dir, "checkpoints", "last.ckpt")
+    saved = torch.load(path, weights_only=True)
+    state = create_train_state(build_denoiser(cfg["model"], device=dev, seed=1),
+                               build_optimizer(cfg["model"]), seed=1, device=dev)
+    restore_checkpoint(path, state)
+
+    def same(a, b, where):
+        if torch.is_tensor(a):
+            assert torch.equal(a.cpu(), b.cpu()), where
+        elif isinstance(a, dict):
+            assert sorted(a) == sorted(b), where
+            for k in a:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), where
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        else:
+            assert a == b, (where, a, b)
+
+    same(saved["params"], state.module.state_dict(), "params")
+    same(saved["ema_params"], state.ema.state_dict(), "ema_params")
+    same(saved["opt_state"], state.optimizer.state_dict(), "opt_state")
+    same(saved["generator"], state.generator.get_state(), "generator")
+    same(saved["host_generator"], state.host_generator.get_state(), "host_generator")
+    assert state.step == saved["step"]
+    return state.step
+
+
+@contextlib.contextmanager
+def profile_cli_steps(first: int, stop: int):
+    """torch.profiler over the CLI's own `Trainer.fit`, from the start of
+    train step `first` to the start of step `stop`, so that the window holds
+    whatever the fit does between its steps (the DataModule's batches, the
+    logged read, the loggers); each end is a synchronize. Wraps the step
+    function that `train/loop.py` builds; yields a dict that holds the
+    window's `device_profile` once the fit has passed step `stop`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jamun_tpu_torch.train import loop
+
+    make = loop.make_train_step
+    out, live = {}, {}
+
+    def make_profiled(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(state, batch):
+            if state.step + 1 == first:
+                torch.cuda.synchronize()
+                live["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                live["prof"].start()
+                live["t0"] = time.perf_counter()
+            elif state.step + 1 == stop and live:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - live["t0"]) * 1e6
+                live["prof"].stop()
+                out.update(device_profile(
+                    live.pop("prof"), f"the CLI's train steps {first}-{stop - 1}", wall_us, 14))
+                out["ms_per_step"] = wall_us / 1e3 / (stop - first)
+                live.clear()
+            return step(state, batch)
+
+        return run
+
+    loop.make_train_step = make_profiled
+    try:
+        yield out
+    finally:
+        loop.make_train_step = make
+        if live:
+            live["prof"].stop()
+
+
+def train_cli_runs(dev, card: str, counters: dict, kabsch_kernel) -> dict:
+    """Phase 6: the training CLI, `jamun_tpu_torch.cmdline.train.main`, in
+    process on a 4AA dataset written here: the repo's
+    `experiment=train_uncapped_4AA` at its full width (uvw, 120x0e + 32x1e,
+    5 layers, batch 32), then the same with `model/arch=e3conv_separable`
+    (uvu, bf16, kernels on), then a resume of the uvw run from last.ckpt."""
+    import statistics
+
+    from jamun_tpu_torch.cmdline import train as train_cli
+    from jamun_tpu_torch.data.batching import collate
+    from jamun_tpu_torch.data.discovery import parse_datasets_from_directory
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    exp_dir = os.path.join(repo, "configs", "experiment")
+    cwd, env = os.getcwd(), os.environ.get("JAMUN_DATA_PATH")
+    tmp = tempfile.TemporaryDirectory()
+    out = {}
+    try:
+        atoms = write_4aa_dataset(os.path.join(tmp.name, "data"))
+        os.environ["JAMUN_DATA_PATH"] = os.path.join(tmp.name, "data")
+        os.chdir(tmp.name)
+        val_sets = parse_datasets_from_directory(
+            os.path.join(tmp.name, "data", "timewarp", "4AA-large", "val"),
+            "^(.*)-traj-arrays.npz", "^(.*)-traj-state0.pdb",
+        )
+        score_batch = collate([val_sets[0][0], val_sets[0][7], val_sets[1][3]])
+        log(f"phase 6: wrote a 4AA dataset: train {CLI_TRAIN_SEQS}, val {CLI_VAL_SEQS}, "
+            f"{CLI_FRAMES} frames each, heavy atoms {atoms}")
+        base = ["--experiment-dir", exp_dir, "experiment=train_uncapped_4AA",
+                f"trainer.max_steps={CLI_STEPS}", f"trainer.val_every_n_steps={CLI_VAL_EVERY}",
+                "trainer.log_every_n_steps=1"]
+        path_kernels = ("edge_features", "conv_block", "conv_block_bwd")
+        for label, run_key, extra in (
+            ("uvw", "train_uncapped_4AA", []),
+            ("separable", "train_uncapped_4AA_separable",
+             ["model/arch=e3conv_separable", "run_key=train_uncapped_4AA_separable"]),
+        ):
+            for k in (*counters.values(), kabsch_kernel):
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with profile_cli_steps(*CLI_PROFILED) as prof:
+                state = train_cli.main([*base, *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = {name: k.launches for name, k in counters.items()}
+            kabsch = kabsch_kernel.launches
+            run_dir = os.path.join("runs", run_key)
+            train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+            losses = [r["train/loss"] for r in train]
+            # each step's gap from the row before; the profiled steps (and the
+            # profiler's start and stop, inside steps 19 and 29) left out
+            gaps = [(b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:])
+                    if not CLI_PROFILED[0] <= b["step"] <= CLI_PROFILED[1]]
+            ms_step = statistics.median(gaps)
+            G, N = 32, 48
+            assert state.step == CLI_STEPS
+            assert [r["step"] for r in train] == list(range(1, CLI_STEPS + 1))
+            assert [r["step"] for r in val] == [CLI_VAL_EVERY, CLI_STEPS], val
+            assert all(math.isfinite(v) for v in losses + [r["val/loss"] for r in val])
+            assert losses[-1] < losses[0], (losses[0], losses[-1])
+            assert kabsch > 0  # align_noisy_input_during_training is on in both configs
+            if label == "uvw":
+                assert state.module.tensor_product == "uvw" and not any(
+                    launches[k] for k in path_kernels), launches
+            else:
+                assert state.module.tensor_product == "uvu" and all(
+                    launches[k] > 0 for k in path_kernels), launches
+            score_err = cli_score_check(run_dir, score_batch, dev)
+            assert score_err < 1e-3, (label, score_err)
+            assert prof, "the profiled window of the CLI's fit did not close"
+            out[label] = dict(
+                run_key=run_key, steps=CLI_STEPS, seconds=seconds, ms_per_step=ms_step,
+                peak_bytes=peak, first_loss=losses[0], last_loss=losses[-1],
+                val_loss=[r["val/loss"] for r in val], atoms=atoms, bucket=N, batch=G,
+                launches=launches, kabsch_launches=kabsch, score_rel_err=score_err, profile=prof,
+            )
+            log(f"phase 6: {label} ({run_key}): {ms_step:.3f} ms/step (median over steps 2-"
+                f"{CLI_PROFILED[0] - 1} and {CLI_PROFILED[1] + 1}-{CLI_STEPS}, host clock after "
+                f"each step's logged read), peak device memory "
+                f"{peak / 2**30:.3f} GiB, train loss {losses[0]:.5f} -> {losses[-1]:.5f}, val loss "
+                + " ".join(f"{r['val/loss']:.5f}" for r in val)
+                + f"; N {min(atoms.values())}-{max(atoms.values())} atoms, bucket {N}, batch {G}; "
+                f"launches {launches}, Kabsch {kabsch}; f32 score card vs CPU rel err "
+                f"{score_err:.3g} (tol 1e-3); device busy {100 * prof['busy_share']:.1f}% of the CLI's "
+                f"steps {CLI_PROFILED[0]}-{CLI_PROFILED[1] - 1} under the profiler "
+                f"({prof['ms_per_step']:.3f} ms/step there); "
+                f"{seconds:.1f} s in main on {card}")
+
+        # resume the uvw run for five more steps from its last.ckpt
+        run_dir = os.path.join("runs", "train_uncapped_4AA")
+        restored = check_restore_bits(run_dir, dev)
+        assert restored == CLI_STEPS
+        ckpt = os.path.join(run_dir, "checkpoints", "last.ckpt")
+        state = train_cli.main([*base, f"trainer.max_steps={CLI_STEPS + CLI_RESUME_STEPS}",
+                                f"trainer.val_every_n_steps={CLI_RESUME_STEPS}",
+                                f"resume_from_checkpoint={os.path.abspath(ckpt)}"])
+        train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+        with open(os.path.join(run_dir, "checkpoints", "manifest.json")) as f:
+            manifest = json.load(f)
+        steps = sorted(e["step"] for e in manifest["entries"])
+        assert state.step == CLI_STEPS + CLI_RESUME_STEPS
+        assert [r["step"] for r in train] == list(
+            range(CLI_STEPS + 1, CLI_STEPS + CLI_RESUME_STEPS + 1))
+        assert steps == [CLI_VAL_EVERY, CLI_STEPS, CLI_STEPS + CLI_RESUME_STEPS], steps
+        assert torch.load(ckpt, weights_only=True)["step"] == CLI_STEPS + CLI_RESUME_STEPS
+        out["resume"] = dict(restored_step=restored, final_step=state.step, manifest_steps=steps,
+                             losses=[r["train/loss"] for r in train])
+        log(f"phase 6: resume from last.ckpt at step {restored}: parameters, EMA, optimizer state "
+            f"and generators restored bit for bit; trained on to step {state.step} "
+            f"(steps {train[0]['step']:.0f}-{train[-1]['step']:.0f} logged); the manifest's top-k "
+            f"lists steps {steps}")
+    finally:
+        os.chdir(cwd)
+        if env is None:
+            os.environ.pop("JAMUN_DATA_PATH", None)
+        else:
+            os.environ["JAMUN_DATA_PATH"] = env
+        tmp.cleanup()
+    return out
 
 
 def main() -> int:
@@ -2027,13 +2328,16 @@ def main() -> int:
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
     dtypes = (torch.bfloat16, torch.float32)
-    models = {cdt: E3Conv(dtype=cdt, device=dev, seed=0) for cdt in dtypes}
+    models = {cdt: E3Conv(tensor_product="uvu", dtype=cdt, device=dev, seed=0) for cdt in dtypes}
     # the same weights (the same seed) with the whole-model kernel on
-    stack_models = {cdt: E3Conv(dtype=cdt, fused_stack=True, device=dev, seed=0) for cdt in dtypes}
+    stack_models = {cdt: E3Conv(
+        tensor_product="uvu", dtype=cdt, fused_stack=True, device=dev, seed=0) for cdt in dtypes}
     # the same weights again, dense at any size ("auto" goes sparse from 512 atoms on)
-    dense_models = {cdt: E3Conv(dtype=cdt, neighbor_mode="dense", device=dev, seed=0) for cdt in dtypes}
+    dense_models = {cdt: E3Conv(
+        tensor_product="uvu", dtype=cdt, neighbor_mode="dense", device=dev, seed=0) for cdt in dtypes}
     # and under JAX's pallas_variant="plane" (K9 in every hidden layer)
-    plane_models = {cdt: E3Conv(dtype=cdt, pallas_variant="plane", device=dev, seed=0) for cdt in dtypes}
+    plane_models = {cdt: E3Conv(
+        tensor_product="uvu", dtype=cdt, pallas_variant="plane", device=dev, seed=0) for cdt in dtypes}
     for m in (*models.values(), *stack_models.values(), *dense_models.values(), *plane_models.values()):
         m.output_gain.data.fill_(1.0)
         m.requires_grad_(False)
@@ -2227,7 +2531,8 @@ def main() -> int:
 
     # (d) the sparse path ("auto" from 512 atoms on, no gradient): K6, and K7
     # with `nbr_geom_kernel`, through `Sampler.sample`
-    geom_model = E3Conv(dtype=torch.bfloat16, nbr_geom_kernel=True, device=dev, seed=0)
+    geom_model = E3Conv(
+        tensor_product="uvu", dtype=torch.bfloat16, nbr_geom_kernel=True, device=dev, seed=0)
     geom_model.output_gain.data.fill_(1.0)
     geom_model.requires_grad_(False)
     den_sparse = Denoiser(models[torch.bfloat16], config)
@@ -2259,7 +2564,7 @@ def main() -> int:
     # ---- phase 4: the output against references ----
     small = make_test_batch(num_graphs=2, max_nodes=44, nodes_per_graph=[44, 41], max_bonds=88,
                             scale=0.35, device=dev)
-    ref_model = E3Conv(dtype=None, device="cpu", plain=True)
+    ref_model = E3Conv(tensor_product="uvu", dtype=None, device="cpu", plain=True)
     ref_model.load_state_dict(models[torch.float32].state_dict())
     ref_model.requires_grad_(False)
     with torch.no_grad():
@@ -2319,6 +2624,9 @@ def main() -> int:
     train_tiled = train_above_128(dev, card, counters)
     train_nbr = train_sparse(dev, card, counters)
 
+    # ---- phase 6: the training CLI on the repo's 4AA config ----
+    train_cli = train_cli_runs(dev, card, counters, kb.KERNEL)
+
     # ---- the report ----
     def main_row(rows, **match):
         return next(r for r in rows if all(r[k] == v for k, v in match.items()))
@@ -2368,7 +2676,7 @@ def main() -> int:
                   launches=launches, train=train,
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
-                  k7_against_k1=k7_against_k1)
+                  k7_against_k1=k7_against_k1, train_cli=train_cli)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,12 +1,18 @@
-"""E3Conv: the E(3)-equivariant message-passing denoiser network, dense path.
+"""E3Conv: the E(3)-equivariant message-passing denoiser network.
 
-Counterpart of `jamun_tpu/models/e3conv.py` for the separable (uvu), l <= 1
-configuration. Parameters carry the flax names (`ConvBlock_0`,
+Counterpart of `jamun_tpu/models/e3conv.py` for l <= 1 hidden irreps
+(`Sx0e + Vx1e`). Parameters carry the flax names (`ConvBlock_0`,
 `_HiddenLayer_k`, `EquivariantMLP_0`, ...), so `params.from_jax_params`
 maps a JAX param tree onto this module one to one.
 
-The ways through the forward, picked once per call as JAX's `E3Conv` picks
-them (`jamun_tpu/models/e3conv.py:332-404`):
+`tensor_product` is JAX's, "uvw" by default: e3nn's fully connected product
+(`ops/tensor_product.py`) runs JAX's generic dense or sparse path on either
+device, as every kernel route in JAX is gated on "uvu". The separable "uvu"
+product takes the kernels below. `plain=True`, or `use_pallas=False` as the
+arch files spell it, is the CPU reference path: a call on the card raises.
+
+The ways through the forward of the uvu product, picked once per call as
+JAX's `E3Conv` picks them (`jamun_tpu/models/e3conv.py:332-404`):
   - `fused_stack=True`, for calls that nothing differentiates (the walk):
     the whole forward after the atom embedding in one launch
     (`ops/cuda/e3_stack`, K3) at N <= 64 and one noise level. Under
@@ -71,7 +77,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -102,6 +108,7 @@ EDGE_FEATURE_ATOMS = 128  # up to here K1's edge features and K2 (K4); above, K5
 # capped-neighbour path (`jamun_tpu/models/e3conv.py:38-44`)
 _NBR_AUTO_TRAIN_N = 256
 _NBR_AUTO_SAMPLE_N = 512
+_DTYPES = {None: None, "bfloat16": torch.bfloat16}  # the arch files' dtype strings
 
 
 def neighbor_mode_auto(n_atoms: int, training: bool) -> bool:
@@ -120,11 +127,15 @@ def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
 class _HiddenLayer(nn.Module):
     """Noise scaling -> ConvBlock -> noise-conditional skip blend."""
 
-    def __init__(self, irreps_hidden, irreps_sh, edge_attr_dim, dtype, pallas_variant="packed"):
+    def __init__(
+        self, irreps_hidden, irreps_sh, edge_attr_dim, dtype, pallas_variant="packed",
+        tensor_product="uvu",
+    ):
         super().__init__()
         self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_hidden)
         self.ConvBlock_0 = ConvBlock(
-            irreps_hidden, irreps_hidden, irreps_sh, edge_attr_dim, dtype, pallas_variant
+            irreps_hidden, irreps_hidden, irreps_sh, edge_attr_dim, dtype, pallas_variant,
+            tensor_product,
         )
         self.NoiseConditionalSkipConnection_0 = NoiseConditionalSkipConnection(irreps_hidden)
 
@@ -145,9 +156,11 @@ class E3Conv(nn.Module):
         atom_code_embedding_dim: int = 8,
         residue_code_embedding_dim: int = 32,
         residue_index_embedding_dim: int = 8,
+        use_residue_information: bool = True,
         use_residue_sequence_index: bool = False,
-        tensor_product: str = "uvu",
-        dtype: Optional[torch.dtype] = None,
+        tensor_product: str = "uvw",
+        dtype: Union[torch.dtype, str, None] = None,
+        use_pallas: bool = True,
         neighbor_mode: str = "auto",
         neighbor_cap: int = 32,
         nbr_geom_kernel: bool = False,
@@ -157,7 +170,9 @@ class E3Conv(nn.Module):
         device=None,
         seed: Optional[int] = None,
     ):
-        """`dtype` is the compute dtype (parameters stay f32); `fused_stack`
+        """`dtype` is the compute dtype (parameters stay f32), a torch dtype
+        or the arch files' "bfloat16" / null; `use_pallas=False` is the arch
+        files' spelling of `plain=True` (the CPU reference path); `fused_stack`
         turns the whole-model kernel on for calls without a gradient (the
         parameters are the same tree either way); `neighbor_cap` is K of the
         sparse path, `nbr_geom_kernel` its K7 switch (cached lists, calls
@@ -167,11 +182,15 @@ class E3Conv(nn.Module):
         generator, so a seed gives the same weights on any device;
         `pallas_variant` ("packed" | "plane") is JAX's (module docstring)."""
         super().__init__()
-        if tensor_product != "uvu":
+        if not use_residue_information:
             raise NotImplementedError(
-                f"tensor_product={tensor_product!r}: only the separable uvu product is "
-                "ported (uvw and experimental: ROADMAP.md queue A item 11)"
+                "use_residue_information=False (JAX's SimpleAtomEmbedding) is not ported "
+                "(ROADMAP.md queue A, 'SimpleAtomEmbedding')"
             )
+        if isinstance(dtype, str) or dtype is None:
+            if dtype not in _DTYPES:
+                raise ValueError(f"dtype={dtype!r}")
+            dtype = _DTYPES[dtype]
         if neighbor_mode not in ("dense", "nbr", "auto"):
             raise ValueError(f"neighbor_mode={neighbor_mode!r}")
         if pallas_variant not in PALLAS_VARIANTS:
@@ -180,14 +199,19 @@ class E3Conv(nn.Module):
         self.irreps_hidden, self.irreps_out = Irreps(irreps_hidden), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
         if self.irreps_hidden.sv_shape() is None or self.irreps_hidden.sv_shape()[1] == 0:
-            raise NotImplementedError(f"hidden irreps {irreps_hidden}: want Sx0e + Vx1e")
+            raise NotImplementedError(
+                f"hidden irreps {irreps_hidden}: want Sx0e + Vx1e "
+                "(ROADMAP.md queue A, 'General-l irreps')"
+            )
         self.n_layers = n_layers
         self.edge_attr_dim = edge_attr_dim
         self.dtype = dtype
         self.neighbor_mode = neighbor_mode
         self.neighbor_cap = neighbor_cap
         self.nbr_geom_kernel = nbr_geom_kernel
-        self.plain = plain
+        self.plain = plain or not use_pallas
+        self.tensor_product = tensor_product
+        self.kernels = tensor_product == "uvu" and not self.plain  # calls may take the kernels
         self.fused_stack = fused_stack
         self.bonded_dim = edge_attr_dim // 2
         self.radial_dim = (edge_attr_dim + 1) // 2
@@ -201,12 +225,16 @@ class E3Conv(nn.Module):
         irreps_node = self.AtomEmbeddingWithResidueInformation_0.irreps_out
         self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_node)
         self.ConvBlock_0 = ConvBlock(
-            irreps_node, self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant
+            irreps_node, self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant,
+            tensor_product,
         )
         for k in range(n_layers):
             self.add_module(
                 f"_HiddenLayer_{k}",
-                _HiddenLayer(self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant),
+                _HiddenLayer(
+                    self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant,
+                    tensor_product,
+                ),
             )
         self.EquivariantMLP_0 = EquivariantMLP(
             self.irreps_hidden, self.irreps_out, [self.irreps_hidden]
@@ -255,7 +283,7 @@ class E3Conv(nn.Module):
         of JAX's `training=False`), one noise level, and a shape K3 takes
         (`stack_supported`: N <= 64)."""
         if (
-            not self.fused_stack or self.plain or self.pallas_variant != "packed"
+            not self.fused_stack or not self.kernels or self.pallas_variant != "packed"
             or c_noise.numel() != 1
         ):
             return False
@@ -325,19 +353,21 @@ class E3Conv(nn.Module):
         N = batch.pos.shape[1]
         on_card = batch.pos.device.type == "cuda"
         if self.plain and on_card:
-            raise ValueError("plain=True is the CPU reference path; the card runs the kernels")
+            raise ValueError(
+                "plain=True (use_pallas=False) is the CPU reference path; the card runs the kernels"
+            )
         wants_grad = self._wants_grad(batch)
         tel = {}
         if self.neighbor_mode == "nbr" or (
             self.neighbor_mode == "auto" and neighbor_mode_auto(N, wants_grad)
         ):
-            kernel = not self.plain and not wants_grad
+            kernel = self.kernels and not wants_grad
             edges, overflow = self._sparse_edges(batch, radial_cutoff, nbr_cache, kernel)
             out = self._standard_forward(batch, c_noise, edges, kernel)
             if overflow is not None:
                 tel["neighbor_overflow"] = overflow
         elif self.pallas_variant == "plane":
-            kernel = not self.plain and not wants_grad
+            kernel = self.kernels and not wants_grad
             out = self._standard_forward(batch, c_noise, self._plain_edges(batch, radial_cutoff), kernel)
         else:
             out = self._dense_forward(batch, c_noise, radial_cutoff, wants_grad)
@@ -393,12 +423,13 @@ class E3Conv(nn.Module):
         supported = self.kernel_path_supported(N)
         # the training dispatch: the tiled kernel is forward only, so a call
         # that wants a gradient above 128 atoms takes the plain path wholesale
-        kernels = not self.plain and supported and not (wants_grad and N > EDGE_FEATURE_ATOMS)
-        if on_card and not supported:
+        kernels = self.kernels and supported and not (wants_grad and N > EDGE_FEATURE_ATOMS)
+        if on_card and self.kernels and not supported:
             raise NotImplementedError(
                 f"N={N}, edge_attr_dim={self.edge_attr_dim}, hidden {self.irreps_hidden}, "
                 f"output {self.irreps_out}: outside the layerwise kernels (edge_attr_dim 64, "
-                f"radial width <= {k2.MAX_WIDTH}, outputs l <= 1 of even parity)"
+                f"radial width <= {k2.MAX_WIDTH}, outputs l <= 1 of even parity); see "
+                "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
             )
         x = self._embed(batch, c_noise)
         mask = batch.node_mask[..., None].to(torch.float32)

@@ -1,10 +1,16 @@
-"""Separable (uvu) equivariant graph convolution on dense padded batches.
+"""Equivariant graph convolution on dense padded batches.
 
-Counterpart of `jamun_tpu/ops/conv.py` (`Conv` and `ConvBlock`, dense path,
-l <= 1). Per edge: uvu messages of the source features, the edge SH and the
-radial-MLP weights; mean over the combined degree of dense pairs and bonds;
-then the post-linear. `ConvBlock` wraps it as
-IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
+Counterpart of `jamun_tpu/ops/conv.py` (`Conv` and `ConvBlock`). Per edge:
+the tensor product of the source features, the edge SH and the radial-MLP
+weights; mean over the combined degree of dense pairs and bonds. `ConvBlock`
+wraps it as IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
+
+`tensor_product` is JAX's: "uvu", the separable product (l <= 1): uvu
+messages, then the post-linear, on the kernels below where the caller allows
+them; or "uvw", e3nn's fully connected product (`ops/tensor_product.py`,
+radial MLP of `tp.weight_numel` outputs, no post-linear), which takes JAX's
+generic path on either device, as every kernel route of JAX's `Conv` is
+gated on "uvu" (`jamun_tpu/ops/conv.py:55-71, 253-262, 353-377`).
 
 `Conv.forward(x, edges, kernel)`: the caller sets `kernel` for a call that
 may take the hand-written kernels (on the card; their plain twins on the
@@ -60,10 +66,23 @@ from jamun_tpu_torch.ops.graph import EdgeData
 from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 from jamun_tpu_torch.ops.mlp import ScalarMLP
+from jamun_tpu_torch.ops.neighbors import gather_neighbors
+from jamun_tpu_torch.ops.tensor_product import fully_connected_tp
 
-__all__ = ["Conv", "ConvBlock", "depthwise_irreps", "PALLAS_VARIANTS"]
+__all__ = ["Conv", "ConvBlock", "depthwise_irreps", "PALLAS_VARIANTS", "TENSOR_PRODUCTS"]
 
 PALLAS_VARIANTS = ("packed", "plane")  # JAX's `pallas_variant`
+TENSOR_PRODUCTS = ("uvu", "uvw")  # JAX's `tensor_product`, less "experimental"
+
+
+def check_tensor_product(tensor_product: str) -> None:
+    if tensor_product == "experimental":
+        raise NotImplementedError(
+            "tensor_product='experimental' is not ported "
+            "(ROADMAP.md queue A, 'The experimental product')"
+        )
+    if tensor_product not in TENSOR_PRODUCTS:
+        raise ValueError(f"tensor_product={tensor_product!r}")
 
 
 def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
@@ -72,7 +91,8 @@ def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
     sv = Irreps(irreps_in).sv_shape()
     if sv is None or "1e" not in Irreps(irreps_out) or "2e" in Irreps(irreps_out):
         raise NotImplementedError(
-            f"only l <= 1 uvu shapes are ported ({irreps_in} -> {irreps_out})"
+            f"only l <= 1 uvu shapes are ported ({irreps_in} -> {irreps_out}); see "
+            "ROADMAP.md queue A, 'General-l irreps'"
         )
     S, V = sv
     blocks = [(S, "0e"), (S, "1e")]
@@ -82,34 +102,46 @@ def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
 
 
 class Conv(nn.Module):
-    """Tensor-field-network convolution with the depthwise product."""
+    """Tensor-field-network convolution with the depthwise (uvu) or the
+    fully connected (uvw) product."""
 
     def __init__(
         self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
-        pallas_variant: str = "packed",
+        pallas_variant: str = "packed", tensor_product: str = "uvu",
     ):
         super().__init__()
         if pallas_variant not in PALLAS_VARIANTS:
             raise ValueError(f"pallas_variant={pallas_variant!r}")
+        check_tensor_product(tensor_product)
         self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
         self.S, self.V = self.irreps_in.sv_shape() or (0, 0)
         self.dtype = dtype
         self.edge_attr_dim = edge_attr_dim
         self.pallas_variant = pallas_variant
-        dtp = depthwise_irreps(self.irreps_in, self.irreps_out)
-        self.radial_nn = ScalarMLP(edge_attr_dim, 2 * self.S + 3 * self.V, [edge_attr_dim])
-        self._post_linear = IrrepsLinear(dtp, self.irreps_out)
+        self.tensor_product = tensor_product
+        if tensor_product == "uvw":
+            self.tp = fully_connected_tp(self.irreps_in, self.irreps_sh, self.irreps_out)
+            self.radial_nn = ScalarMLP(edge_attr_dim, self.tp.weight_numel, [edge_attr_dim])
+            self._post_linear = None
+        else:
+            self.tp = None
+            dtp = depthwise_irreps(self.irreps_in, self.irreps_out)
+            self.radial_nn = ScalarMLP(edge_attr_dim, 2 * self.S + 3 * self.V, [edge_attr_dim])
+            self._post_linear = IrrepsLinear(dtp, self.irreps_out)
 
     def forward(self, x: torch.Tensor, edges: EdgeData, kernel: bool = False) -> torch.Tensor:
         """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]. `kernel`: the
         caller allows the kernels (no gradient flows through them); on the
-        sparse path K6, on the dense path what `dense_route` picks."""
+        sparse path K6, on the dense path what `dense_route` picks. The uvw
+        product has no kernel and ignores it."""
         S, V = self.S, self.V
         cdt = self.dtype or x.dtype
         out_dtype = x.dtype
         x = x.to(cdt)
-        if edges.nbr_idx is None:
+        if self.tp is not None:
+            out, deg = self._tp_messages(x, edges, out_dtype)
+        elif edges.nbr_idx is None:
             route = self.dense_route(x, edges) if kernel else "plain"
             if route == "conv_layer":
                 return self._kernel_layer(x, edges).to(out_dtype)
@@ -137,15 +169,46 @@ class Conv(nn.Module):
             )
         out, deg = out.to(out_dtype), deg.to(torch.float32)
 
-        w_bond = self.radial_nn(edges.attr_bond.to(cdt))
         src = torch.gather(x, 1, edges.bond_src[..., None].expand(-1, -1, x.shape[-1]))
-        msg_b = uvu_messages(src, edges.sh_bond, w_bond, S, V).to(out_dtype)
-        msg_b = msg_b * edges.bond_mask[..., None].to(out_dtype)
+        if self.tp is not None:
+            msg_b = self.tp(src, edges.sh_bond.to(cdt), self._path_weights(edges.attr_bond.to(cdt)))
+        else:
+            msg_b = uvu_messages(src, edges.sh_bond, self.radial_nn(edges.attr_bond.to(cdt)), S, V)
+        msg_b = msg_b.to(out_dtype) * edges.bond_mask[..., None].to(out_dtype)
         dst = edges.bond_dst[..., None]
         out = out.scatter_add(1, dst.expand(-1, -1, msg_b.shape[-1]), msg_b)
         deg = deg.scatter_add(1, edges.bond_dst, edges.bond_mask.to(torch.float32))
         out = out / torch.clamp(deg, min=1.0)[..., None].to(out_dtype)
-        return self._post_linear(out)
+        return out if self._post_linear is None else self._post_linear(out)
+
+    def _path_weights(self, attr: torch.Tensor) -> list:
+        """The radial MLP's `tp.weight_numel` outputs, one tensor per path of
+        `self.tp`: the last Dense layer runs on each path's columns. The
+        same numbers as JAX's one output split at the paths, but no tensor
+        of every path's weights is made, nor in the backward a gradient of
+        that size for each path's slice of it: at the flagship width a pair
+        carries 28992 weights."""
+        h = self.radial_nn.hidden(attr)
+        last = self.radial_nn.layer(self.radial_nn.n_layers - 1)
+        kernel, bias = last.kernel.to(h.dtype), last.bias.to(h.dtype)
+        return [h @ kernel[:, s] + bias[s] for s in self.tp.weight_slices()]
+
+    def _tp_messages(self, x: torch.Tensor, edges: EdgeData, out_dtype):
+        """The summed messages and the degree of the radial edges through
+        `self.tp`: JAX's generic dense path (`jamun_tpu/ops/conv.py:353-364`),
+        or its generic sparse path on a capped list (`:253-262`). The sums
+        accumulate in `out_dtype`, as `preferred_element_type` asks there."""
+        cdt = x.dtype
+        if edges.nbr_idx is None:
+            w = self._path_weights(edges.attr_dense.to(cdt))  # [G, dst, src, *] per path
+            G, N, D = x.shape
+            msg = self.tp(x[:, None].expand(G, N, N, D), edges.sh_dense.to(cdt), w)
+            out = torch.einsum("gijd,gij->gid", msg.to(out_dtype), edges.adj.to(out_dtype))
+            return out, edges.adj.sum(-1)
+        w = self._path_weights(edges.attr_nbr.to(cdt))  # [G, N, K, *] per path
+        msg = self.tp(gather_neighbors(x, edges.nbr_idx), edges.sh_nbr.to(cdt), w)
+        out = torch.einsum("gnkd,gnk->gnd", msg.to(out_dtype), edges.nbr_mask.to(out_dtype))
+        return out, edges.nbr_mask.sum(-1)
 
     def _wants_grad(self, x: torch.Tensor, edges: EdgeData) -> bool:
         inputs = (x, edges.pos, edges.bond0_embed, edges.bond1_embed)
@@ -170,7 +233,7 @@ class Conv(nn.Module):
         (`Conv._pallas_supported` and `__call__`, `jamun_tpu/ops/conv.py
         :93-135, 266-342`): "conv_layer" (K2's layer mode), "packed_uvu_conv_dense"
         (K8), "fused_uvu_conv_dense" (K9) or "plain". Where JAX's gate sends
-        the call to XLA, the plain path runs: an input that is not
+        the call to XLA, the plain path runs: the uvw product, an input that is not
         `Sx0e (+ Vx1e)`, edge attributes other than 64 wide or harmonics other
         than `1x0e + 1x1e` (`supports_packed_conv` / `supports_fused_conv`), no
         positions or bondedness-0 row in `edges`, V = 0 under "plane"
@@ -181,7 +244,7 @@ class Conv(nn.Module):
         card."""
         sv = self.irreps_in.sv_shape()
         if (
-            sv is None or sv[0] == 0 or self.edge_attr_dim != 2 * N_RADIAL
+            self.tp is not None or sv is None or sv[0] == 0 or self.edge_attr_dim != 2 * N_RADIAL
             or self.irreps_sh.dim != 4 or edges.pos is None or edges.bond0_embed is None
             or self._wants_grad(x, edges)
         ):
@@ -234,14 +297,15 @@ class ConvBlock(nn.Module):
 
     def __init__(
         self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
-        pallas_variant: str = "packed",
+        pallas_variant: str = "packed", tensor_product: str = "uvu",
     ):
         super().__init__()
         self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
         self.gate = Gate(self.irreps_out)
         self.dtype = dtype
         self.Conv_0 = Conv(
-            irreps_in, self.gate.irreps_in, irreps_sh, edge_attr_dim, dtype, pallas_variant
+            irreps_in, self.gate.irreps_in, irreps_sh, edge_attr_dim, dtype, pallas_variant,
+            tensor_product,
         )
         self.IrrepsLinear_0 = IrrepsLinear(self.irreps_in, self.gate.irreps_out)
         self.IrrepsLinear_1 = IrrepsLinear(self.gate.irreps_out, self.gate.irreps_out)
@@ -280,9 +344,9 @@ class ConvBlock(nn.Module):
         if isinstance(geometry, TiledGeometry):
             if wants_grad:
                 raise NotImplementedError(
-                    "ConvBlock.fused: the tiled kernel is forward only (JAX's "
-                    "tiled_kernel_training, ROADMAP.md queue A item 6); a call that wants a "
-                    "gradient above 128 atoms takes the plain path"
+                    "ConvBlock.fused: the tiled kernel is forward only (JAX's tiled_kernel_training, "
+                    "ROADMAP.md queue A, 'Tiled kernel training'); a call that wants a gradient "
+                    "above 128 atoms takes the plain path"
                 )
             return fused_block_tiled(x, geometry, cast_block_weights(masters, cdt))
         if wants_grad:

@@ -241,7 +241,10 @@ def block_master_weights(radial_nn, post_linear, lin2, skip, bond0, bond1, *, S,
     wb = d0.kernel[:nb].to(f32)
     out = [mi.mul for mi in post_linear.irreps_out]
     if len(out) != 3 or out[1] != out[2]:
-        raise NotImplementedError(f"gate shape {post_linear.irreps_out} is not [Sc, Vg, Vg]")
+        raise NotImplementedError(
+            f"gate shape {post_linear.irreps_out} is not [Sc, Vg, Vg]; see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
+        )
     Sc, Vg = out[0], out[2]
 
     def lin(module, i_in, i_out):
@@ -416,7 +419,8 @@ def fused_conv_block(x, ef, bf, bond_src, bond_dst, w: BlockWeights, residuals: 
     if W > MAX_WIDTH or ef.shape[-1] != EF_GEOM + N_RADIAL:
         raise NotImplementedError(
             f"fused_conv_block: radial width {W} (max {MAX_WIDTH}) / "
-            f"{ef.shape[-1] - EF_GEOM} radial functions (want {N_RADIAL})"
+            f"{ef.shape[-1] - EF_GEOM} radial functions (want {N_RADIAL}); see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     ec = EF_GEOM + N_RADIAL
     f32 = torch.float32
@@ -622,7 +626,8 @@ def conv_layer(x, ef, bf, bond_src, bond_dst, w: LayerWeights) -> torch.Tensor:
     if W > MAX_WIDTH or ef.shape[-1] != EF_GEOM + N_RADIAL:
         raise NotImplementedError(
             f"conv_layer: radial width {W} (max {MAX_WIDTH}) / {ef.shape[-1] - EF_GEOM} radial "
-            f"functions (want {N_RADIAL})"
+            f"functions (want {N_RADIAL}); see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     ec = EF_GEOM + N_RADIAL
     f32 = torch.float32

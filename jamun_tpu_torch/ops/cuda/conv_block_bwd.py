@@ -284,13 +284,14 @@ def conv_block_bwd(g, x, ef, bf, bond_src, bond_dst, w, agg, deg) -> dict:
     if W > MAX_WIDTH or ef.shape[-1] != ec:
         raise NotImplementedError(
             f"conv_block_bwd: radial width {W} (max {MAX_WIDTH}) / "
-            f"{ef.shape[-1] - EF_GEOM} radial functions (want {N_RADIAL})"
+            f"{ef.shape[-1] - EF_GEOM} radial functions (want {N_RADIAL}); see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     if cdt in TS and pair_layout(N, B, S, V, cdt)["smem_bytes"] > MAX_SMEM:
         raise NotImplementedError(
             f"conv_block_bwd: N={N}, B={B}: the pair pass's list of its sources' pairs does not "
-            f"fit a block's shared memory (K2's regime, N <= 128, does); see ROADMAP.md queue A, "
-            f"'What training still lacks'"
+            f"fit a block's shared memory (K2's regime, N <= 128, does); see "
+            "ROADMAP.md queue A, 'Tiled kernel training'"
         )
     f32 = torch.float32
     checks = [

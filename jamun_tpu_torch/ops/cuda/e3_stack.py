@@ -291,12 +291,14 @@ def e3conv_stack(
         raise NotImplementedError(
             f"e3conv_stack: N={N} (max {MAX_ATOMS}), hidden {hidden}, projector "
             f"({S_emb}, {proj_w.V}) -> ({S}, {V}), {n_radial} radial functions, {L} layers, "
-            f"output blocks {head_w.out_blocks} are outside the kernel"
+            f"output blocks {head_w.out_blocks} are outside the kernel; see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     if G > MAX_GRAPHS:
         raise NotImplementedError(
             f"e3conv_stack: {G} graphs in one launch (max {MAX_GRAPHS}); split the batch "
-            "(the unfused jump does with jump_chunk_size)"
+            "(the unfused jump does with jump_chunk_size); see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     C0o = sum(mul for mul, l in head_w.out_blocks if l == 0)
     V1o = sum(mul for mul, l in head_w.out_blocks if l == 1)

@@ -174,7 +174,8 @@ def edge_features(
     if pos.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "edge_features: no gradient with respect to the positions (the kernel path "
-            "trains the weights only); detach pos or run the plain path"
+            "trains the weights only); detach pos or run the plain path "
+            "(ROADMAP.md queue A, 'Position gradients through the kernels')"
         )
     cutoff = float(cutoff)
     if pos.device.type == "cpu":

@@ -148,7 +148,8 @@ def _refuse_position_gradient(pos: torch.Tensor) -> None:
         raise NotImplementedError(
             "fused_block_tiled: no gradient with respect to the positions (the kernel "
             "rebuilds the edge geometry and drops its dependence); detach pos or run the "
-            "plain path"
+            "plain path "
+            "(ROADMAP.md queue A, 'Position gradients through the kernels')"
         )
 
 
@@ -221,7 +222,8 @@ def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: boo
         raise NotImplementedError(
             f"fused_block_tiled: radial width {W} (max {MAX_WIDTH}), {geo.n_radial} radial "
             f"functions (want {N_RADIAL}), N={N}, B={B} (max {MAX_ATOMS}), G={G} (max "
-            f"{MAX_GRAPHS}), {smem} bytes of shared memory per CTA (max {MAX_SHARED_BYTES})"
+            f"{MAX_GRAPHS}), {smem} bytes of shared memory per CTA (max {MAX_SHARED_BYTES}); "
+            "see ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     f32, i64 = torch.float32, torch.int64
     checks = [

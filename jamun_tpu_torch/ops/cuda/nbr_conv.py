@@ -125,7 +125,8 @@ def nbr_uvu_conv(
         raise NotImplementedError(
             f"nbr_uvu_conv: {A} edge attributes (want one of {ATTR_WIDTHS}), radial hidden width "
             f"{w1.shape[-1]} (want {RADIAL_HIDDEN}), radial width {W} (max {MAX_WIDTH}), "
-            f"K={K} (max {MAX_SLOTS})"
+            f"K={K} (max {MAX_SLOTS}); see "
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     if cdt == torch.bfloat16 and N > MAX_ATOMS_BF16:
         raise NotImplementedError(

@@ -116,7 +116,8 @@ def nbr_edge_features(
     if pos.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "nbr_edge_features: no gradient with respect to the positions (the model sends "
-            "calls that want a gradient to the plain sparse path)"
+            "calls that want a gradient to the plain sparse path; "
+            "ROADMAP.md queue A, 'Position gradients through the kernels')"
         )
     cutoff = float(cutoff)
     if pos.device.type == "cpu":

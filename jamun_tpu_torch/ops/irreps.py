@@ -28,6 +28,11 @@ class Irrep:
     def dim(self) -> int:
         return 2 * self.l + 1
 
+    def __mul__(self, other: "Irrep") -> List["Irrep"]:
+        """Selection rule for the tensor product of two irreps."""
+        p = self.p * other.p
+        return [Irrep(l, p) for l in range(abs(self.l - other.l), self.l + other.l + 1)]
+
     def __repr__(self) -> str:
         return f"{self.l}{'e' if self.p == 1 else 'o'}"
 

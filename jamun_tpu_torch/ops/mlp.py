@@ -57,12 +57,14 @@ class ScalarMLP(nn.Module):
     def layer(self, i: int) -> Dense:
         return getattr(self, f"Dense_{i}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.n_layers):
-            x = self.layer(i)(x)
-            if i < self.n_layers - 1:
-                x = F.silu(x)
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of the final Dense layer."""
+        for i in range(self.n_layers - 1):
+            x = F.silu(self.layer(i)(x))
         return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(self.n_layers - 1)(self.hidden(x))
 
 
 class EquivariantMLPBlock(nn.Module):

@@ -1,7 +1,7 @@
 """Capped neighbour lists: the sparse execution path for large molecules.
 
 Counterpart of `jamun_tpu/ops/neighbors.py:33-143` (single device; the
-atom-sharded arguments are not ported, ROADMAP.md queue A item 12). Each
+atom-sharded arguments are not ported, ROADMAP.md queue A, 'Parallel'). Each
 destination atom keeps its K nearest sources inside the cutoff in a
 [G, N, K] list (one `torch.topk` over the [G, N, N] distance panel), so the
 message work is O(N K) instead of O(N^2); `overflow` counts the in-cutoff

@@ -22,7 +22,9 @@ _SQRT3 = math.sqrt(3.0)
 def spherical_harmonics(irreps_sh, vectors: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """vectors [..., 3] (x, y, z) -> [..., 4] = [Y_0 | Y_1 (y, z, x)]."""
     if Irreps(irreps_sh) != SH_IRREPS:
-        raise NotImplementedError(f"only {SH_IRREPS} is ported, got {irreps_sh}")
+        raise NotImplementedError(
+            f"only {SH_IRREPS} is ported, got {irreps_sh} (ROADMAP.md queue A, 'General-l irreps')"
+        )
     norm = torch.linalg.vector_norm(vectors, dim=-1, keepdim=True)
     n = vectors / torch.clamp(norm, min=eps)
     # (y, z, x) from slices: an index list would be copied from the host at

@@ -6,7 +6,7 @@ parameters, so `sample` takes no parameter tree; `seed` makes an explicit
 `torch.Generator` on the sampler's device. JAX's `donate_state` (buffer
 donation into the jitted batch program) has no counterpart: PyTorch frees a
 batch's tensors when the next batch replaces them. Chains over several
-devices and atom sharding are not ported (ROADMAP.md queue A item 12).
+devices and atom sharding are not ported (ROADMAP.md queue A, 'Parallel').
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class Sampler:
         if (self.num_devices or 1) > 1 or self.mesh is not None or self.atom_sharded:
             raise NotImplementedError(
                 "sampling over several devices (num_devices > 1, mesh, atom_sharded) is "
-                "not ported (ROADMAP.md queue A item 12)"
+                "not ported (ROADMAP.md queue A, 'Parallel')"
             )
         self.device = resolve_device(self.device)
         self.global_step = 0

@@ -151,7 +151,10 @@ class SingleMeasurementSampler:
             host.drain(out, 0)
             return {**out, **host.arrays()}
         if cfg.burn_in_steps != 0:
-            raise NotImplementedError("offload_chunk_steps requires burn_in_steps == 0")
+            raise NotImplementedError(
+                "offload_chunk_steps requires burn_in_steps == 0, as in the JAX package "
+                "(ROADMAP.md queue A, 'Offloaded walks with burn-in')"
+            )
         if C % cfg.save_every_n_steps != 0:
             raise ValueError("offload_chunk_steps must be a multiple of save_every_n_steps")
 

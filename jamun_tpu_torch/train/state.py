@@ -3,15 +3,15 @@
 
 One step: sigma drawn once per batch on the host, noise from the state's
 generator on the model's device, `Denoiser.training_loss`, backward (K4 on
-the card), `torch.optim.Adam` with optax's defaults (b1 0.9, b2 0.999, eps
-1e-8, the same update rule), then the EMA. Unlike the JAX step, the port's
-step updates the state in place and returns it.
+the card), the optimizer (`train/optim.py`: optax's update rules), then the
+EMA. Unlike the JAX step, the port's step updates the state in place and
+returns it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 from torch import nn
@@ -32,34 +32,27 @@ class TrainState:
     step: int
     generator: torch.Generator  # training noise, on the module's device
     host_generator: torch.Generator  # sigma draws: sigma stays a host float
-    scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
 
 
 def create_train_state(
     denoiser: Denoiser,
-    learning_rate: float,
+    optimizer: Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer],
     seed: int = 0,
-    lr_lambda: Optional[Callable[[int], float]] = None,
     device=None,
 ) -> TrainState:
     """The state around `denoiser.arch` (moved to `device`, which follows
-    `utils.device.resolve_device`: the card unless "cpu")."""
+    `utils.device.resolve_device`: the card unless "cpu"). `optimizer` is a
+    factory of `train/optim.py` (e.g. `adam(2e-3)`), bound here to the
+    module's parameters."""
     device = resolve_device(device)
     module = denoiser.arch.to(device)
-    optimizer = torch.optim.Adam(
-        module.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
-    )
-    scheduler = (
-        torch.optim.lr_scheduler.LambdaLR(optimizer, lr_lambda) if lr_lambda is not None else None
-    )
     return TrainState(
         module=module,
-        optimizer=optimizer,
+        optimizer=optimizer(list(module.parameters())),
         ema=ema_init(module),
         step=0,
         generator=torch.Generator(device=device).manual_seed(seed),
         host_generator=torch.Generator().manual_seed(seed),
-        scheduler=scheduler,
     )
 
 
@@ -84,8 +77,6 @@ def make_train_step(
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         gnorm = global_norm(grads)
         state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
         ema_update(list(state.ema.parameters()), params, ema_decay)
         state.step += 1
         aux = {k: v.detach() for k, v in aux.items()}

@@ -1,7 +1,12 @@
 """Synthetic molecular graph batches (the port's numpy copy of
-`jamun_tpu/utils/testing.py`: same seeds, same numbers)."""
+`jamun_tpu/utils/testing.py`: same seeds, same numbers), and two stand-ins
+for driving `Trainer.fit` on fixed batches: a datamodule and a logger that
+keeps what it is given."""
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -9,7 +14,9 @@ import torch
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.utils.device import resolve_device
 
-__all__ = ["make_test_arrays", "make_test_batch", "make_chain_positions"]
+__all__ = [
+    "make_test_arrays", "make_test_batch", "make_chain_positions", "FixedBatches", "RecordingLogger",
+]
 
 
 def make_chain_positions(
@@ -85,3 +92,31 @@ def make_test_batch(*args, device=None, **kwargs) -> GraphBatch:
             t = t.to(torch.int64)
         tensors[k] = t.to(device)
     return GraphBatch(**tensors)
+
+
+@dataclasses.dataclass
+class FixedBatches:
+    """A datamodule of fixed batches for `Trainer.fit`: the same training
+    batches in every epoch, and the validation batches (none by default)."""
+
+    train: Sequence[GraphBatch]
+    val: Sequence[GraphBatch] = ()
+
+    def train_batches(self, epoch: int = 0):
+        return iter(self.train)
+
+    def val_batches(self):
+        return iter(self.val)
+
+
+class RecordingLogger:
+    """A logger that keeps every (step, metrics) it is given, in order."""
+
+    def __init__(self):
+        self.metrics: List[Tuple[int, Dict[str, float]]] = []
+
+    def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        self.metrics.append((step, dict(metrics)))
+
+    def finalize(self) -> None:
+        pass

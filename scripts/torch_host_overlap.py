@@ -67,8 +67,9 @@ def main() -> int:
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(SIGMA, config.average_squared_distance)
     models = {
-        "stack": E3Conv(dtype=torch.bfloat16, device=dev, seed=0, fused_stack=True),
-        "layerwise": E3Conv(dtype=torch.bfloat16, device=dev, seed=0),
+        "stack": E3Conv(
+            tensor_product="uvu", dtype=torch.bfloat16, device=dev, seed=0, fused_stack=True),
+        "layerwise": E3Conv(tensor_product="uvu", dtype=torch.bfloat16, device=dev, seed=0),
     }
     for m in models.values():
         m.output_gain.data.fill_(1.0)

@@ -559,8 +559,9 @@ def main() -> int:
     dev = torch.device("cuda")
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
     c_in, _, _, c_noise = normalization_factors(cs.SIGMA, config.average_squared_distance)
-    models = {cdt: E3Conv(dtype=cdt, device=dev, seed=0) for cdt in (torch.bfloat16, torch.float32)}
-    stack = E3Conv(dtype=torch.bfloat16, fused_stack=True, device=dev, seed=0)
+    models = {cdt: E3Conv(
+        tensor_product="uvu", dtype=cdt, device=dev, seed=0) for cdt in (torch.bfloat16, torch.float32)}
+    stack = E3Conv(tensor_product="uvu", dtype=torch.bfloat16, fused_stack=True, device=dev, seed=0)
     for m in (*models.values(), stack):
         m.output_gain.data.fill_(1.0)
         m.requires_grad_(False)

@@ -48,6 +48,7 @@ def main() -> int:
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.geometry import kabsch_align
     from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.optim import adam
     from jamun_tpu_torch.train.state import create_train_state, make_train_step
     from jamun_tpu_torch.utils.testing import make_test_batch
 
@@ -65,11 +66,12 @@ def main() -> int:
     print(f"torch.linalg.det: {waits(lambda: torch.linalg.det(h))}")
     print(f"kabsch_align: {waits(lambda: kabsch_align(y, batch.pos, batch.node_mask))}")
     for align in (True, False):
-        den = Denoiser(E3Conv(dtype=torch.bfloat16, device=dev, seed=0), DenoiserConfig(
+        den = Denoiser(E3Conv(
+            tensor_product="uvu", dtype=torch.bfloat16, device=dev, seed=0), DenoiserConfig(
             max_radius=1.0, average_squared_distance=0.3, mirror_augmentation_rate=0.5,
             add_fixed_noise=True, align_noisy_input_during_training=align,
         ))
-        state = create_train_state(den, 2.0e-3, device=dev)
+        state = create_train_state(den, adam(2.0e-3), device=dev)
         step = make_train_step(den, ConstantSigma(0.04))
         step(state, batch)  # the cached constants
         print(f"train_step, align_noisy_input_during_training={align}: "

@@ -45,7 +45,8 @@ def _rel(a, b):
 def test_kernels_match_plain_twins(cuda, cdt):
     batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
                             max_bonds=40, device=cuda)
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
     geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
     n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
     ef, bf = k1.edge_features(*geo, cdt)
@@ -69,7 +70,8 @@ def _tiled_case(cuda, cdt, nodes, scale):
     N = max(nodes)
     batch = make_test_batch(num_graphs=len(nodes), max_nodes=N, nodes_per_graph=nodes,
                             max_bonds=2 * N, scale=scale, device=cuda)
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
     geo = k5.tiled_geometry_inputs(batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst,
                                    batch.bond_mask, 0.8, 32)
     blocks = ((model.ConvBlock_0, 56, 0), (model._HiddenLayer_0.ConvBlock_0, 24, 8))
@@ -132,13 +134,23 @@ def test_tiled_block_matches_conv_block_kernel(cuda, cdt):
             assert torch.equal(got, want), _rel(got, want)
 
 
+@pytest.mark.parametrize("kw", [{"plain": True}, {"use_pallas": False}], ids=["plain", "use_pallas"])
+def test_plain_path_is_refused_on_the_card(cuda, kw):
+    """The plain path is the CPU reference: asked for on the card, under
+    either name, the call raises instead of running it."""
+    batch = make_test_batch(num_graphs=1, max_nodes=12, max_bonds=22, device=cuda)
+    model = E3Conv(tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0, **kw)
+    with pytest.raises(ValueError, match="CPU reference path"):
+        model(batch, torch.full((1,), -0.8, device=cuda), 0.8)
+
+
 def test_model_above_128_atoms_takes_the_tiled_kernel(cuda):
     """On the card the model runs N > 128: K5 once per block and K1 never
     without a gradient, the plain path (no launch) with one; f32 output
     against the CPU's plain path; "auto" goes sparse (K6) where JAX does."""
     batch = make_test_batch(num_graphs=2, max_nodes=136, nodes_per_graph=[136, 131],
                             max_bonds=272, scale=0.6, device=cuda)
-    arch = dict(irreps_hidden="24x0e + 8x1e", n_layers=2, seed=0)
+    arch = dict(irreps_hidden="24x0e + 8x1e", n_layers=2, seed=0, tensor_product="uvu")
     model = E3Conv(**arch, device=cuda).requires_grad_(False)
     model.output_gain.fill_(1.0)
     ref = E3Conv(**arch, device="cpu", plain=True).requires_grad_(False)
@@ -178,7 +190,8 @@ def test_sparse_kernels_match_plain_twins(cuda, cdt):
                             max_bonds=406, device=cuda)
     pos = torch.from_numpy(make_chain_positions(2, 203, seed=0)).to(cuda)
     batch = batch.replace_pos(pos * batch.node_mask[..., None])
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda,
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda,
                    seed=0).requires_grad_(False)
     cutoff = 0.45
     idx, sup, _ = capped_neighbor_lists(batch.pos, batch.node_mask, cutoff + 0.3, 32)
@@ -257,7 +270,8 @@ def test_edge_kernel_launch_shapes_match_their_mirrors(cuda, cdt):
 def _small(cuda, cdt):
     batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
                             max_bonds=40, device=cuda)
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
     geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
     return batch, model, k1.edge_features(*geo, cdt)
 
@@ -306,7 +320,7 @@ def test_sparse_messages_bf16_at_the_flagship_width(cuda, A):
                             max_bonds=406, device=cuda)
     pos = torch.from_numpy(make_chain_positions(2, 203, seed=1)).to(cuda)
     batch = batch.replace_pos(pos * batch.node_mask[..., None])
-    model = E3Conv(dtype=cdt, device=cuda, seed=0).requires_grad_(False)
+    model = E3Conv(tensor_product="uvu", dtype=cdt, device=cuda, seed=0).requires_grad_(False)
     cutoff = 0.45
     idx, sup, _ = capped_neighbor_lists(batch.pos, batch.node_mask, cutoff + 0.3, 32)
     edges, _ = model._sparse_edges(batch, cutoff, (idx, sup), True)
@@ -354,7 +368,7 @@ def test_conv_block_bwd_bf16_at_the_flagship_width(cuda):
     cdt = torch.bfloat16
     batch = make_test_batch(num_graphs=3, max_nodes=48, nodes_per_graph=[44, 41, 30],
                             max_bonds=96, device=cuda)
-    model = E3Conv(dtype=cdt, device=cuda, seed=0).requires_grad_(False)
+    model = E3Conv(tensor_product="uvu", dtype=cdt, device=cuda, seed=0).requires_grad_(False)
     geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
     ef, bf = k1.edge_features(*geo, cdt)
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -418,7 +432,7 @@ def test_stack_kernel_matches_plain_twin_and_layerwise(cuda, cdt, nodes, hidden)
     N = max(nodes)
     batch = make_test_batch(num_graphs=3, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
                             scale=0.35, device=cuda)
-    arch = dict(irreps_hidden=hidden, n_layers=2, dtype=cdt, device=cuda, seed=0)
+    arch = dict(irreps_hidden=hidden, n_layers=2, dtype=cdt, device=cuda, seed=0, tensor_product="uvu")
     stack, base = E3Conv(**arch, fused_stack=True), E3Conv(**arch)
     for m in (stack, base):
         m.requires_grad_(False).output_gain.fill_(1.0)
@@ -441,7 +455,8 @@ def test_stack_kernel_refuses_what_it_cannot_take(cuda):
     """Outside its shapes the wrapper raises; it never takes the plain twin
     for a tensor on the card."""
     batch = make_test_batch(num_graphs=1, max_nodes=72, max_bonds=144, scale=0.5, device=cuda)
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0, fused_stack=True)
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0, fused_stack=True)
     model.requires_grad_(False)
     c_noise = torch.full((1,), -0.8, device=cuda)
     nf0 = model.NoiseConditionalScaling_0(model.AtomEmbeddingWithResidueInformation_0(batch), c_noise)
@@ -464,7 +479,8 @@ def test_walk_never_makes_the_host_wait(cuda, fused_stack, n_atoms, skin):
 
     batch = make_test_batch(num_graphs=3, max_nodes=n_atoms, max_bonds=2 * n_atoms + 2,
                             scale=0.35, device=cuda)
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0,
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, device=cuda, seed=0,
                    fused_stack=fused_stack).requires_grad_(False)
     den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.5))
     sampler = SingleMeasurementSampler(BAOAB(MCMCConfig(delta=0.04, steps=3)), 0.04,
@@ -488,7 +504,8 @@ def test_dense_conv_kernels_match_plain_twins(cuda, cdt):
 
     batch = make_test_batch(num_graphs=3, max_nodes=19, nodes_per_graph=[19, 17, 12],
                             max_bonds=40, device=cuda)
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=cdt, device=cuda, seed=0)
     gen = torch.Generator(device=cuda).manual_seed(3)
     bond0 = model.embed_bondedness[0]
     n8, n9 = k89.K8.launches, k89.K9.launches
@@ -521,7 +538,7 @@ def test_tiled_kernels_in_passes_match_plain_twins(cuda, cdt, kernel):
     N = max(nodes)
     batch = make_test_batch(num_graphs=2, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
                             scale=0.35 * (N / 44) ** (1 / 3), device=cuda)
-    model = E3Conv(dtype=cdt, device=cuda, seed=0)
+    model = E3Conv(tensor_product="uvu", dtype=cdt, device=cuda, seed=0)
     blk, S, V = model._HiddenLayer_0.ConvBlock_0, 120, 32
     x = torch.randn((2, N, S + 3 * V), generator=torch.Generator(device=cuda).manual_seed(8),
                     device=cuda).to(cdt)
@@ -585,7 +602,8 @@ def test_tensor_core_paths_at_ragged_sizes(cuda, cdt):
         N = max(nodes)
         batch = make_test_batch(num_graphs=3, max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
                                 scale=0.35, device=cuda)
-        model = E3Conv(irreps_hidden="24x0e + 5x1e", n_layers=2, dtype=cdt, device=cuda, seed=0)
+        model = E3Conv(
+            tensor_product="uvu", irreps_hidden="24x0e + 5x1e", n_layers=2, dtype=cdt, device=cuda, seed=0)
         model.requires_grad_(False).output_gain.fill_(1.0)
         geo = (batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask, 0.8, 32)
         ef, bf = k1.edge_features(*geo, cdt)
@@ -608,7 +626,8 @@ def test_tensor_core_paths_at_ragged_sizes(cuda, cdt):
         assert _rel(k2.conv_layer(*largs), k2.conv_layer_plain(*largs)) <= TOL[cdt]
         occ = k2.occupancy(N, 2 * N, 24, 5, lw.C0, lw.V1, cdt, layer=True)
         assert occ["smem_bytes"] == k2.smem_bytes(N, 2 * N, 24, 5, lw.C0, lw.V1, cdt, layer=True)
-        stack = E3Conv(irreps_hidden="24x0e + 5x1e", n_layers=2, dtype=cdt, device=cuda, seed=0,
+        stack = E3Conv(
+            tensor_product="uvu", irreps_hidden="24x0e + 5x1e", n_layers=2, dtype=cdt, device=cuda, seed=0,
                        fused_stack=True)
         stack.requires_grad_(False).output_gain.fill_(1.0)
         c_noise = torch.full((1,), -0.8, device=cuda)
@@ -653,7 +672,7 @@ def test_kabsch_kernel_matches_svd(cuda):
     assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
 
 
-def test_aligned_training_step_never_waits(cuda):
+def test_aligned_training_step_never_waits(cuda, tmp_path):
     """One `Trainer.fit` step with `align_noisy_input_during_training` (the
     default) under sync debug mode: the alignment takes the Kabsch kernel,
     and nothing in the step waits for the device."""
@@ -661,19 +680,29 @@ def test_aligned_training_step_never_waits(cuda):
     from jamun_tpu_torch.ops.cuda import kabsch as kb
     from jamun_tpu_torch.train.distributions import ConstantSigma
     from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+    from jamun_tpu_torch.train.optim import adam
+    from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger
 
-    model = E3Conv(irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=torch.bfloat16, device=cuda, seed=0)
+    model = E3Conv(
+        tensor_product="uvu", irreps_hidden="24x0e + 8x1e", n_layers=1, dtype=torch.bfloat16, device=cuda, seed=0)
     den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.3,
                                          mirror_augmentation_rate=0.5, add_fixed_noise=True))
     assert den.config.align_noisy_input_during_training
     host = make_test_batch(num_graphs=4, max_nodes=19, max_bonds=40, device="cpu")
-    cfg = TrainerConfig(max_steps=1, log_every_n_steps=1000, learning_rate=2.0e-3, seed=0)
-    Trainer(cfg, den, ConstantSigma(0.04), device=cuda).fit([host])  # the cached constants
+    cfg = TrainerConfig(max_steps=1, log_every_n_steps=1000, seed=0,
+                        checkpoint_dir=str(tmp_path / "ckpt"))
+
+    def fit():
+        return Trainer(cfg, RecordingLogger(), device=cuda).fit(
+            den, adam(2.0e-3), ConstantSigma(0.04), FixedBatches([host])
+        )
+
+    fit()  # the cached constants
     n = kb.KERNEL.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state = Trainer(cfg, den, ConstantSigma(0.04), device=cuda).fit([host])
+        state = fit()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert state.step == 1 and kb.KERNEL.launches - n == 1

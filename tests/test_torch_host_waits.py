@@ -7,8 +7,8 @@ jitted step waits nowhere. These tests record the operators that one
 `train_step` and one `Trainer.fit` batch dispatch outside the kernel
 wrappers (whose plain twins run here; on the card they launch a kernel and
 make no host op), and allow only the reads of host tensors that wait for
-nothing: the sigma draw from the host generator and Adam's step counters,
-which `torch.optim.Adam` keeps on the host.
+nothing: the sigma draw from the host generator. (The optimizers of
+`train/optim.py` keep their step count as a Python int.)
 """
 
 import dataclasses
@@ -23,8 +23,9 @@ from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.train import distributions as dist
 from jamun_tpu_torch.train import loop
+from jamun_tpu_torch.train.optim import adam
 from jamun_tpu_torch.train.state import create_train_state, make_train_step
-from jamun_tpu_torch.utils.testing import make_test_batch
+from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger, make_test_batch
 
 torch.set_num_threads(2)
 SIGMA = 0.04
@@ -79,17 +80,17 @@ class RecordedSigma:
 
 def _model_and_batch():
     tb = make_test_batch(num_graphs=2, max_nodes=12, max_bonds=24, scale=0.35, device="cpu")
-    arch = E3Conv(irreps_hidden="16x0e + 8x1e", n_layers=2, device="cpu", seed=0)
+    arch = E3Conv(
+        tensor_product="uvu", irreps_hidden="16x0e + 8x1e", n_layers=2, device="cpu", seed=0)
     # a mirror flip drawn at every step and one fixed noise draw: both were
     # host waits (`float(u) < rate`; the draw copied to the card per call)
     config = DenoiserConfig(1.0, 0.3, mirror_augmentation_rate=0.5, add_fixed_noise=True)
     return Denoiser(arch, config), tb
 
 
-def _allowed(sigma: RecordedSigma, states):
+def _allowed(sigma: RecordedSigma):
     def allowed(t):
-        steps = [s.get("step") for st in states for s in st.optimizer.state.values()]
-        return any(t is d for d in sigma.drawn) or any(t is s for s in steps)
+        return any(t is d for d in sigma.drawn)
 
     return allowed
 
@@ -102,10 +103,10 @@ def _mute_kernels(monkeypatch, rec: HostOps):
 def test_train_step_makes_no_host_wait(monkeypatch):
     den, tb = _model_and_batch()
     sigma = RecordedSigma(dist.ConstantSigma(SIGMA))
-    state = create_train_state(den, 1e-3, device="cpu")
+    state = create_train_state(den, adam(1e-3), device="cpu")
     step = make_train_step(den, sigma)
     step(state, tb)  # makes the cached constants (fixed noise, rounded divisors)
-    rec = HostOps(_allowed(sigma, [state]))
+    rec = HostOps(_allowed(sigma))
     _mute_kernels(monkeypatch, rec)
     with rec:
         _, aux = step(state, tb)
@@ -127,27 +128,25 @@ def test_mirror_flip_is_chosen_on_the_device():
         torch.testing.assert_close(y.pos, sign * tb.pos, rtol=0, atol=0)
 
 
-def test_fit_moves_batches_without_a_wait(monkeypatch):
+def test_fit_moves_batches_without_a_wait(monkeypatch, tmp_path):
     """Every batch of `Trainer.fit` goes through `GraphBatch.to_device`, and
     one fit batch makes no host read of a device value."""
     den, tb = _model_and_batch()
-    make_train_step(den, dist.ConstantSigma(SIGMA))(create_train_state(den, 1e-3, device="cpu"), tb)
-    moved, states = [], []
-    real_to_device, real_state = GraphBatch.to_device, loop.create_train_state
+    make_train_step(den, dist.ConstantSigma(SIGMA))(create_train_state(den, adam(1e-3), device="cpu"), tb)
+    moved = []
+    real_to_device = GraphBatch.to_device
     monkeypatch.setattr(
         GraphBatch, "to_device", lambda self, d: moved.append(str(d)) or real_to_device(self, d)
     )
-    monkeypatch.setattr(
-        loop, "create_train_state", lambda *a, **k: states.append(real_state(*a, **k)) or states[-1]
-    )
     sigma = RecordedSigma(dist.ConstantSigma(SIGMA))
     trainer = loop.Trainer(
-        loop.TrainerConfig(max_steps=1, log_every_n_steps=1000), den, sigma, device="cpu"
+        loop.TrainerConfig(max_steps=1, log_every_n_steps=1000, checkpoint_dir=str(tmp_path / "ckpt")),
+        RecordingLogger(), device="cpu",
     )
-    rec = HostOps(_allowed(sigma, states))
+    rec = HostOps(_allowed(sigma))
     _mute_kernels(monkeypatch, rec)
     with rec:
-        state = trainer.fit([tb])
+        state = trainer.fit(den, adam(1e-3), sigma, FixedBatches([tb]))
     assert state.step == 1 and moved == ["cpu"]
     assert rec.reads == [] and rec.copies == [] and rec.draws == []
 

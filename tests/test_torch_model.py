@@ -175,8 +175,9 @@ def test_device_rule_and_unported_shapes():
             E3Conv(**ARCH)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_test_batch(2, 8)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="uvw", device="cpu")
+    # uvw is ported (tests/test_torch_uvw.py); the experimental product is not
+    with pytest.raises(NotImplementedError, match="queue A, 'The experimental product'"):
+        E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="experimental", device="cpu")
     # the sparse capped-neighbour path is ported: "nbr" runs at any size and
     # reports the edges its cap drops
     nbr = E3Conv(**ARCH, neighbor_mode="nbr", neighbor_cap=4, device="cpu", seed=0)

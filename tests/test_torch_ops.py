@@ -254,12 +254,12 @@ def test_equivariant_mlp():
     )
 
 
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|jamun_tpu)(?:\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|optax|jamun_tpu)(?:\.|\s|$)", re.M)
 
 
 def test_port_imports_no_jax():
-    """No source of the port, and not chip_smoke.py, imports jax, flax or
-    jamun_tpu (the pattern does not match jamun_tpu_torch), and importing
+    """No source of the port, and not chip_smoke.py, imports jax, flax, optax
+    or jamun_tpu (the pattern does not match jamun_tpu_torch), and importing
     every module of the port in a fresh interpreter loads none of them."""
     sources = sorted((REPO / "jamun_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
@@ -275,7 +275,7 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jamun_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'jamun_tpu')]\n"
         "print(len(bad)); sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)

@@ -292,18 +292,19 @@ def test_parameter_callbacks_match_jax():
 
 
 def test_unported_options_and_device_rule():
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(NotImplementedError, match="queue A, .Parallel."):
         Sampler(num_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(NotImplementedError, match="queue A, .Parallel."):
         Sampler(atom_sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(NotImplementedError, match="queue A, .Parallel."):
         Sampler(mesh=object(), device="cpu")
     # the Verlet lists of the sparse path are ported: a skin is accepted, and
     # a model on the dense path builds no list to cache
     smp = SingleMeasurementSampler(BAOAB(MCMCConfig(steps=3)), SIGMA, neighbor_skin=0.1)
     assert smp.neighbor_skin == 0.1
     tb = make_test_batch(1, 8, device="cpu")
-    den = Denoiser(E3Conv(irreps_hidden="4x0e + 2x1e", n_layers=1, device="cpu", seed=0),
+    den = Denoiser(E3Conv(
+        tensor_product="uvu", irreps_hidden="4x0e + 2x1e", n_layers=1, device="cpu", seed=0),
                    DenoiserConfig(1.0, 0.5))
     assert den.make_neighbor_cached_score(tb, SIGMA, 0.1) is None
     out = smp.walk(den, tb, tb.pos, torch.Generator().manual_seed(0))

@@ -44,7 +44,8 @@ from jamun_tpu_torch.params import from_jax_params
 from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig, make_processed_score_fn
 from jamun_tpu_torch.train.distributions import ConstantSigma
 from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
-from jamun_tpu_torch.utils.testing import make_test_batch
+from jamun_tpu_torch.train.optim import adam
+from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger, make_test_batch
 
 torch.set_num_threads(2)
 SIGMA = 0.04
@@ -186,7 +187,7 @@ def test_geometry_refuses_position_gradients(grad_mode):
     with torch.set_grad_enabled(grad_mode):
         call = lambda: tm.fused(torch.from_numpy(x), _geo(small), *map(torch.from_numpy, bond))  # noqa: E731
         if grad_mode:
-            with pytest.raises(NotImplementedError, match="queue A item 6"):
+            with pytest.raises(NotImplementedError, match="queue A, .Tiled kernel training."):
                 call()
         else:
             assert call().shape == (2, 32, 40)
@@ -352,7 +353,7 @@ def test_auto_neighbor_mode_follows_jax():
     for n in (128, 255, 256, 511, 512, 1024):
         for training in (False, True):
             assert neighbor_mode_auto(n, training) == j_auto(n, training), (n, training)
-    tiny = dict(irreps_hidden="4x0e + 2x1e", n_layers=1)
+    tiny = dict(irreps_hidden="4x0e + 2x1e", n_layers=1, tensor_product="uvu")
     c = torch.tensor([-0.8])
     auto = E3Conv(**tiny, device="cpu", seed=0)
     assert auto.neighbor_mode == "auto" == JE3Conv.neighbor_mode
@@ -410,17 +411,19 @@ def test_training_loss_and_grads_n136_match_jax():
         assert _rel(got[name], want[name]) < 1e-4, (name, _rel(got[name], want[name]))
 
 
-def test_trainer_fit_takes_a_batch_above_128(monkeypatch):
+def test_trainer_fit_takes_a_batch_above_128(monkeypatch, tmp_path):
     """One `Trainer.fit` step and an EMA validation at N = 136 on the CPU:
     the step runs the plain path, the validation (no gradient) K5."""
     spy = _Spy(monkeypatch)
     tb = make_test_batch(**BIG, device="cpu")
     den = Denoiser(E3Conv(**ARCH, device="cpu", seed=0), DenoiserConfig(1.0, 0.3))
-    trainer = Trainer(TrainerConfig(max_steps=1, log_every_n_steps=1), den, ConstantSigma(SIGMA),
-                      device="cpu")
-    state = trainer.fit([tb], [tb])
+    rec = RecordingLogger()
+    cfg = TrainerConfig(max_steps=1, log_every_n_steps=1, checkpoint_dir=str(tmp_path / "ckpt"))
+    state = Trainer(cfg, rec, device="cpu").fit(
+        den, adam(2e-3), ConstantSigma(SIGMA), FixedBatches([tb], [tb])
+    )
     assert state.step == 1 and spy.take() == {"K5": 3}
-    logged = {k: v for step, m in trainer.metrics for k, v in m.items() if step == 1}
+    logged = {k: v for step, m in rec.metrics for k, v in m.items() if step == 1}
     assert np.isfinite(logged["train/loss"]) and np.isfinite(logged["val/loss"])
     assert logged["train/grad_norm"] > 0
 

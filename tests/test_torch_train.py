@@ -33,8 +33,9 @@ from jamun_tpu_torch.params import from_jax_params
 from jamun_tpu_torch.train import distributions as dist
 from jamun_tpu_torch.train import lr_schedules
 from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+from jamun_tpu_torch.train.optim import adam
 from jamun_tpu_torch.train.state import create_train_state, make_train_step
-from jamun_tpu_torch.utils.testing import make_test_batch
+from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger, make_test_batch
 
 torch.set_num_threads(2)
 SIGMA = 0.04
@@ -131,7 +132,7 @@ def test_three_train_steps_match_jax():
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
                          opt_state=opt.init(params), ema_params=params, rng=jax.random.PRNGKey(0))
     jstep = jax.jit(j_make_train_step(jden, opt, jdist.ConstantSigma(SIGMA), 0.999))
-    state = create_train_state(den, 1e-3, seed=0, device="cpu")
+    state = create_train_state(den, adam(1e-3), seed=0, device="cpu")
     step = make_train_step(den, dist.ConstantSigma(SIGMA), 0.999)
     for _ in range(3):
         jstate, jaux = jstep(jstate, jb)
@@ -221,21 +222,21 @@ def test_random_sigma_distributions_support():
     assert dist.UniformPlusNormal(0.1, (3, 2)).sample(g, (4,)).shape == (4, 3, 2)
 
 
-def test_device_rule():
+def test_device_rule(tmp_path):
     """Train state and Trainer run on the card unless given device="cpu"."""
     _, _, _, den, tb = _setup()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            create_train_state(den, 1e-3)
+            create_train_state(den, adam(1e-3))
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            Trainer(TrainerConfig(), den, dist.ConstantSigma())
-    state = create_train_state(den, 1e-3, device="cpu")
+            Trainer(TrainerConfig(checkpoint_dir=str(tmp_path / "ckpt")))
+    state = create_train_state(den, adam(1e-3), device="cpu")
     assert state.generator.device.type == "cpu"
     assert next(state.module.parameters()).device.type == "cpu"
     assert next(state.ema.parameters()).device.type == "cpu"
 
 
-def test_trainer_propagates_step_failure(monkeypatch):
+def test_trainer_propagates_step_failure(monkeypatch, tmp_path):
     """No fallback: a failing step (here a kernel launch error raised inside
     the network's forward) leaves `fit` with that error."""
     _, _, _, den, tb = _setup()
@@ -245,28 +246,51 @@ def test_trainer_propagates_step_failure(monkeypatch):
 
     before = {n: p.detach().clone() for n, p in den.arch.named_parameters()}
     monkeypatch.setattr(den.arch, "forward", boom)
-    trainer = Trainer(TrainerConfig(max_steps=3), den, dist.ConstantSigma(SIGMA), device="cpu")
+    rec = RecordingLogger()
+    trainer = Trainer(TrainerConfig(max_steps=3, checkpoint_dir=str(tmp_path / "ckpt")), rec, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        trainer.fit([tb] * 3)
-    assert trainer.metrics == []
+        trainer.fit(den, adam(1e-3), dist.ConstantSigma(SIGMA), FixedBatches([tb] * 3))
+    assert rec.metrics == []
     for n, p in den.arch.named_parameters():
         assert torch.equal(p, before[n]), n
 
 
-def test_trainer_fit_logs_validates_and_checks_finite():
-    """max_steps, log_every_n_steps and val_every_n_steps on the EMA weights;
-    a non-finite validation loss stops the run when check_finite is set."""
+def test_trainer_fit_logs_validates_and_checks_finite(tmp_path):
+    """max_steps, log_every_n_steps and val_every_n_steps on the EMA weights
+    (each validation saves a checkpoint); a schedule chained after Adam; a
+    non-finite validation loss stops the run when check_finite is set."""
     _, _, _, den, tb = _setup()
-    cfg = TrainerConfig(max_steps=4, log_every_n_steps=2, val_every_n_steps=2, learning_rate=1e-3)
+    cfg = TrainerConfig(max_steps=4, log_every_n_steps=2, val_every_n_steps=2,
+                        checkpoint_dir=str(tmp_path / "ckpt"), collect_sigma_diagnostics=False)
     schedule = lr_schedules.linear_warmup_linear_decay(2, 10)
-    trainer = Trainer(cfg, den, dist.ConstantSigma(SIGMA), lr_lambda=schedule, device="cpu")
-    state = trainer.fit([tb] * 10, [tb])
+    rec = RecordingLogger()
+    state = Trainer(cfg, rec, device="cpu").fit(
+        den, lambda p: adam(1e-3)(p, schedule=schedule), dist.ConstantSigma(SIGMA),
+        FixedBatches([tb] * 10, [tb]),
+    )
     assert state.step == 4
-    assert state.optimizer.param_groups[0]["lr"] == pytest.approx(1e-3 * schedule(4), rel=1e-6)
-    logged = [(s, sorted(k.split("/")[0] for k in m)[0]) for s, m in trainer.metrics]
-    assert logged == [(2, "train"), (2, "val"), (4, "train"), (4, "val")]
-    for _, m in trainer.metrics:
+    assert state.optimizer.schedule is schedule and state.optimizer.param_groups[0]["count"] == 4
+    # fit applies the schedule: one step from the same weights moves each
+    # parameter by schedule(t) times the unscheduled Adam update (here 0.5;
+    # the atol covers the rounding of p + update against a step of ~1e-3)
+    shifted = lambda t: schedule(t + 1)  # noqa: E731
+    deltas = {}
+    for name, opt in (("plain", adam(1e-3)), ("scheduled", lambda p: adam(1e-3)(p, schedule=shifted))):
+        den1 = _setup()[3]
+        before = [p.detach().clone() for p in den1.arch.parameters()]
+        one = TrainerConfig(max_steps=1, checkpoint_dir=str(tmp_path / name), collect_sigma_diagnostics=False)
+        after = Trainer(one, RecordingLogger(), device="cpu").fit(
+            den1, opt, dist.ConstantSigma(SIGMA), FixedBatches([tb], [tb])).module.parameters()
+        deltas[name] = [a.detach() - b for a, b in zip(after, before)]
+    assert max(float(d.abs().max()) for d in deltas["plain"]) > 5e-4
+    for d_s, d_p in zip(deltas["scheduled"], deltas["plain"]):
+        torch.testing.assert_close(d_s, shifted(0) * d_p, rtol=0, atol=2e-6)
+    logged = [(s, sorted(k.split("/")[0] for k in m)[0]) for s, m in rec.metrics]
+    assert logged == [(2, "epoch"), (2, "val"), (4, "epoch"), (4, "val")]
+    for _, m in rec.metrics:
         assert all(math.isfinite(v) for v in m.values())
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "last.ckpt", "manifest.json", "step2.ckpt", "step4.ckpt"]
     # the EMA lags the trained weights
     assert any(
         not torch.equal(p, e) for p, e in zip(state.module.parameters(), state.ema.parameters())
@@ -274,6 +298,9 @@ def test_trainer_fit_logs_validates_and_checks_finite():
 
     with torch.no_grad():
         den.arch.output_gain.fill_(float("nan"))
-    trainer = Trainer(cfg, den, dist.ConstantSigma(SIGMA), device="cpu")
-    state = trainer.fit([tb] * 10, [tb])
-    assert state.step == 2 and math.isnan(trainer.metrics[-1][1]["val/loss"])
+    rec = RecordingLogger()
+    cfg.checkpoint_dir = str(tmp_path / "ckpt_nan")
+    state = Trainer(cfg, rec, device="cpu").fit(
+        den, adam(1e-3), dist.ConstantSigma(SIGMA), FixedBatches([tb] * 10, [tb])
+    )
+    assert state.step == 2 and math.isnan(rec.metrics[-1][1]["val/loss"])
