@@ -128,7 +128,32 @@ Phases (any failure exits non-zero; nothing is caught):
      (1e-3 of the max). Then `restore_checkpoint` of the uvw run's last.ckpt
      equals the saved parameters, EMA, optimizer state and generators bit for
      bit, and `resume_from_checkpoint` trains it 5 steps on: the step count
-     carries on and the manifest lists the top k.
+     carries on and the manifest lists the top k;
+  7. the sample CLI, `jamun_tpu_torch.cmdline.sample.main`, in process on
+     phase 6's run directories (the same work directory, `cli_workdir`):
+     `experiment=sample_uncapped_4AA` with `init_datasets.root` at the 4AA
+     validation split (two tetrapeptides, the 48-atom bucket), each run with
+     its own `checkpoint_dir` and `output_dir`, widths the runs' own, only
+     run lengths and chain counts cut (`SAMPLE_RUNS`): the separable run
+     (uvu, bf16) on the stack path, 32 chains per peptide (G = 64), 3
+     batches of 500 steps, every 5th frame saved (K3 once per denoiser
+     call, every other kernel never); the same finetuned first for 5 steps
+     on its starting frames (`finetune_on_init`), 2 batches of 100 (K1 once
+     and K2 six times per forward, K4 six times and the Kabsch kernel once
+     per finetune step, K3 never; finite losses, the EMA moved); the uvw run
+     (f32), G = 8, 2 batches of 50 (no kernel); and the separable
+     checkpoint written again in flax's msgpack layout
+     (`write_flax_checkpoint`, JAX's `save_checkpoint` format), one batch
+     from it, whose EMA score on three fixed frames, parameters, EMA, Adam
+     state and step equal the torch file's bit for bit. Launch counts are
+     zeroed before each run and read after, and denoiser calls counted
+     (`count_forwards`). Each run: JAX's sampler layout on disk (frames =
+     chains x batches x saved frames; the joined trajectory read back
+     through `load_run_trajectory` equals the `.npy` batches), finite
+     Ramachandran JSD and sliced Wasserstein, validity rates in [0, 1],
+     finite score-norm statistics, the CSV's rows (the warm rate without
+     batch 0, the rate with it), warm ms/sample and ms/step, host seconds
+     in the metrics (`time_metrics`), peak device memory.
 `--out FILE` writes every number as JSON. An earlier line is a JSON object
 {"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
 last is a JSON object of per-kernel numbers; the last line is {"ok": true,
@@ -2151,120 +2176,38 @@ def profile_cli_steps(first: int, stop: int):
             live["prof"].stop()
 
 
-def train_cli_runs(dev, card: str, counters: dict, kabsch_kernel) -> dict:
-    """Phase 6: the training CLI, `jamun_tpu_torch.cmdline.train.main`, in
-    process on a 4AA dataset written here: the repo's
-    `experiment=train_uncapped_4AA` at its full width (uvw, 120x0e + 32x1e,
-    5 layers, batch 32), then the same with `model/arch=e3conv_separable`
-    (uvu, bf16, kernels on), then a resume of the uvw run from last.ckpt."""
-    import statistics
+EXP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "experiment")
 
-    from jamun_tpu_torch.cmdline import train as train_cli
+
+def cli_val_dir(work: str) -> str:
+    return os.path.join(work, "data", "timewarp", "4AA-large", "val")
+
+
+def cli_score_batch(work: str):
+    """Three fixed validation frames of the 4AA dataset, one host batch."""
     from jamun_tpu_torch.data.batching import collate
     from jamun_tpu_torch.data.discovery import parse_datasets_from_directory
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    exp_dir = os.path.join(repo, "configs", "experiment")
+    val_sets = parse_datasets_from_directory(
+        cli_val_dir(work), "^(.*)-traj-arrays.npz", "^(.*)-traj-state0.pdb")
+    return collate([val_sets[0][0], val_sets[0][7], val_sets[1][3]])
+
+
+@contextlib.contextmanager
+def cli_workdir():
+    """A temporary work directory for phases 6 and 7, with the 4AA dataset
+    written into it, `JAMUN_DATA_PATH` pointing there and the process in it;
+    all three undone (the directory removed) on the way out. Yields the
+    directory and each sequence's heavy-atom count."""
     cwd, env = os.getcwd(), os.environ.get("JAMUN_DATA_PATH")
     tmp = tempfile.TemporaryDirectory()
-    out = {}
     try:
         atoms = write_4aa_dataset(os.path.join(tmp.name, "data"))
         os.environ["JAMUN_DATA_PATH"] = os.path.join(tmp.name, "data")
         os.chdir(tmp.name)
-        val_sets = parse_datasets_from_directory(
-            os.path.join(tmp.name, "data", "timewarp", "4AA-large", "val"),
-            "^(.*)-traj-arrays.npz", "^(.*)-traj-state0.pdb",
-        )
-        score_batch = collate([val_sets[0][0], val_sets[0][7], val_sets[1][3]])
         log(f"phase 6: wrote a 4AA dataset: train {CLI_TRAIN_SEQS}, val {CLI_VAL_SEQS}, "
             f"{CLI_FRAMES} frames each, heavy atoms {atoms}")
-        base = ["--experiment-dir", exp_dir, "experiment=train_uncapped_4AA",
-                f"trainer.max_steps={CLI_STEPS}", f"trainer.val_every_n_steps={CLI_VAL_EVERY}",
-                "trainer.log_every_n_steps=1"]
-        path_kernels = ("edge_features", "conv_block", "conv_block_bwd")
-        for label, run_key, extra in (
-            ("uvw", "train_uncapped_4AA", []),
-            ("separable", "train_uncapped_4AA_separable",
-             ["model/arch=e3conv_separable", "run_key=train_uncapped_4AA_separable"]),
-        ):
-            for k in (*counters.values(), kabsch_kernel):
-                k.launches = 0
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            with profile_cli_steps(*CLI_PROFILED) as prof:
-                state = train_cli.main([*base, *extra])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
-            launches = {name: k.launches for name, k in counters.items()}
-            kabsch = kabsch_kernel.launches
-            run_dir = os.path.join("runs", run_key)
-            train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
-            losses = [r["train/loss"] for r in train]
-            # each step's gap from the row before; the profiled steps (and the
-            # profiler's start and stop, inside steps 19 and 29) left out
-            gaps = [(b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:])
-                    if not CLI_PROFILED[0] <= b["step"] <= CLI_PROFILED[1]]
-            ms_step = statistics.median(gaps)
-            G, N = 32, 48
-            assert state.step == CLI_STEPS
-            assert [r["step"] for r in train] == list(range(1, CLI_STEPS + 1))
-            assert [r["step"] for r in val] == [CLI_VAL_EVERY, CLI_STEPS], val
-            assert all(math.isfinite(v) for v in losses + [r["val/loss"] for r in val])
-            assert losses[-1] < losses[0], (losses[0], losses[-1])
-            assert kabsch > 0  # align_noisy_input_during_training is on in both configs
-            if label == "uvw":
-                assert state.module.tensor_product == "uvw" and not any(
-                    launches[k] for k in path_kernels), launches
-            else:
-                assert state.module.tensor_product == "uvu" and all(
-                    launches[k] > 0 for k in path_kernels), launches
-            score_err = cli_score_check(run_dir, score_batch, dev)
-            assert score_err < 1e-3, (label, score_err)
-            assert prof, "the profiled window of the CLI's fit did not close"
-            out[label] = dict(
-                run_key=run_key, steps=CLI_STEPS, seconds=seconds, ms_per_step=ms_step,
-                peak_bytes=peak, first_loss=losses[0], last_loss=losses[-1],
-                val_loss=[r["val/loss"] for r in val], atoms=atoms, bucket=N, batch=G,
-                launches=launches, kabsch_launches=kabsch, score_rel_err=score_err, profile=prof,
-            )
-            log(f"phase 6: {label} ({run_key}): {ms_step:.3f} ms/step (median over steps 2-"
-                f"{CLI_PROFILED[0] - 1} and {CLI_PROFILED[1] + 1}-{CLI_STEPS}, host clock after "
-                f"each step's logged read), peak device memory "
-                f"{peak / 2**30:.3f} GiB, train loss {losses[0]:.5f} -> {losses[-1]:.5f}, val loss "
-                + " ".join(f"{r['val/loss']:.5f}" for r in val)
-                + f"; N {min(atoms.values())}-{max(atoms.values())} atoms, bucket {N}, batch {G}; "
-                f"launches {launches}, Kabsch {kabsch}; f32 score card vs CPU rel err "
-                f"{score_err:.3g} (tol 1e-3); device busy {100 * prof['busy_share']:.1f}% of the CLI's "
-                f"steps {CLI_PROFILED[0]}-{CLI_PROFILED[1] - 1} under the profiler "
-                f"({prof['ms_per_step']:.3f} ms/step there); "
-                f"{seconds:.1f} s in main on {card}")
-
-        # resume the uvw run for five more steps from its last.ckpt
-        run_dir = os.path.join("runs", "train_uncapped_4AA")
-        restored = check_restore_bits(run_dir, dev)
-        assert restored == CLI_STEPS
-        ckpt = os.path.join(run_dir, "checkpoints", "last.ckpt")
-        state = train_cli.main([*base, f"trainer.max_steps={CLI_STEPS + CLI_RESUME_STEPS}",
-                                f"trainer.val_every_n_steps={CLI_RESUME_STEPS}",
-                                f"resume_from_checkpoint={os.path.abspath(ckpt)}"])
-        train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
-        with open(os.path.join(run_dir, "checkpoints", "manifest.json")) as f:
-            manifest = json.load(f)
-        steps = sorted(e["step"] for e in manifest["entries"])
-        assert state.step == CLI_STEPS + CLI_RESUME_STEPS
-        assert [r["step"] for r in train] == list(
-            range(CLI_STEPS + 1, CLI_STEPS + CLI_RESUME_STEPS + 1))
-        assert steps == [CLI_VAL_EVERY, CLI_STEPS, CLI_STEPS + CLI_RESUME_STEPS], steps
-        assert torch.load(ckpt, weights_only=True)["step"] == CLI_STEPS + CLI_RESUME_STEPS
-        out["resume"] = dict(restored_step=restored, final_step=state.step, manifest_steps=steps,
-                             losses=[r["train/loss"] for r in train])
-        log(f"phase 6: resume from last.ckpt at step {restored}: parameters, EMA, optimizer state "
-            f"and generators restored bit for bit; trained on to step {state.step} "
-            f"(steps {train[0]['step']:.0f}-{train[-1]['step']:.0f} logged); the manifest's top-k "
-            f"lists steps {steps}")
+        yield tmp.name, atoms
     finally:
         os.chdir(cwd)
         if env is None:
@@ -2272,6 +2215,389 @@ def train_cli_runs(dev, card: str, counters: dict, kabsch_kernel) -> dict:
         else:
             os.environ["JAMUN_DATA_PATH"] = env
         tmp.cleanup()
+
+
+def train_cli_runs(dev, card: str, counters: dict, kabsch_kernel, work: str, atoms: dict) -> dict:
+    """Phase 6: the training CLI, `jamun_tpu_torch.cmdline.train.main`, in
+    process in `work` (`cli_workdir`) on its 4AA dataset: the repo's
+    `experiment=train_uncapped_4AA` at its full width (uvw, 120x0e + 32x1e,
+    5 layers, batch 32), then the same with `model/arch=e3conv_separable`
+    (uvu, bf16, kernels on), then a resume of the uvw run from last.ckpt."""
+    import statistics
+
+    from jamun_tpu_torch.cmdline import train as train_cli
+
+    score_batch = cli_score_batch(work)
+    out = {}
+    base = ["--experiment-dir", EXP_DIR, "experiment=train_uncapped_4AA",
+            f"trainer.max_steps={CLI_STEPS}", f"trainer.val_every_n_steps={CLI_VAL_EVERY}",
+            "trainer.log_every_n_steps=1"]
+    path_kernels = ("edge_features", "conv_block", "conv_block_bwd")
+    for label, run_key, extra in (
+        ("uvw", "train_uncapped_4AA", []),
+        ("separable", "train_uncapped_4AA_separable",
+         ["model/arch=e3conv_separable", "run_key=train_uncapped_4AA_separable"]),
+    ):
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with profile_cli_steps(*CLI_PROFILED) as prof:
+            state = train_cli.main([*base, *extra])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        kabsch = kabsch_kernel.launches
+        run_dir = os.path.join("runs", run_key)
+        train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+        losses = [r["train/loss"] for r in train]
+        # each step's gap from the row before; the profiled steps (and the
+        # profiler's start and stop, inside steps 19 and 29) left out
+        gaps = [(b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:])
+                if not CLI_PROFILED[0] <= b["step"] <= CLI_PROFILED[1]]
+        ms_step = statistics.median(gaps)
+        G, N = 32, 48
+        assert state.step == CLI_STEPS
+        assert [r["step"] for r in train] == list(range(1, CLI_STEPS + 1))
+        assert [r["step"] for r in val] == [CLI_VAL_EVERY, CLI_STEPS], val
+        assert all(math.isfinite(v) for v in losses + [r["val/loss"] for r in val])
+        assert losses[-1] < losses[0], (losses[0], losses[-1])
+        assert kabsch > 0  # align_noisy_input_during_training is on in both configs
+        if label == "uvw":
+            assert state.module.tensor_product == "uvw" and not any(
+                launches[k] for k in path_kernels), launches
+        else:
+            assert state.module.tensor_product == "uvu" and all(
+                launches[k] > 0 for k in path_kernels), launches
+        score_err = cli_score_check(run_dir, score_batch, dev)
+        assert score_err < 1e-3, (label, score_err)
+        assert prof, "the profiled window of the CLI's fit did not close"
+        out[label] = dict(
+            run_key=run_key, steps=CLI_STEPS, seconds=seconds, ms_per_step=ms_step,
+            peak_bytes=peak, first_loss=losses[0], last_loss=losses[-1],
+            val_loss=[r["val/loss"] for r in val], atoms=atoms, bucket=N, batch=G,
+            launches=launches, kabsch_launches=kabsch, score_rel_err=score_err, profile=prof,
+        )
+        log(f"phase 6: {label} ({run_key}): {ms_step:.3f} ms/step (median over steps 2-"
+            f"{CLI_PROFILED[0] - 1} and {CLI_PROFILED[1] + 1}-{CLI_STEPS}, host clock after "
+            f"each step's logged read), peak device memory "
+            f"{peak / 2**30:.3f} GiB, train loss {losses[0]:.5f} -> {losses[-1]:.5f}, val loss "
+            + " ".join(f"{r['val/loss']:.5f}" for r in val)
+            + f"; N {min(atoms.values())}-{max(atoms.values())} atoms, bucket {N}, batch {G}; "
+            f"launches {launches}, Kabsch {kabsch}; f32 score card vs CPU rel err "
+            f"{score_err:.3g} (tol 1e-3); device busy {100 * prof['busy_share']:.1f}% of the CLI's "
+            f"steps {CLI_PROFILED[0]}-{CLI_PROFILED[1] - 1} under the profiler "
+            f"({prof['ms_per_step']:.3f} ms/step there); "
+            f"{seconds:.1f} s in main on {card}")
+
+    # resume the uvw run for five more steps from its last.ckpt
+    run_dir = os.path.join("runs", "train_uncapped_4AA")
+    restored = check_restore_bits(run_dir, dev)
+    assert restored == CLI_STEPS
+    ckpt = os.path.join(run_dir, "checkpoints", "last.ckpt")
+    state = train_cli.main([*base, f"trainer.max_steps={CLI_STEPS + CLI_RESUME_STEPS}",
+                            f"trainer.val_every_n_steps={CLI_RESUME_STEPS}",
+                            f"resume_from_checkpoint={os.path.abspath(ckpt)}"])
+    train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+    with open(os.path.join(run_dir, "checkpoints", "manifest.json")) as f:
+        manifest = json.load(f)
+    steps = sorted(e["step"] for e in manifest["entries"])
+    assert state.step == CLI_STEPS + CLI_RESUME_STEPS
+    assert [r["step"] for r in train] == list(
+        range(CLI_STEPS + 1, CLI_STEPS + CLI_RESUME_STEPS + 1))
+    assert steps == [CLI_VAL_EVERY, CLI_STEPS, CLI_STEPS + CLI_RESUME_STEPS], steps
+    assert torch.load(ckpt, weights_only=True)["step"] == CLI_STEPS + CLI_RESUME_STEPS
+    out["resume"] = dict(restored_step=restored, final_step=state.step, manifest_steps=steps,
+                         losses=[r["train/loss"] for r in train])
+    log(f"phase 6: resume from last.ckpt at step {restored}: parameters, EMA, optimizer state "
+        f"and generators restored bit for bit; trained on to step {state.step} "
+        f"(steps {train[0]['step']:.0f}-{train[-1]['step']:.0f} logged); the manifest's top-k "
+        f"lists steps {steps}")
+    return out
+
+
+# phase 7: the sample CLI on phase 6's runs, `experiment=sample_uncapped_4AA`
+# on the 4AA validation split (two tetrapeptides, the 48-atom bucket); only
+# run lengths and chain counts are cut (`SAMPLE_RUNS`: the config's 20000
+# steps x 5 batches, 1 chain per peptide)
+SAMPLE_RUNS = {
+    # label: (train run key, repeat_init_samples, num_batches, steps per batch, extra overrides)
+    "separable": ("train_uncapped_4AA_separable", 32, 3, 500, []),
+    "finetune": ("train_uncapped_4AA_separable", 32, 2, 100,
+                 ["+finetune_on_init.num_steps=5", "+finetune_on_init.log_every=1"]),
+    "uvw": ("train_uncapped_4AA", 4, 2, 50, []),
+    "flax": ("flax_separable", 32, 1, 100, ["checkpoint_type=last"]),
+}
+SAMPLE_SAVE_EVERY = 5
+
+
+def write_flax_checkpoint(src: str, dst: str) -> None:
+    """The port's checkpoint `src` (Adam, no schedule) written again in
+    flax's msgpack layout, as JAX's `save_checkpoint` writes its TrainState
+    (`flax.serialization.to_bytes`): the map {step, params, opt_state:
+    {"0": {count, mu, nu}, "1": {}}, ema_params, rng}, each array
+    ExtType(1, msgpack (shape, dtype name, C-order bytes)). The key `rng` is
+    zeros: the port carries none."""
+    import msgpack
+
+    from jamun_tpu_torch.params import to_jax_params
+
+    data = torch.load(src, map_location="cpu", weights_only=True)
+    names = list(data["params"])  # E3Conv holds no buffers: the parameters' order
+    group = data["opt_state"]["param_groups"][0]
+    slots = {n: data["opt_state"]["state"][i] for n, i in zip(names, group["params"])}
+
+    def slot(key):
+        return to_jax_params({n: st[key] for n, st in slots.items()})
+
+    tree = {
+        "step": np.asarray(data["step"], np.int32),
+        "params": to_jax_params(data["params"]),
+        "opt_state": {"0": {"count": np.asarray(group["count"], np.int32), "mu": slot("mu"),
+                            "nu": slot("nu")}, "1": {}},
+        "ema_params": to_jax_params(data["ema_params"]),
+        "rng": np.zeros(2, np.uint32),
+    }
+
+    def ext(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(1, msgpack.packb(
+                (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
+        raise TypeError(type(x))
+
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "wb") as f:
+        f.write(msgpack.packb(tree, default=ext, strict_types=True))
+
+
+@contextlib.contextmanager
+def count_forwards():
+    """Counts `E3Conv.forward` calls, with and without autograd recording
+    ({"grad": n, "no_grad": n}): the denoiser calls of a sample CLI run."""
+    from jamun_tpu_torch.models import e3conv
+
+    fwd, calls = e3conv.E3Conv.forward, {"grad": 0, "no_grad": 0}
+
+    def counted(self, *args, **kwargs):
+        calls["grad" if torch.is_grad_enabled() else "no_grad"] += 1
+        return fwd(self, *args, **kwargs)
+
+    e3conv.E3Conv.forward = counted
+    try:
+        yield calls
+    finally:
+        e3conv.E3Conv.forward = fwd
+
+
+@contextlib.contextmanager
+def time_metrics():
+    """Host seconds inside the sample CLI's metrics callback (unbatched
+    samples routed to the metrics, files written, and every metric's
+    compute at the end): {"seconds": s}."""
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+
+    cls, spent = sample_cli._AllMetricsCallback, {"seconds": 0.0}
+    hooks = {name: getattr(cls, name) for name in ("on_after_sample_batch", "on_sample_end")}
+
+    def timed(fn):
+        def run(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                spent["seconds"] += time.perf_counter() - t0
+        return run
+
+    for name, fn in hooks.items():
+        setattr(cls, name, timed(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in hooks.items():
+            setattr(cls, name, fn)
+
+
+def check_sampler_files(out_dir: str, labels, chains_per_label: int, batches: int, frames: int,
+                        n_atoms: dict) -> int:
+    """JAX's sampler layout under `out_dir` (`cmdline/sample.py`), every
+    `.npy` [frames, atoms, 3] and finite, and the joined trajectory read back
+    through `load_run_trajectory` equal to the `.npy` batches concatenated
+    in order (the DCD holds f32 Angstrom: 1e-6 nm). Returns the frames on
+    disk."""
+    from jamun_tpu_torch.analysis.load_trajectory import list_run_labels, load_run_trajectory
+
+    run_dir = os.path.dirname(out_dir)
+    assert os.path.basename(out_dir) == "sampler", out_dir
+    assert list_run_labels(run_dir) == sorted(labels), list_run_labels(run_dir)
+    assert os.path.exists(os.path.join(out_dir, "sampling_times.csv"))
+    total = 0
+    for label in labels:
+        base = os.path.join(out_dir, label, "predicted_samples")
+        stems = sorted({f.rsplit(".", 1)[0] for f in os.listdir(base) if f.startswith("batch_")},
+                       key=lambda st: int(st.split("_")[1]))
+        assert len(stems) == chains_per_label * batches, (label, len(stems))
+        for st in stems:
+            assert all(os.path.exists(os.path.join(base, f"{st}.{ext}")) for ext in ("dcd", "pdb")), st
+        parts = [np.load(os.path.join(base, f"{st}.npy")) for st in stems]
+        assert all(p.shape == (frames, n_atoms[label], 3) and np.isfinite(p).all() for p in parts)
+        _, joined = load_run_trajectory(run_dir, label)
+        assert joined.shape == (len(parts) * frames, n_atoms[label], 3), joined.shape
+        err = float(np.abs(joined - np.concatenate(parts)).max())
+        assert err <= 1e-6, (label, err)
+        assert os.path.exists(os.path.join(base, "topology.pdb"))
+        assert os.path.exists(os.path.join(out_dir, label, "samples.html"))
+        total += joined.shape[0]
+    return total
+
+
+def check_sample_launches(label: str, launches: dict, kabsch: int, calls: dict, ft_steps: int) -> None:
+    """The kernels each phase 7 run must launch, and no other: the stack
+    walk K3 once per denoiser call; the finetune K1 once and K2 six times
+    per forward (its train steps' and its walks'), K4 six times and the
+    Kabsch kernel once per train step; uvw none."""
+    used = {k: v for k, v in launches.items() if v}
+    if label in ("separable", "flax"):
+        assert calls["grad"] == 0 and used == {"e3_stack": calls["no_grad"]}, (label, used, calls)
+        assert kabsch == 0, (label, kabsch)
+    elif label == "finetune":
+        forwards = calls["grad"] + calls["no_grad"]
+        assert calls["grad"] == ft_steps, calls
+        assert used == {"edge_features": forwards, "conv_block": 6 * forwards,
+                        "conv_block_bwd": 6 * ft_steps}, (label, used, calls)
+        assert kabsch == ft_steps, kabsch
+    else:
+        assert not used and kabsch == 0, (label, used, kabsch)
+
+
+def sample_cli_runs(dev, card: str, counters: dict, kabsch_kernel, work: str, atoms: dict) -> dict:
+    """Phase 7: the sample CLI, `jamun_tpu_torch.cmdline.sample.main`, in
+    process on phase 6's run directories, `experiment=sample_uncapped_4AA`
+    with `init_datasets.root` at the 4AA validation split. `SAMPLE_RUNS`:
+    the separable run on the stack path, the same finetuned on its starting
+    frames first, the uvw run, and the separable checkpoint written again in
+    flax's format (`write_flax_checkpoint`), whose score on a fixed batch
+    must equal the torch file's bit for bit."""
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+    from jamun_tpu_torch.train.checkpoints import checkpoint_format
+
+    out, denoisers = {}, {}
+    for label, (run_key, repeat, batches, steps, extra) in SAMPLE_RUNS.items():
+        if label == "flax":  # the torch checkpoint the separable run restored, as JAX writes it
+            src = out["separable"]["checkpoint"]
+            dst = os.path.join("runs", run_key, "checkpoints", "last.ckpt")
+            write_flax_checkpoint(src, dst)
+            shutil.copy(os.path.join(os.path.dirname(os.path.dirname(src)), "config.pkl"),
+                        os.path.join("runs", run_key, "config.pkl"))
+            with open(dst, "rb") as f:
+                assert checkpoint_format(f.read(4)) == "flax"
+        args = ["--experiment-dir", EXP_DIR, "experiment=sample_uncapped_4AA",
+                f"checkpoint_dir=runs/{run_key}/checkpoints", f"init_datasets.root={cli_val_dir(work)}",
+                f"output_dir=runs/sample_{label}/sampler", f"repeat_init_samples={repeat}",
+                f"num_batches={batches}", f"num_sampling_steps_per_batch={steps}",
+                f"save_every_n_steps={SAMPLE_SAVE_EVERY}", *extra]
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with count_forwards() as calls, time_metrics() as metric_time:
+            res = sample_cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        kabsch = kabsch_kernel.launches
+        ft_steps = 5 if label == "finetune" else 0
+        check_sample_launches(label, launches, kabsch, calls, ft_steps)
+
+        labels = sorted(CLI_VAL_SEQS)
+        chains = repeat * len(labels)
+        frames = 1 + (steps - 1) // SAMPLE_SAVE_EVERY
+        on_disk = check_sampler_files(f"runs/sample_{label}/sampler", labels, repeat, batches, frames,
+                                      atoms)
+        assert on_disk == chains * batches * frames, on_disk
+        # every denoiser call of the walks: the first score, steps - 1 updates, the final jump
+        assert calls["no_grad"] == batches * (steps + 1), calls
+        arch = res["denoiser"].arch
+        assert arch.tensor_product == ("uvw" if label == "uvw" else "uvu")
+        assert arch.fused_stack == (label != "finetune"), label  # JAX's rule; uvw takes no kernel
+        for lbl in labels:
+            r = res["results"][lbl]
+            assert r["num_frames"] == repeat * batches * frames, r["num_frames"]
+            assert math.isfinite(r["ramachandran_jsd"]) and math.isfinite(r["sliced_wasserstein"])
+            assert 0.0 <= r["volume_exclusion_rate"] <= 1.0 and 0.0 <= r["bond_length_validity_rate"] <= 1.0
+            assert all(math.isfinite(r[k]) for k in ("score_norm_mean", "score_norm_std", "score_norm_max"))
+        # the CSV: one row per label; the warm rate leaves batch 0 out (the
+        # kernels were built in phase 1, so batch 0 carries only the first
+        # calls at these shapes, not nvcc), the other rate takes every batch
+        rates = res["rates"]
+        assert sorted(rates) == labels
+        warm = rates[labels[0]]["time_per_sample_seconds"]
+        with_build = rates[labels[0]]["time_per_sample_seconds_incl_compile"]
+        walk_s = [b["batch_seconds"] for b in res["per_batch"]]
+        warm_walk = walk_s[1:] if batches > 1 else walk_s
+        per_batch_samples = chains * frames
+        assert all(b["batch_samples"] == per_batch_samples for b in res["per_batch"])
+        assert math.isclose(warm, sum(warm_walk) / (len(warm_walk) * per_batch_samples), rel_tol=1e-9)
+        assert math.isclose(with_build, sum(walk_s) / (batches * per_batch_samples), rel_tol=1e-9)
+        assert all(r["time_per_sample_seconds"] == warm for r in rates.values())
+        row = dict(
+            run_key=run_key, checkpoint=res["checkpoint"], chains=chains, batches=batches,
+            steps=steps, frames_per_chain_batch=frames, frames_on_disk=on_disk,
+            warm_ms_per_sample=warm * 1e3, ms_per_sample_with_build=with_build * 1e3,
+            warm_ms_per_step=sum(warm_walk) * 1e3 / (len(warm_walk) * steps),
+            batch_seconds=walk_s, metric_seconds=metric_time["seconds"], seconds=seconds,
+            peak_bytes=peak, launches=launches, kabsch_launches=kabsch, forwards=dict(calls),
+            finetune_losses=res["finetune_losses"],
+            metrics={lbl: {k: v for k, v in res["results"][lbl].items() if isinstance(v, (int, float))}
+                     for lbl in labels},
+        )
+        if label == "finetune":
+            losses = res["finetune_losses"]
+            assert len(losses) == ft_steps and all(math.isfinite(v) for v in losses), losses
+            saved = torch.load(res["checkpoint"], map_location="cpu", weights_only=True)["ema_params"]
+            moved = sum(not torch.equal(v.cpu(), saved[k]) for k, v in arch.state_dict().items())
+            assert moved > len(saved) // 2, (moved, len(saved))
+            row["ema_tensors_moved"] = moved
+        denoisers[label] = res["denoiser"], res["state"]
+        out[label] = row
+        log(f"phase 7: sample CLI {label} ({run_key}, {os.path.basename(res['checkpoint'])}): "
+            f"{chains} chains x {batches} batches x {steps} steps, {frames} frames per chain and "
+            f"batch, {on_disk} frames on disk; warm {row['warm_ms_per_sample']:.6f} ms/sample "
+            f"({row['warm_ms_per_step']:.3f} ms/step), with the build "
+            f"{row['ms_per_sample_with_build']:.6f} ms/sample (batches "
+            + " ".join(f"{t:.3f}" for t in walk_s) + " s); metrics on the host "
+            f"{metric_time['seconds']:.3f} s; forwards {dict(calls)}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }, Kabsch {kabsch}; peak device memory "
+            f"{peak / 2**30:.3f} GiB; {seconds:.1f} s in main on {card}"
+            + (f"; finetune losses {' '.join(f'{v:.5f}' for v in res['finetune_losses'])}, "
+               f"{row['ema_tensors_moved']} EMA tensors moved" if label == "finetune" else ""))
+
+    # the flax file's model against the torch file's: the same EMA score on
+    # a fixed batch, bit for bit, and the same train state
+    batch = cli_score_batch(work).to_device(dev)
+    with torch.no_grad():
+        s_torch, s_flax = (denoisers[k][0].score(batch, SIGMA) for k in ("separable", "flax"))
+    differ = bits_differ(s_flax, s_torch)
+    assert torch.isfinite(s_torch).all() and differ == 0, differ
+    st_torch, st_flax = denoisers["separable"][1], denoisers["flax"][1]
+    assert st_flax.step == st_torch.step
+    assert st_flax.optimizer.param_groups[0]["count"] == st_torch.optimizer.param_groups[0]["count"]
+    for (name, p), q in zip(st_torch.module.named_parameters(), st_flax.module.parameters()):
+        assert torch.equal(p, q), name
+        for key in ("mu", "nu"):
+            assert torch.equal(st_torch.optimizer.state[p][key], st_flax.optimizer.state[q][key]), (name, key)
+    for (name, p), q in zip(st_torch.ema.named_parameters(), st_flax.ema.parameters()):
+        assert torch.equal(p, q), name
+    out["flax"]["score_bits_differ"] = differ
+    log(f"phase 7: the flax-format checkpoint's EMA score on 3 fixed frames equals the torch "
+        f"file's bit for bit ({s_torch.numel()} values), and so do its parameters, EMA, Adam's "
+        f"mu, nu and count and the step; cut: {len(CLI_VAL_SEQS)} peptides x "
+        f"repeat_init_samples chains instead of 1, {list(SAMPLE_RUNS)} at "
+        + ", ".join(f"{b} x {n}" for _, _, b, n, _ in SAMPLE_RUNS.values())
+        + " batches x steps instead of the config's 5 x 20000")
     return out
 
 
@@ -2624,8 +2950,11 @@ def main() -> int:
     train_tiled = train_above_128(dev, card, counters)
     train_nbr = train_sparse(dev, card, counters)
 
-    # ---- phase 6: the training CLI on the repo's 4AA config ----
-    train_cli = train_cli_runs(dev, card, counters, kb.KERNEL)
+    # ---- phases 6 and 7: the training CLI on the repo's 4AA config, then
+    # the sample CLI on its runs ----
+    with cli_workdir() as (work, atoms):
+        train_cli = train_cli_runs(dev, card, counters, kb.KERNEL, work, atoms)
+        sample_cli = sample_cli_runs(dev, card, counters, kb.KERNEL, work, atoms)
 
     # ---- the report ----
     def main_row(rows, **match):
@@ -2676,7 +3005,7 @@ def main() -> int:
                   launches=launches, train=train,
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
-                  k7_against_k1=k7_against_k1, train_cli=train_cli)
+                  k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)
