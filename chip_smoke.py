@@ -153,7 +153,29 @@ Phases (any failure exits non-zero; nothing is caught):
      Ramachandran JSD and sliced Wasserstein, validity rates in [0, 1],
      finite score-norm statistics, the CSV's rows (the warm rate without
      batch 0, the rate with it), warm ms/sample and ms/step, host seconds
-     in the metrics (`time_metrics`), peak device memory.
+     in the metrics (`time_metrics`), peak device memory;
+  8. the IDRome regime through the CLIs at full width (`idrome_runs`): an
+     IDRome-layout tree written with the port's `write_xtc`
+     (`<data>/IDRome_v4_preprocessed/all_atom_relaxed_combined/<name>/
+     {traj.xtc,top.pdb}`, two `build_peptide` chains of disordered-region
+     sequences, 600 and 1105 heavy atoms, buckets 1024 and 2048, hydrogens
+     in `top.pdb`, 200 frames of N(0, 0.02 nm) noise) and a CA-bead tree in
+     `.dcd` (`idrome_cg/{train,val}`, 82-120 beads); `train_idrome` with
+     `model/arch=e3conv_separable` (the plain sparse training path, batch
+     32, K6 in the validation) and with its uvw arch (batch cut to 1: 45 GiB
+     a graph at N = 2048), `train_idrome_cg` (separable, the atom-only
+     embedding, K1, K2 and K4), each 6 steps and 4 validation batches, with
+     ms/step, peak memory, losses and launch counts (exactly the kernels of
+     each path, the Kabsch kernel once per batch); `sample_idrome` on the
+     separable run, one chain per protein (G = 2, N = 2048), 2 x 200 steps
+     on the config's skin-1.0 Verlet lists, with `nbr_geom_kernel` off and
+     on (K6 six times per denoiser call, K7 once per cached call where on,
+     nothing else), with ms/step, the CSV's warm ms/sample, the rebuilds,
+     the kept slots at the last frame and the host metrics' seconds;
+     `analysis_sweep` of the samples against the `.xtc` references (no
+     `error` label, every label's TICA and MSM JSDs finite); then K1, K2
+     and K4 against their plain versions on the beads' training batch and
+     K6 and K7 at the walk's last frame.
 `--out FILE` writes every number as JSON. An earlier line is a JSON object
 {"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
 last is a JSON object of per-kernel numbers; the last line is {"ok": true,
@@ -581,9 +603,11 @@ def rel_leaves(got: dict, want: dict) -> dict:
     return {k: rel_err(got[k], want[k])[1] for k in want if want[k].numel()}
 
 
-def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
+def check_conv_block_bwd(k2, k4, models, dev, card_tol, shapes=None) -> list:
     """Phase 5a: K4 against its plain version on K2's residuals, at the
-    training shape and N = 112, bf16 and f32, projector and hidden block."""
+    training shape and N = 112, bf16 and f32, projector and hidden block;
+    K1's features and K2's residuals against theirs on the way. `shapes`
+    (label -> a host `GraphBatch`) gives other batches to hold them on."""
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
     from jamun_tpu_torch.ops.cuda import edge_features as k1
     from jamun_tpu_torch.utils.testing import make_test_batch
@@ -591,15 +615,16 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
     config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3)
     c_in = normalization_factors(SIGMA, config.average_squared_distance)[0]
     cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(SIGMA) / c_in
-    shapes = {
-        "train": dict(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32, max_bonds=96),
-        "N112": dict(num_graphs=32, max_nodes=112, nodes_per_graph=[112] * 32, max_bonds=224,
-                     scale=0.35),
+    shapes = shapes or {
+        "train": make_test_batch(num_graphs=32, max_nodes=48, nodes_per_graph=[44] * 32,
+                                 max_bonds=96, device="cpu"),
+        "N112": make_test_batch(num_graphs=32, max_nodes=112, nodes_per_graph=[112] * 32,
+                                max_bonds=224, scale=0.35, device="cpu"),
     }
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
-    for label, kw in shapes.items():
-        batch = make_test_batch(**kw, device=dev)
+    for label, batch in shapes.items():
+        batch = batch.to_device(dev)
         G, N = batch.pos.shape[:2]
         B = batch.bond_src.shape[1]
         pos = (batch.pos * c_in).contiguous()
@@ -607,6 +632,13 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
         for cdt in (torch.bfloat16, torch.float32):
             tag = f"{label} N={N} G={G} {str(cdt).split('.')[-1]}"
             ef, bf = k1.edge_features(*geo, cdt)
+            ef_p, bf_p = k1.edge_features_plain(*geo, cdt)
+            torch.cuda.synchronize()
+            adj_mismatch = int((ef[..., 3] != ef_p[..., 3]).sum()) + int((bf[..., 3] != bf_p[..., 3]).sum())
+            assert adj_mismatch == 0, f"K1 {tag}: {adj_mismatch} adjacency entries differ"
+            k1_abs, k1_err = map(max, zip(rel_err(ef, ef_p), rel_err(bf, bf_p)))
+            assert k1_err <= card_tol[cdt], f"K1 {tag}: rel err {k1_err:.3g}"
+            del ef_p, bf_p
             n_dense = int(ef[..., 3].sum(dtype=torch.float32))
             n_pairs = n_dense + int(bf[..., 3].sum(dtype=torch.float32))
             model = models[cdt]
@@ -627,8 +659,14 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
                 agg_p, deg_p = k2.conv_block_residuals_plain(
                     x, ef, bf, batch.bond_src, batch.bond_dst, w
                 )
+                out_p = k2.fused_conv_block_plain(x, ef, bf, batch.bond_src, batch.bond_dst, w)
+                torch.cuda.synchronize()
+                assert torch.isfinite(out).all(), f"K2 {block_name} {tag}: non-finite output"
+                out_abs, out_err = rel_err(out, out_p)
+                assert out_err <= card_tol[cdt], f"K2 output {block_name} {tag}: {out_err:.3g}"
                 res_err = max(rel_err(agg, agg_p)[1], rel_err(deg, deg_p)[1])
                 assert res_err <= card_tol[cdt], f"K2 residuals {block_name} {tag}: {res_err:.3g}"
+                del out_p
                 g = torch.randn(out.shape, generator=gen, device=dev)
                 args = (g, x, ef, bf, batch.bond_src, batch.bond_dst, w, agg, deg)
                 got = k4.conv_block_bwd(*args)
@@ -663,7 +701,8 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
                 row = dict(
                     shape=f"{block_name} {tag}", max_abs_err=abs_e, max_rel_err=errs[worst],
                     worst_leaf=worst, rel_err_by_leaf=errs, residual_rel_err=res_err,
-                    tol=card_tol[cdt],
+                    k1_rel_err=k1_err, k1_abs_err=k1_abs, k1_adjacency_mismatch=adj_mismatch,
+                    k2_out_rel_err=out_err, k2_out_abs_err=out_abs, tol=card_tol[cdt],
                     ms=cuda_time_ms(lambda: k4.conv_block_bwd(*args), 10),
                     prev_ms=PREV_MS.get(("conv_block_bwd", f"{block_name} {tag}")),
                     plain_ms=cuda_time_ms(lambda: k4.conv_block_bwd_plain(*args), 2),
@@ -675,7 +714,9 @@ def check_conv_block_bwd(k2, k4, models, dev, card_tol) -> list:
                 rows.append(row)
                 prev = f" (before the redesign: {row['prev_ms']:.4f})" if row["prev_ms"] else ""
                 log(f"phase 5: K4 {block_name} {tag}: worst rel err {errs[worst]:.3g} ({worst}), "
-                    f"max abs {abs_e:.3g} (tol {card_tol[cdt]}); K2 residuals rel {res_err:.3g}; "
+                    f"max abs {abs_e:.3g} (tol {card_tol[cdt]}); K1 rel {k1_err:.3g}, adjacency "
+                    f"equal; K2 output rel {out_err:.3g} (max abs {out_abs:.3g}), "
+                    f"residuals rel {res_err:.3g}; "
                     f"kernel {row['ms']:.4f} ms{prev}, plain {row['plain_ms']:.4f} ms, "
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {n_pairs} visited pairs; "
                     f"pair pass {occ['registers']} registers, {occ['spill_bytes']} spill bytes, "
@@ -2601,6 +2642,349 @@ def sample_cli_runs(dev, card: str, counters: dict, kabsch_kernel, work: str, at
     return out
 
 
+# phase 8: the IDRome regime through the CLIs: an IDRome-layout tree of two
+# disordered-region chains (`build_peptide`, hydrogens in `top.pdb`, every
+# atom in `traj.xtc`) of about 600 and 1100 heavy atoms (buckets 1024 and
+# 2048), and their CA beads as the coarse-grained layout in `.dcd`
+IDR_CHAINS = {"idr_0600": (600, 1), "idr_1100": (1100, 2)}  # name: (heavy atoms, sequence seed)
+IDR_FRAMES = 200
+IDR_STEPS = 6  # train steps of each run, validation once at the last
+# validation batches: with `streaming: true` the DataModule streams the
+# validation sets too (as JAX's does), up to `val_max_batches` (1000 in
+# train_idrome)
+IDR_VAL_BATCHES = 4
+IDR_TRAIN_RUNS = {
+    # label: (experiment, run key, extra overrides, batch size)
+    "separable": ("train_idrome", "train_idrome_separable",
+                  ["model/arch=e3conv_separable", "run_key=train_idrome_separable"], 32),
+    # the config's uvw at batch 32 needs about 45 GB a graph at N = 2048:
+    # one graph a batch (the cut, listed in the log)
+    "uvw": ("train_idrome", "train_idrome", [], 1),
+    # a group override drops the experiment's arch keys (JAX's composition
+    # too), so the atom-only embedding is asked for again
+    "cg": ("train_idrome_cg", "train_idrome_cg",
+           ["model/arch=e3conv_separable", "model.arch.use_residue_information=false"], 8),
+}
+IDR_SAMPLE_STEPS, IDR_SAMPLE_BATCHES = 200, 2
+IDROME_DIR = ("IDRome_v4_preprocessed", "all_atom_relaxed_combined")
+
+
+def write_idrome_data(root: str, seed: int = 0) -> dict:
+    """The IDRome tree under `root` (`utils.testing.write_idrome_tree`,
+    the port's `write_xtc`) and the coarse-grained tree
+    `idrome_cg/{train,val}/<name>.{pdb,dcd}`: the 600-atom chain's beads and
+    the 1100-atom chain's first 120 residues to train, its last 90 to
+    validate (every bead count at most 128: the dense kernels' range).
+    Returns the heavy-atom and bead counts."""
+    from jamun_tpu_torch.utils.testing import idr_sequence, write_cg_tree, write_idrome_tree
+
+    seqs = {name: idr_sequence(n, s) for name, (n, s) in IDR_CHAINS.items()}
+    heavy = write_idrome_tree(os.path.join(root, *IDROME_DIR), seqs, IDR_FRAMES, seed=seed)
+    long_seq = seqs["idr_1100"]
+    beads = write_cg_tree(os.path.join(root, "idrome_cg", "train"),
+                          {"cg_0600": seqs["idr_0600"], "cg_1100_n": long_seq[:120]},
+                          IDR_FRAMES, seed=seed + 1)
+    beads.update(write_cg_tree(os.path.join(root, "idrome_cg", "val"), {"cg_1100_c": long_seq[-90:]},
+                               IDR_FRAMES, seed=seed + 2))
+    assert all(512 < n <= 1024 if name == "idr_0600" else 1024 < n <= 2048 for name, n in heavy.items())
+    assert max(beads.values()) <= 128, beads
+    return dict(heavy=heavy, beads=beads)
+
+
+@contextlib.contextmanager
+def record_sampler_runs():
+    """Every `Sampler.sample` call's initial batch and output, and every
+    Verlet-cached score the walks build (their rebuild counts): {"runs":
+    [(init_graphs, out)], "cached": [NeighborCachedScore]}."""
+    from jamun_tpu_torch.models.denoiser import Denoiser
+    from jamun_tpu_torch.sampling.sampler import Sampler
+
+    sample, make = Sampler.sample, Denoiser.make_neighbor_cached_score
+    seen = {"runs": [], "cached": []}
+
+    def recorded_sample(self, denoiser, batch_sampler, num_batches, init_graphs, *args, **kwargs):
+        out = sample(self, denoiser, batch_sampler, num_batches, init_graphs, *args, **kwargs)
+        seen["runs"].append((init_graphs, out))
+        return out
+
+    def recorded_make(self, *args, **kwargs):
+        cached = make(self, *args, **kwargs)
+        if cached is not None:
+            seen["cached"].append(cached)
+        return cached
+
+    Sampler.sample, Denoiser.make_neighbor_cached_score = recorded_sample, recorded_make
+    try:
+        yield seen
+    finally:
+        Sampler.sample, Denoiser.make_neighbor_cached_score = sample, make
+
+
+@contextlib.contextmanager
+def nbr_geom_kernel_on():
+    """The sample CLI's model with `nbr_geom_kernel=True` (K7 for the cached
+    lists' edge features; JAX's `JAMUN_NBR_GEOM_KERNEL=1`), set on the arch
+    the CLI builds: the sample config has no key for it."""
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+
+    build = sample_cli.build_denoiser
+
+    def built(*args, **kwargs):
+        den = build(*args, **kwargs)
+        den.arch.nbr_geom_kernel = True
+        return den
+
+    sample_cli.build_denoiser = built
+    try:
+        yield
+    finally:
+        sample_cli.build_denoiser = build
+
+
+def check_idrome_train_launches(label: str, launches: dict, kabsch: int, calls: dict) -> None:
+    """The kernels each phase 8 training run must launch, and no other. The
+    IDRome chains (N >= 512) train on the plain sparse path and validate
+    on K6, six launches per forward without a gradient (uvw: no kernel);
+    the beads (N <= 128) take K1 once and K2 six times per forward and K4
+    six times per train step. The Kabsch kernel aligns every batch, the
+    validation's included."""
+    used = {k: v for k, v in launches.items() if v}
+    forwards = calls["grad"] + calls["no_grad"]
+    if label == "separable":
+        want = {"nbr_conv": 6 * calls["no_grad"]}
+    elif label == "uvw":
+        want = {}
+    else:
+        want = {"edge_features": forwards, "conv_block": 6 * forwards, "conv_block_bwd": 6 * calls["grad"]}
+    assert calls["grad"] == IDR_STEPS and calls["no_grad"] == IDR_VAL_BATCHES, (label, calls)
+    assert used == want, (label, used, want, calls)
+    assert kabsch == forwards, (label, kabsch, calls)
+
+
+def check_idrome_sample_launches(label: str, launches: dict, calls: dict, k7: int) -> None:
+    """A sample_idrome run: K6 six times per denoiser call, K7 `k7` times,
+    every other kernel never."""
+    want = dict.fromkeys(launches, 0)
+    want["nbr_conv"] = 6 * calls["no_grad"]
+    want["nbr_edge_features"] = k7
+    assert launches == want, (label, launches, want)
+
+
+def idrome_train_runs(dev, card: str, counters: dict, kabsch_kernel, data: dict) -> dict:
+    """Phase 8, training: `IDR_TRAIN_RUNS` through the train CLI in process
+    (in the work directory of `idrome_workdir`), each `IDR_STEPS` steps and
+    one validation, launch counts zeroed before each run and read after."""
+    import statistics
+
+    from jamun_tpu_torch.cmdline import train as train_cli
+
+    out = {}
+    for label, (exp, run_key, extra, batch) in IDR_TRAIN_RUNS.items():
+        args = ["--experiment-dir", EXP_DIR, f"experiment={exp}", f"trainer.max_steps={IDR_STEPS}",
+                f"trainer.val_every_n_steps={IDR_STEPS}", "trainer.log_every_n_steps=1",
+                f"trainer.val_max_batches={IDR_VAL_BATCHES}", f"data.datamodule.batch_size={batch}",
+                *extra]
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with count_forwards() as calls:
+            state = train_cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        kabsch = kabsch_kernel.launches
+        check_idrome_train_launches(label, launches, kabsch, calls)
+        train, val = read_metrics_csv(os.path.join("runs", run_key, "metrics.csv"))
+        losses = [r["train/loss"] for r in train]
+        assert state.step == IDR_STEPS and [r["step"] for r in train] == list(range(1, IDR_STEPS + 1))
+        assert [r["step"] for r in val] == [IDR_STEPS], val
+        assert all(math.isfinite(v) for v in losses + [r["val/loss"] for r in val]), losses
+        assert (label == "cg") == hasattr(state.module, "SimpleAtomEmbedding_0"), label
+        ms_step = statistics.median((b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:]))
+        sizes = data["beads"] if label == "cg" else data["heavy"]
+        out[label] = dict(
+            experiment=exp, run_key=run_key, steps=IDR_STEPS, batch=batch,
+            tensor_product=state.module.tensor_product, ms_per_step=ms_step, seconds=seconds,
+            peak_bytes=peak, losses=losses, val_loss=[r["val/loss"] for r in val], atoms=sizes,
+            launches=launches, kabsch_launches=kabsch, forwards=dict(calls),
+        )
+        log(f"phase 8: train {label} ({exp}, {state.module.tensor_product}, batch {batch}): "
+            f"{ms_step:.3f} ms/step (median gap of metrics.csv's rows, steps 2-{IDR_STEPS}), peak "
+            f"device memory {peak / 2**30:.3f} GiB, train loss "
+            + " ".join(f"{v:.5f}" for v in losses)
+            + f", val loss {val[0]['val/loss']:.5f}; atoms {sizes}; forwards {dict(calls)}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }, Kabsch {kabsch}; {seconds:.1f} s in "
+            f"main on {card}")
+    return out
+
+
+def idrome_sample_runs(dev, card: str, counters: dict, data: dict) -> dict:
+    """Phase 8, sampling: `experiment=sample_idrome` through the sample CLI
+    on the separable run (one chain per protein, both padded to the 2048
+    bucket, the config's skin-1.0 Verlet lists, every step saved), with
+    `nbr_geom_kernel` off and on. K6 six times per denoiser call, K7 once
+    per cached score call where the switch is on (the final jump builds its
+    own list) and never otherwise, every other kernel never. Returns the
+    runs' numbers and the first run's batch at its last step's positions."""
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+
+    out, walk_end = {}, None
+    root = os.path.join(os.environ["JAMUN_DATA_PATH"], *IDROME_DIR)
+    for label, geom in (("separable", False), ("separable_k7", True)):
+        run_dir = os.path.join("runs", f"sample_idrome_{label}")
+        args = ["--experiment-dir", EXP_DIR, "experiment=sample_idrome",
+                "checkpoint_dir=runs/train_idrome_separable/checkpoints",
+                f"output_dir={run_dir}/sampler", f"num_batches={IDR_SAMPLE_BATCHES}",
+                f"num_sampling_steps_per_batch={IDR_SAMPLE_STEPS}"]
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(count_forwards())
+            seen = stack.enter_context(record_sampler_runs())
+            metric_time = stack.enter_context(time_metrics())
+            if geom:
+                stack.enter_context(nbr_geom_kernel_on())
+            res = sample_cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        den = res["denoiser"]
+        assert den.arch.nbr_geom_kernel == geom and den.arch.tensor_product == "uvu"
+        steps, batches = IDR_SAMPLE_STEPS, IDR_SAMPLE_BATCHES
+        assert calls == {"grad": 0, "no_grad": batches * (steps + 1)}, calls
+        check_idrome_sample_launches(label, launches, calls, batches * steps if geom else 0)
+        (init, walked), = seen["runs"]
+        init = init.to_device(dev)
+        G, N = init.pos.shape[:2]
+        assert N == 2048 and G == len(IDR_CHAINS), (G, N)
+        assert len(seen["cached"]) == batches, len(seen["cached"])  # one Verlet list per batch
+        rebuilds = [int(c.rebuilds) for c in seen["cached"]]
+        # the kept slots at the last step's positions (y) of the last batch
+        last = torch.zeros_like(init.pos)
+        for g, entry in enumerate(walked[-1]):
+            last[g, :entry["num_atoms"]] = torch.from_numpy(entry["y_traj"][:, -1]).to(dev)
+        end = init.replace_pos(last)
+        walk_end = end if walk_end is None else walk_end
+        kept = kept_slots(end, den, SIGMA)
+        rates = res["rates"]
+        assert sorted(rates) == sorted(IDR_CHAINS), rates
+        warm = rates["idr_0600"]["time_per_sample_seconds"]
+        walk_s = [b["batch_seconds"] for b in res["per_batch"]]
+        labels = sorted(IDR_CHAINS)
+        on_disk = check_sampler_files(f"{run_dir}/sampler", labels, 1, batches, steps, data["heavy"])
+        assert on_disk == len(labels) * batches * steps, on_disk
+        for lbl in labels:
+            r = res["results"][lbl]
+            assert math.isfinite(r["ramachandran_jsd"]) and 0.0 <= r["bond_length_validity_rate"] <= 1.0
+        out[label] = dict(
+            nbr_geom_kernel=geom, G=G, N=N, batches=batches, steps=steps, seconds=seconds,
+            batch_seconds=walk_s, warm_ms_per_step=sum(walk_s[1:]) * 1e3 / ((batches - 1) * steps),
+            warm_ms_per_sample=warm * 1e3, rebuilds=rebuilds, kept_slots_last_frame=kept,
+            peak_bytes=peak, launches=launches, forwards=dict(calls),
+            metric_seconds=metric_time["seconds"], run_dir=run_dir,
+        )
+        log(f"phase 8: sample_idrome {label} (nbr_geom_kernel={geom}): G={G} N={N}, {batches} x "
+            f"{steps} steps; warm {out[label]['warm_ms_per_step']:.3f} ms/step, "
+            f"{out[label]['warm_ms_per_sample']:.6f} ms/sample (sampling_times.csv), batches "
+            + " ".join(f"{t:.3f}" for t in walk_s) + f" s; Verlet rebuilds per batch {rebuilds}; "
+            f"kept slots at the last frame {kept}; launches K6 {launches['nbr_conv']}, K7 "
+            f"{launches['nbr_edge_features']}, others none; metrics on the host "
+            f"{metric_time['seconds']:.3f} s; peak device memory {peak / 2**30:.3f} GiB; "
+            f"{seconds:.1f} s in main on {card}")
+    return out, walk_end
+
+
+def idrome_analysis(card: str, sample: dict) -> dict:
+    """Phase 8, analysis: `analysis_sweep` of the first sample run against
+    the `.xtc` references (IDRome's suffixes). The sweep keeps JAX's
+    behaviour of writing a label's exception as {"error": ...}, so the
+    summary is checked: no error, and every label has its TICA and MSM
+    JSDs (the stage JAX skips on a caught failure)."""
+    from jamun_tpu_torch.analysis import analysis_sweep
+
+    root = os.path.join(os.environ["JAMUN_DATA_PATH"], *IDROME_DIR)
+    out_dir = "analysis_idrome"
+    t0 = time.perf_counter()
+    analysis_sweep.main(["--run-dir", sample["separable"]["run_dir"], "--reference-dir", root,
+                         "--ref-traj-suffix", "/traj.xtc", "--ref-pdb-suffix", "/top.pdb",
+                         "--out", out_dir])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "summary.json")) as f:
+        summary = json.load(f)
+    assert sorted(summary) == sorted(IDR_CHAINS), summary
+    for label, r in summary.items():
+        assert "error" not in r, (label, r)
+        assert all(math.isfinite(r[k]) for k in ("tica0_jsd", "msm_state_jsd", "ramachandran_jsd")), r
+        assert r["num_ref_frames"] == IDR_FRAMES, r
+    log(f"phase 8: analysis_sweep against the .xtc references: {seconds:.3f} s on the host; "
+        + "; ".join(f"{k}: frames {r['num_pred_frames']} vs {r['num_ref_frames']}, torsion JSD "
+                    f"{r['torsion_jsd_mean']:.4f}, TICA-0 JSD {r['tica0_jsd']:.4f}, MSM state JSD "
+                    f"{r['msm_state_jsd']:.4f}" for k, r in sorted(summary.items()))
+        + f"; beside {card}")
+    return dict(seconds=seconds, summary=summary)
+
+
+@contextlib.contextmanager
+def idrome_workdir():
+    """A temporary work directory for phase 8 with the IDRome and
+    coarse-grained trees written into it, `JAMUN_DATA_PATH` pointing there
+    and the process in it; all three undone on the way out."""
+    cwd, env = os.getcwd(), os.environ.get("JAMUN_DATA_PATH")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        data = write_idrome_data(os.path.join(tmp.name, "data"))
+        os.environ["JAMUN_DATA_PATH"] = os.path.join(tmp.name, "data")
+        os.chdir(tmp.name)
+        log(f"phase 8: wrote the IDRome tree (heavy atoms {data['heavy']}, hydrogens in top.pdb, "
+            f"{IDR_FRAMES} frames of N(0, 0.02 nm) noise in traj.xtc) and the CA-bead tree (beads "
+            f"{data['beads']}, .dcd) in {time.perf_counter() - t0:.1f} s")
+        yield data
+    finally:
+        os.chdir(cwd)
+        if env is None:
+            os.environ.pop("JAMUN_DATA_PATH", None)
+        else:
+            os.environ["JAMUN_DATA_PATH"] = env
+        tmp.cleanup()
+
+
+def idrome_runs(dev, card: str, counters: dict, kabsch_kernel):
+    """Phase 8: the IDRome regime through the CLIs at full width: train
+    (`IDR_TRAIN_RUNS`), sample the separable run (`idrome_sample_runs`) and
+    analyse the samples against the `.xtc` references (`idrome_analysis`).
+    Returns the numbers, and the shapes to hold this path's kernels on
+    against their plain versions: a training batch of the beads (N = 128,
+    G = 8: K1, K2, K4) and the sample walk's last frame (N = 2048, G = 2:
+    K6, K7)."""
+    from jamun_tpu_torch.data.batching import collate
+    from jamun_tpu_torch.data.discovery import parse_datasets_from_directory
+
+    with idrome_workdir() as data:
+        train = idrome_train_runs(dev, card, counters, kabsch_kernel, data)
+        sample, walk_end = idrome_sample_runs(dev, card, counters, data)
+        analysis = idrome_analysis(card, sample)
+        cg = parse_datasets_from_directory(
+            os.path.join(os.environ["JAMUN_DATA_PATH"], "idrome_cg", "train"), r"^(.*)\.dcd",
+            r"^(.*)\.pdb")
+        batch = IDR_TRAIN_RUNS["cg"][3]
+        cg_batch = collate([cg[i % len(cg)][i] for i in range(batch)], num_graphs=batch)
+    log(f"phase 8: cuts: synthetic chains (build_peptide, extended, plus noise) in place of the "
+        f"IDRome and MDGen sets, {IDR_STEPS} train steps instead of the configs' 300000 / 100000 "
+        f"and {IDR_VAL_BATCHES} validation batches instead of 1000 / 50, "
+        f"uvw at batch {IDR_TRAIN_RUNS['uvw'][3]} instead of 32 (peak "
+        f"{train['uvw']['peak_bytes'] / 2**30:.3f} GiB), {IDR_SAMPLE_BATCHES} x {IDR_SAMPLE_STEPS} "
+        f"sampling steps instead of 5 x 10000; on {card}")
+    return dict(data=data, train=train, sample=sample, analysis=analysis), cg_batch, walk_end
+
+
 def main() -> int:
     args = sys.argv[1:]
     out_path = args[args.index("--out") + 1] if "--out" in args else None
@@ -2956,6 +3340,18 @@ def main() -> int:
         train_cli = train_cli_runs(dev, card, counters, kb.KERNEL, work, atoms)
         sample_cli = sample_cli_runs(dev, card, counters, kb.KERNEL, work, atoms)
 
+    # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
+    idrome, cg_batch, walk_end = idrome_runs(dev, card, counters, kb.KERNEL)
+    # this path's kernels against their plain versions at its shapes: K1, K2
+    # and K4 on the beads' training batch, K6 and K7 at the walk's last frame
+    results["conv_block_bwd"] += check_conv_block_bwd(
+        k2, k4, models, dev, TOL, shapes={"IDRome CG": cg_batch})
+    for name, rows in check_nbr_kernels(
+        k6, k7, models, dev, c_in, cutoff, shapes={"IDRome walk end": (walk_end, True)},
+    ).items():
+        results[name] += rows
+    del cg_batch, walk_end
+
     # ---- the report ----
     def main_row(rows, **match):
         return next(r for r in rows if all(r[k] == v for k, v in match.items()))
@@ -2975,6 +3371,8 @@ def main() -> int:
         for name in ("packed_uvu_conv_dense", "fused_uvu_conv_dense")
     )
     layer_main = main_row(results["conv_layer"], label="4AA", dtype=str(torch.bfloat16))
+    # K1's and K2's errors on the training batches, measured in K4's check
+    also = {"edge_features": ("k1_abs_err",), "conv_block": ("k2_out_abs_err",)}
     kernels = []
     for name, main, replaces in (
         ("edge_features", k1_main, "jamun_tpu/ops/pallas/packed_conv.py:806"),
@@ -2993,7 +3391,8 @@ def main() -> int:
             name=name, route="cuda", replaces=replaces,
             source=f"jamun_tpu_torch/csrc/{counters[name].source.name}",
             launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in results[name]),
+            max_abs_err=max([r["max_abs_err"] for r in results[name]]
+                            + [r[k] for r in results["conv_block_bwd"] for k in also.get(name, ())]),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=None,
         ))
@@ -3005,7 +3404,8 @@ def main() -> int:
                   launches=launches, train=train,
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
-                  k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli)
+                  k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
+                  idrome=idrome)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -2,15 +2,15 @@
 (counterpart of `jamun_tpu/data/datasets.py`, numpy only).
 
   - `TrajectoryDataset`: one molecule's frames, [start:start+num:subsample];
-    `.npz` (key "positions", the Timewarp layout), `.npy`, `.dcd` or `.pdb`
-    files.
+    `.npz` (key "positions", the Timewarp layout), `.npy`, `.dcd`, `.xtc`
+    (the port's trajio library, `data/xtc.py`) or `.pdb` files.
   - `IterableTrajectoryDataset`: the streaming variant, file by file.
   - `StreamingRandomChainDataset`: an epoch-less weighted random interleave
     that re-opens exhausted streams.
 
-`.xtc` needs the native trajio reader, which is not ported (ROADMAP.md
-queue A, 'XTC and native trajio'). Datasets are deduplicated by their
-constructor arguments, as in the JAX package.
+A trajectory of the full topology (hydrogens included, as IDRome's
+`top.pdb`) is cut to its heavy atoms after reading. Datasets are
+deduplicated by their constructor arguments, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 
 from jamun_tpu_torch.data.dcd import read_dcd
 from jamun_tpu_torch.data.topology import GraphTemplate, load_pdb, preprocess_topology
+from jamun_tpu_torch.data.xtc import read_xtc
 
 __all__ = ["TrajectoryDataset", "IterableTrajectoryDataset", "StreamingRandomChainDataset"]
 
@@ -65,10 +66,7 @@ def _load_traj_positions(path: str, heavy_indices: Optional[np.ndarray] = None) 
         _, pos = load_pdb(path)
         return pos
     if path.endswith(".xtc"):
-        raise NotImplementedError(
-            f"{path}: .xtc needs the native trajio reader (ROADMAP.md queue A, "
-            "'XTC and native trajio'); convert the trajectory to .dcd or .npz"
-        )
+        return read_xtc(path)
     raise ValueError(f"unsupported trajectory format: {path}")
 
 
@@ -175,8 +173,13 @@ class IterableTrajectoryDataset:
         return self._label
 
     def __iter__(self) -> Iterator[Tuple[GraphTemplate, np.ndarray]]:
+        return self.frames(shuffle_files=self.start_at_random_frame)
+
+    def frames(self, shuffle_files: bool = False) -> Iterator[Tuple[GraphTemplate, np.ndarray]]:
+        """The stream; its files in their listed order unless
+        `shuffle_files` (then in `np.random`'s order, as JAX's iterator)."""
         files = list(self.trajfiles)
-        if self.start_at_random_frame:
+        if shuffle_files:
             files = list(np.random.permutation(files))
         for path in files:
             xyz = _load_traj_positions(path)

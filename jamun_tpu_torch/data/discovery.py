@@ -1,6 +1,11 @@
 """Regex-driven dataset discovery (counterpart of `jamun_tpu/data/discovery.py`):
 (trajectory, pdb) file pairs per molecule code from a directory listing, and
 single-frame datasets from raw PDBs.
+
+The patterns match paths relative to `root`, listed as deep as the patterns
+have "/": IDRome's `^(.*)/traj\\.xtc` and `^(.*)/top\\.pdb` find one directory
+per protein, labelled by its name. JAX's lists `root` alone, so it finds no
+pair there; with flat patterns both list the same names.
 """
 
 from __future__ import annotations
@@ -12,6 +17,18 @@ from typing import List, Optional, Sequence
 from jamun_tpu_torch.data.datasets import IterableTrajectoryDataset, TrajectoryDataset
 
 __all__ = ["parse_datasets_from_directory", "create_dataset_from_pdbs"]
+
+
+def _listing(root: str, depth: int) -> List[str]:
+    """The names in `root` and, down to `depth` levels of subdirectories,
+    their paths relative to `root` ("/"-joined), sorted."""
+    names = sorted(os.listdir(root))
+    out = list(names)
+    if depth > 0:
+        for name in names:
+            if os.path.isdir(os.path.join(root, name)):
+                out += [f"{name}/{sub}" for sub in _listing(os.path.join(root, name), depth - 1)]
+    return sorted(out)
 
 
 def parse_datasets_from_directory(
@@ -30,7 +47,7 @@ def parse_datasets_from_directory(
     """Pair up (trajectory, pdb) files per molecule code via regex capture groups."""
     traj_re, pdb_re = re.compile(traj_pattern), re.compile(pdb_pattern)
     trajs, pdbs = {}, {}
-    for fname in sorted(os.listdir(root)):
+    for fname in _listing(root, max(traj_pattern.count("/"), pdb_pattern.count("/"))):
         m = traj_re.match(fname)
         if m:
             trajs.setdefault(m.group(1), []).append(fname)

@@ -82,7 +82,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from jamun_tpu_torch.models.embeddings import AtomEmbeddingWithResidueInformation
+from jamun_tpu_torch.models.embeddings import AtomEmbeddingWithResidueInformation, SimpleAtomEmbedding
 from jamun_tpu_torch.models.noise_conditioning import (
     NoiseConditionalScaling,
     NoiseConditionalSkipConnection,
@@ -180,13 +180,10 @@ class E3Conv(nn.Module):
         follows `utils.device.resolve_device` (the card unless "cpu");
         `seed` draws the parameters (flax's init distributions) from a CPU
         generator, so a seed gives the same weights on any device;
-        `pallas_variant` ("packed" | "plane") is JAX's (module docstring)."""
+        `pallas_variant` ("packed" | "plane") is JAX's (module docstring);
+        `use_residue_information=False` embeds atoms by type alone, in the
+        four embedding widths summed (JAX's `SimpleAtomEmbedding`)."""
         super().__init__()
-        if not use_residue_information:
-            raise NotImplementedError(
-                "use_residue_information=False (JAX's SimpleAtomEmbedding) is not ported "
-                "(ROADMAP.md queue A, 'SimpleAtomEmbedding')"
-            )
         if isinstance(dtype, str) or dtype is None:
             if dtype not in _DTYPES:
                 raise ValueError(f"dtype={dtype!r}")
@@ -217,12 +214,19 @@ class E3Conv(nn.Module):
         self.radial_dim = (edge_attr_dim + 1) // 2
 
         self.embed_bondedness = nn.Parameter(torch.empty(2, self.bonded_dim))
-        self.AtomEmbeddingWithResidueInformation_0 = AtomEmbeddingWithResidueInformation(
-            atom_type_embedding_dim, atom_code_embedding_dim,
-            residue_code_embedding_dim, residue_index_embedding_dim,
-            use_residue_sequence_index,
-        )
-        irreps_node = self.AtomEmbeddingWithResidueInformation_0.irreps_out
+        # under flax's name of the embedder JAX builds for this setting
+        if use_residue_information:
+            self.AtomEmbeddingWithResidueInformation_0 = AtomEmbeddingWithResidueInformation(
+                atom_type_embedding_dim, atom_code_embedding_dim,
+                residue_code_embedding_dim, residue_index_embedding_dim,
+                use_residue_sequence_index,
+            )
+        else:
+            self.SimpleAtomEmbedding_0 = SimpleAtomEmbedding(
+                atom_type_embedding_dim + atom_code_embedding_dim
+                + residue_code_embedding_dim + residue_index_embedding_dim
+            )
+        irreps_node = self.embedder.irreps_out
         self.NoiseConditionalScaling_0 = NoiseConditionalScaling(irreps_node)
         self.ConvBlock_0 = ConvBlock(
             irreps_node, self.irreps_hidden, self.irreps_sh, edge_attr_dim, dtype, pallas_variant,
@@ -255,6 +259,13 @@ class E3Conv(nn.Module):
                 if m is not self and hasattr(m, "reset_parameters"):
                     m.reset_parameters(generator)
 
+    @property
+    def embedder(self) -> nn.Module:
+        """The atom embedder: with residue information, or by atom type alone."""
+        if hasattr(self, "SimpleAtomEmbedding_0"):
+            return self.SimpleAtomEmbedding_0
+        return self.AtomEmbeddingWithResidueInformation_0
+
     def _hidden_layers(self):
         return [getattr(self, f"_HiddenLayer_{k}") for k in range(self.n_layers)]
 
@@ -262,7 +273,7 @@ class E3Conv(nn.Module):
         """The shapes the layerwise kernels cover (K1 and K2 up to 128 atoms,
         K5 above): the widths; the atom count only through K5's pair index."""
         S, V = self.irreps_hidden.sv_shape()
-        S_emb = self.AtomEmbeddingWithResidueInformation_0.irreps_out.sv_shape()[0]
+        S_emb = self.embedder.irreps_out.sv_shape()[0]
         return (
             n_atoms <= k5.MAX_ATOMS
             and self.edge_attr_dim == 2 * k2.N_RADIAL
@@ -290,7 +301,7 @@ class E3Conv(nn.Module):
         if self._wants_grad(batch):
             return False
         S, V = self.irreps_hidden.sv_shape()
-        S_emb = self.AtomEmbeddingWithResidueInformation_0.irreps_out.sv_shape()[0]
+        S_emb = self.embedder.irreps_out.sv_shape()[0]
         out_blocks = tuple((mi.mul, mi.ir.l, mi.ir.p) for mi in self.irreps_out)
         return self.edge_attr_dim == 2 * k2.N_RADIAL and k3.stack_supported(
             batch.pos.shape[1], S, V, S_emb, out_blocks
@@ -374,8 +385,7 @@ class E3Conv(nn.Module):
         return (out, tel) if with_telemetry else out
 
     def _embed(self, batch: GraphBatch, c_noise: torch.Tensor) -> torch.Tensor:
-        x = self.AtomEmbeddingWithResidueInformation_0(batch)
-        return self.NoiseConditionalScaling_0(x, c_noise)
+        return self.NoiseConditionalScaling_0(self.embedder(batch), c_noise)
 
     def _standard_forward(self, batch, c_noise, edges, kernel: bool):
         """Every ConvBlock the standard block on `edges`, `kernel` passed to

@@ -1,5 +1,7 @@
-"""Atom embedder with residue information
-(counterpart of `jamun_tpu/models/embeddings.py`)."""
+"""Atom embedders (counterpart of `jamun_tpu/models/embeddings.py`): with
+residue information, by atom type alone (`use_residue_information=False`),
+and by coarse-grained bead. Each lookup table is an `Embed` under flax's
+name (`Embed_0`, ...), so `params.from_jax_params` carries it across."""
 
 from __future__ import annotations
 
@@ -9,7 +11,10 @@ from torch import nn
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.ops.irreps import Irreps
 
-__all__ = ["Embed", "AtomEmbeddingWithResidueInformation"]
+__all__ = [
+    "Embed", "SimpleAtomEmbedding", "AtomEmbeddingWithResidueInformation",
+    "CoarseGrainedBeadEmbedding",
+]
 
 
 class Embed(nn.Module):
@@ -24,6 +29,18 @@ class Embed(nn.Module):
 
     def forward(self, index: torch.Tensor) -> torch.Tensor:
         return self.embedding[index]
+
+
+class SimpleAtomEmbedding(nn.Module):
+    """The atom type's embedding alone."""
+
+    def __init__(self, embedding_dim: int, max_value: int = 20):
+        super().__init__()
+        self.Embed_0 = Embed(max_value, embedding_dim)
+        self.irreps_out = Irreps(f"{embedding_dim}x0e")
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        return self.Embed_0(batch.atom_type_index)
 
 
 class AtomEmbeddingWithResidueInformation(nn.Module):
@@ -68,3 +85,16 @@ class AtomEmbeddingWithResidueInformation(nn.Module):
             ],
             dim=-1,
         )
+
+
+class CoarseGrainedBeadEmbedding(nn.Module):
+    """One embedding per coarse-grained bead type (read from the atom type
+    index, as in JAX)."""
+
+    def __init__(self, bead_embedding_dim: int, num_beads: int = 10):
+        super().__init__()
+        self.Embed_0 = Embed(num_beads, bead_embedding_dim)
+        self.irreps_out = Irreps(f"{bead_embedding_dim}x0e")
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        return self.Embed_0(batch.atom_type_index)

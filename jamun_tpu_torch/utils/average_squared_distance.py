@@ -1,11 +1,15 @@
 """The data normalization pre-pass: the average squared pairwise distance
 under the cutoff (the port's own numpy copy of
 `jamun_tpu/utils/average_squared_distance.py`), a plain host loop over the
-datasets.
+datasets. A streaming dataset (no `len`, as the IDRome and MDGen configs
+read theirs) gives its first frames, its files in their listed order
+whatever `start_at_random_frame` says, so the constant is the same on every
+run; JAX's raises TypeError on one.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 from typing import Optional
 
@@ -34,10 +38,13 @@ def compute_average_squared_distance_from_datasets(
     vals = []
     per_ds = max(1, max_graphs // max(len(datasets), 1))
     for ds in datasets:
-        n = len(ds)
-        idx = rng.choice(n, size=min(per_ds, n), replace=False)
-        for i in idx:
-            _, pos = ds[int(i)]
+        if hasattr(ds, "__len__"):
+            n = len(ds)
+            idx = rng.choice(n, size=min(per_ds, n), replace=False)
+            frames = (ds[int(i)] for i in idx)
+        else:  # a stream: its first frames
+            frames = itertools.islice(ds.frames(), per_ds)
+        for _, pos in frames:
             v = compute_average_squared_distance(np.asarray(pos), cutoff)
             if v is not None:
                 vals.append(v)

@@ -138,14 +138,6 @@ def test_discovery_and_datasets_match_jax(data_root):
     np.testing.assert_array_equal(sub[0].trajectory, jsub[0].trajectory)
 
 
-def test_xtc_names_its_item(tmp_path):
-    (tmp_path / "m.xtc").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="queue A, 'XTC and native trajio'"):
-        from jamun_tpu_torch.data.datasets import _load_traj_positions
-
-        _load_traj_positions(str(tmp_path / "m.xtc"))
-
-
 def _assert_batch_equal(got: GraphBatch, want):
     for f in dataclasses.fields(GraphBatch):
         g, w = getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name))
