@@ -175,7 +175,24 @@ Phases (any failure exits non-zero; nothing is caught):
      `analysis_sweep` of the samples against the `.xtc` references (no
      `error` label, every label's TICA and MSM JSDs finite); then K1, K2
      and K4 against their plain versions on the beads' training batch and
-     K6 and K7 at the walk's last frame.
+     K6 and K7 at the walk's last frame;
+  9. run between phases 7 and 8, in phase 6's work directory: Ophiuchus
+     (`experiment=train_uncapped_4AA model/arch=ophiuchus`: 64x0e + 64x1e,
+     4 layers, mul_factor 64, edge_attr_dim 8, uvw, f32, batch 32) through
+     the train CLI, 30 steps validating every 15 (finite, falling losses,
+     K1-K9 never, the Kabsch kernel per batch; ms/step, peak memory; its f32
+     score on the card against the CPU's, 1e-3, and its E(3) error on the
+     card, 1e-3 of the output's max); the sample CLI on that run
+     (`sample_uncapped_4AA`, 4 chains per peptide, 2 x 100 steps, no
+     kernel) and a profiled 6-step walk of its sampling model (device busy
+     share, device ops per forward); `batch_sampler=vesde` at the config's N = 1000 steps, one
+     batch of 4 chains per peptide, on phase 6's separable run (K3 once per
+     denoiser call, nothing else) and on the Ophiuchus run (no kernel), its
+     trajectories [N, G, N_atoms, 3] as JAX's and its sample finite; and
+     `UnrolledBAOAB` on the stack path (4AA, G = 256, 101 steps in chunks
+     of 25: K3 once per update and once per chunk), its frames held against
+     `BAOAB`'s on the same generator (the differing bits and the largest
+     difference printed).
 `--out FILE` writes every number as JSON. An earlier line is a JSON object
 {"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
 last is a JSON object of per-kernel numbers; the last line is {"ok": true,
@@ -2120,8 +2137,10 @@ def cli_score_check(run_dir: str, batch, dev) -> float:
     with open(os.path.join(run_dir, "config.pkl"), "rb") as f:
         cfg = pickle.load(f)  # written by this run's CLI
     params = torch.load(os.path.join(run_dir, "checkpoints", "last.ckpt"), weights_only=True)["params"]
+    # E3Conv's CPU reference is its plain path; Ophiuchus has only that path
+    plain = {"plain": True} if "E3Conv" in cfg["model"]["arch"]["_target_"] else {}
     scores = []
-    for device, extra in ((dev, {}), ("cpu", {"plain": True})):
+    for device, extra in ((dev, {}), ("cpu", plain)):
         model_cfg = dict(cfg["model"], arch=dict(cfg["model"]["arch"], dtype=None, **extra))
         den = build_denoiser(model_cfg, device=device, seed=0)
         den.arch.load_state_dict(params)
@@ -2414,22 +2433,28 @@ def write_flax_checkpoint(src: str, dst: str) -> None:
 
 
 @contextlib.contextmanager
-def count_forwards():
-    """Counts `E3Conv.forward` calls, with and without autograd recording
-    ({"grad": n, "no_grad": n}): the denoiser calls of a sample CLI run."""
-    from jamun_tpu_torch.models import e3conv
+def count_forwards(cls=None):
+    """Counts the arch's (`E3Conv` unless `cls`) forward calls, with and
+    without autograd recording ({"grad": n, "no_grad": n}): the denoiser
+    calls of a CLI run. The counting wrapper keeps the forward's signature,
+    which the Denoiser reads."""
+    import functools
 
-    fwd, calls = e3conv.E3Conv.forward, {"grad": 0, "no_grad": 0}
+    from jamun_tpu_torch.models.e3conv import E3Conv
 
+    cls = cls or E3Conv
+    fwd, calls = cls.forward, {"grad": 0, "no_grad": 0}
+
+    @functools.wraps(fwd)
     def counted(self, *args, **kwargs):
         calls["grad" if torch.is_grad_enabled() else "no_grad"] += 1
         return fwd(self, *args, **kwargs)
 
-    e3conv.E3Conv.forward = counted
+    cls.forward = counted
     try:
         yield calls
     finally:
-        e3conv.E3Conv.forward = fwd
+        cls.forward = fwd
 
 
 @contextlib.contextmanager
@@ -2461,12 +2486,14 @@ def time_metrics():
 
 
 def check_sampler_files(out_dir: str, labels, chains_per_label: int, batches: int, frames: int,
-                        n_atoms: dict) -> int:
+                        n_atoms: dict, far: bool = False) -> int:
     """JAX's sampler layout under `out_dir` (`cmdline/sample.py`), every
     `.npy` [frames, atoms, 3] and finite, and the joined trajectory read back
     through `load_run_trajectory` equal to the `.npy` batches concatenated
-    in order (the DCD holds f32 Angstrom: 1e-6 nm). Returns the frames on
-    disk."""
+    in order (the DCD holds f32 Angstrom: 1e-6 nm; with `far`, for frames
+    tens of nm out, as VESDE's first ones and a briefly trained Ophiuchus's,
+    1e-6 of the largest coordinate).
+    Returns the frames on disk."""
     from jamun_tpu_torch.analysis.load_trajectory import list_run_labels, load_run_trajectory
 
     run_dir = os.path.dirname(out_dir)
@@ -2485,8 +2512,9 @@ def check_sampler_files(out_dir: str, labels, chains_per_label: int, batches: in
         assert all(p.shape == (frames, n_atoms[label], 3) and np.isfinite(p).all() for p in parts)
         _, joined = load_run_trajectory(run_dir, label)
         assert joined.shape == (len(parts) * frames, n_atoms[label], 3), joined.shape
-        err = float(np.abs(joined - np.concatenate(parts)).max())
-        assert err <= 1e-6, (label, err)
+        both = np.concatenate(parts)
+        err = float(np.abs(joined - both).max())
+        assert err <= 1e-6 * (max(1.0, float(np.abs(both).max())) if far else 1.0), (label, err)
         assert os.path.exists(os.path.join(base, "topology.pdb"))
         assert os.path.exists(os.path.join(out_dir, label, "samples.html"))
         total += joined.shape[0]
@@ -2639,6 +2667,282 @@ def sample_cli_runs(dev, card: str, counters: dict, kabsch_kernel, work: str, at
         f"repeat_init_samples chains instead of 1, {list(SAMPLE_RUNS)} at "
         + ", ".join(f"{b} x {n}" for _, _, b, n, _ in SAMPLE_RUNS.values())
         + " batches x steps instead of the config's 5 x 20000")
+    return out
+
+
+# phase 9: Ophiuchus (`model/arch=ophiuchus`) trained and sampled through the
+# CLIs on phase 6's 4AA tree, VESDE (`batch_sampler=vesde`) on phase 6's
+# separable run and on the Ophiuchus run, and UnrolledBAOAB on the stack
+# path. Cut: 30 train steps instead of 10 epochs (as phase 6); sampling 4
+# chains per peptide, 2 x 100 steps (BAOAB) and one batch of the config's
+# N = 1000 steps (VESDE) instead of 5 x 20000
+OPH_RUN_KEY = "train_uncapped_4AA_ophiuchus"
+OPH_SAMPLE_RUNS = {
+    # label: (train run key, repeat_init_samples, num_batches, steps per batch or None for
+    # VESDE's N, extra overrides)
+    "ophiuchus": (OPH_RUN_KEY, 4, 2, 100, []),
+    "vesde_separable": ("train_uncapped_4AA_separable", 4, 1, None, ["batch_sampler=vesde"]),
+    "vesde_ophiuchus": (OPH_RUN_KEY, 4, 1, None, ["batch_sampler=vesde"]),
+}
+VESDE_N = 1000  # the config's (`config/defaults/batch_sampler/vesde.yaml`)
+UNROLLED_STEPS, UNROLLED_CHUNK = 101, 25
+
+
+def oph_card_checks(run_dir: str, batch, dev) -> tuple:
+    """The Ophiuchus run's trained weights (last.ckpt) in f32 on the card:
+    its score against the CPU's on the same weights, relative to the max,
+    and the arch's E(3) equivariance error on the card (a rotation and a
+    shift of a fixed batch), relative to the output's max."""
+    import pickle
+
+    from jamun_tpu_torch.cmdline.common import build_denoiser
+    from jamun_tpu_torch.utils.equivariance import equivariance_error
+
+    score_err = cli_score_check(run_dir, batch, dev)
+    with open(os.path.join(run_dir, "config.pkl"), "rb") as f:
+        cfg = pickle.load(f)  # written by this run's CLI
+    den = build_denoiser(cfg["model"], device=dev, seed=0)
+    den.arch.load_state_dict(
+        torch.load(os.path.join(run_dir, "checkpoints", "last.ckpt"), weights_only=True)["params"])
+    den.arch.requires_grad_(False)
+    c_noise = torch.tensor([math.log(SIGMA) / 4.0], device=dev)
+    cutoff = den.effective_radial_cutoff(SIGMA)
+    b = batch.to_device(dev)
+    with torch.no_grad():
+        scale = float(den.arch(b, c_noise, cutoff).abs().max())
+    err = equivariance_error(lambda x: den.arch(x, c_noise, cutoff), b) / scale
+    return score_err, err
+
+
+def check_no_launches(label: str, launches: dict, kabsch: int, want_kabsch: bool) -> None:
+    """No kernel of K1-K9 ran; the Kabsch kernel ran (aligned training) or
+    not (sampling)."""
+    used = {k: v for k, v in launches.items() if v}
+    assert not used, (label, used)
+    assert (kabsch > 0) == want_kabsch, (label, kabsch)
+
+
+def ophiuchus_train_run(dev, card: str, counters: dict, kabsch_kernel, work: str, atoms: dict) -> dict:
+    """Phase 9a: `experiment=train_uncapped_4AA model/arch=ophiuchus` through
+    the train CLI at the config's full width (64x0e + 64x1e, 4 layers,
+    mul_factor 64, edge_attr_dim 8, uvw, f32, batch 32): `CLI_STEPS` steps,
+    validating every `CLI_VAL_EVERY`. No kernel of K1-K9; the Kabsch kernel
+    aligns every batch."""
+    import statistics
+
+    from jamun_tpu_torch.cmdline import train as train_cli
+    from jamun_tpu_torch.models.ophiuchus import Ophiuchus
+
+    args = ["--experiment-dir", EXP_DIR, "experiment=train_uncapped_4AA", "model/arch=ophiuchus",
+            f"run_key={OPH_RUN_KEY}", f"trainer.max_steps={CLI_STEPS}",
+            f"trainer.val_every_n_steps={CLI_VAL_EVERY}", "trainer.log_every_n_steps=1"]
+    for k in (*counters.values(), kabsch_kernel):
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with count_forwards(Ophiuchus) as calls:
+        state = train_cli.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: k.launches for name, k in counters.items()}
+    kabsch = kabsch_kernel.launches
+    check_no_launches("ophiuchus train", launches, kabsch, want_kabsch=True)
+    run_dir = os.path.join("runs", OPH_RUN_KEY)
+    train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+    losses = [r["train/loss"] for r in train]
+    arch = state.module
+    assert isinstance(arch, Ophiuchus) and arch.tensor_product == "uvw" and arch.dtype is None
+    assert (str(arch.irreps_hidden), arch.n_layers, arch.edge_attr_dim) == ("64x0e + 64x1e", 4, 8)
+    assert state.step == CLI_STEPS and [r["step"] for r in train] == list(range(1, CLI_STEPS + 1))
+    assert [r["step"] for r in val] == [CLI_VAL_EVERY, CLI_STEPS], val
+    assert all(math.isfinite(v) for v in losses + [r["val/loss"] for r in val])
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    assert calls["grad"] == CLI_STEPS, calls
+    ms_step = statistics.median((b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:]))
+    score_err, equi_err = oph_card_checks(run_dir, cli_score_batch(work), dev)
+    assert score_err < 1e-3, score_err
+    assert equi_err < 1e-3, equi_err
+    out = dict(run_key=OPH_RUN_KEY, steps=CLI_STEPS, seconds=seconds, ms_per_step=ms_step,
+               peak_bytes=peak, first_loss=losses[0], last_loss=losses[-1],
+               val_loss=[r["val/loss"] for r in val], batch=32, launches=launches,
+               kabsch_launches=kabsch, forwards=dict(calls), score_rel_err=score_err,
+               equivariance_rel_err=equi_err,
+               parameters=sum(p.numel() for p in arch.parameters()))
+    log(f"phase 9a: Ophiuchus ({OPH_RUN_KEY}, uvw, 64x0e + 64x1e, 4 layers, f32, batch 32): "
+        f"{ms_step:.3f} ms/step (median gap of metrics.csv's rows), peak device memory "
+        f"{peak / 2**30:.3f} GiB, {out['parameters']} parameters, train loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, val loss " + " ".join(f"{r['val/loss']:.5f}" for r in val)
+        + f"; forwards {dict(calls)}; K1-K9 launches 0, Kabsch {kabsch}; f32 score card vs CPU "
+        f"rel err {score_err:.3g} (tol 1e-3), E(3) error on the card {equi_err:.3g} of the "
+        f"output's max (tol 1e-3); {seconds:.1f} s in main on {card}")
+    return out
+
+
+@contextlib.contextmanager
+def record_vesde():
+    """The shape of each output of every VESDE anneal and whether its sample
+    is finite: a list of dicts."""
+    from jamun_tpu_torch.sampling.vesde import VESDEReverseDiffusionSampler
+
+    anneal, seen = VESDEReverseDiffusionSampler.anneal, []
+
+    def recorded(self, *args, **kwargs):
+        out = anneal(self, *args, **kwargs)
+        row = {k: tuple(v.shape) for k, v in out.items()}
+        row["finite"] = bool(torch.isfinite(out["sample"]).all())
+        seen.append(row)
+        return out
+
+    VESDEReverseDiffusionSampler.anneal = recorded
+    try:
+        yield seen
+    finally:
+        VESDEReverseDiffusionSampler.anneal = anneal
+
+
+def ophiuchus_vesde_sample_runs(dev, card: str, counters: dict, kabsch_kernel, work: str,
+                                atoms: dict) -> dict:
+    """Phases 9b and 9c: `experiment=sample_uncapped_4AA` through the sample
+    CLI (`OPH_SAMPLE_RUNS`): the Ophiuchus run with BAOAB (no kernel), and
+    `batch_sampler=vesde` on phase 6's separable run (K3 once per denoiser
+    call, N per batch, nothing else) and on the Ophiuchus run (no kernel).
+    VESDE's trajectories are JAX's [N, G, N_atoms, 3]. After the Ophiuchus
+    run, `profile_walk` of its sampling model on three fixed frames."""
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.models.ophiuchus import Ophiuchus
+
+    out = {}
+    labels = sorted(CLI_VAL_SEQS)
+    for label, (run_key, repeat, batches, steps, extra) in OPH_SAMPLE_RUNS.items():
+        vesde = steps is None
+        args = ["--experiment-dir", EXP_DIR, "experiment=sample_uncapped_4AA",
+                f"checkpoint_dir=runs/{run_key}/checkpoints", f"init_datasets.root={cli_val_dir(work)}",
+                f"output_dir=runs/sample_{label}/sampler", f"repeat_init_samples={repeat}",
+                f"num_batches={batches}", f"save_every_n_steps={SAMPLE_SAVE_EVERY}", *extra]
+        if not vesde:
+            args.append(f"num_sampling_steps_per_batch={steps}")
+        cls = Ophiuchus if run_key == OPH_RUN_KEY else E3Conv
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with count_forwards(cls) as calls, time_metrics() as metric_time, record_vesde() as anneals:
+            res = sample_cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        kabsch = kabsch_kernel.launches
+        assert isinstance(res["denoiser"].arch, cls), label
+        chains = repeat * len(labels)
+        if vesde:
+            frames, n_steps = VESDE_N, VESDE_N
+            G, N = chains, 48
+            assert calls == {"grad": 0, "no_grad": batches * VESDE_N}, (label, calls)
+            assert len(anneals) == batches and all(a["finite"] for a in anneals), anneals
+            for a in anneals:
+                for k in ("y_traj", "y_mean_traj", "xhat_traj"):
+                    assert a[k] == (VESDE_N, G, N, 3), (label, k, a[k])
+                assert a["sample"] == a["y"] == a["v"] == (G, N, 3), a
+        else:
+            frames, n_steps = 1 + (steps - 1) // SAMPLE_SAVE_EVERY, steps
+            assert calls == {"grad": 0, "no_grad": batches * (steps + 1)}, (label, calls)
+            assert not anneals
+        if cls is E3Conv:
+            assert res["denoiser"].arch.fused_stack
+            want = dict.fromkeys(launches, 0)
+            want["e3_stack"] = calls["no_grad"]
+            assert launches == want and kabsch == 0, (label, launches, kabsch)
+        else:
+            check_no_launches(label, launches, kabsch, want_kabsch=False)
+        on_disk = check_sampler_files(f"runs/sample_{label}/sampler", labels, repeat, batches, frames,
+                                      atoms, far=True)
+        assert on_disk == chains * batches * frames, on_disk
+        for lbl in labels:
+            r = res["results"][lbl]
+            assert r["num_frames"] == repeat * batches * frames, r["num_frames"]
+            assert math.isfinite(r["ramachandran_jsd"])
+        walk_s = [b["batch_seconds"] for b in res["per_batch"]]
+        warm = walk_s[1:] if batches > 1 else walk_s
+        row = dict(run_key=run_key, checkpoint=res["checkpoint"], chains=chains, batches=batches,
+                   steps=n_steps, frames_per_chain_batch=frames, frames_on_disk=on_disk,
+                   warm_ms_per_step=sum(warm) * 1e3 / (len(warm) * n_steps), batch_seconds=walk_s,
+                   metric_seconds=metric_time["seconds"], seconds=seconds, peak_bytes=peak,
+                   launches=launches, kabsch_launches=kabsch, forwards=dict(calls),
+                   anneal_shapes=anneals)
+        if label == "ophiuchus":  # the device's share of a short walk of the sampling model
+            row["profile"] = profile_walk(res["denoiser"], cli_score_batch(work).to_device(dev), dev, 6,
+                                          "Ophiuchus 4AA G=3")
+        out[label] = row
+        log(f"phase 9{'c' if vesde else 'b'}: sample CLI {label} ({run_key}, "
+            f"{'VESDE N = %d' % VESDE_N if vesde else 'BAOAB'}): {chains} chains x {batches} "
+            f"batches x {n_steps} steps, {frames} frames per chain and batch, {on_disk} on disk; "
+            f"warm {row['warm_ms_per_step']:.3f} ms/step (batches "
+            + " ".join(f"{t:.3f}" for t in walk_s) + " s); metrics on the host "
+            f"{metric_time['seconds']:.3f} s; forwards {dict(calls)}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }, Kabsch {kabsch}; peak device memory "
+            f"{peak / 2**30:.3f} GiB; {seconds:.1f} s in main on {card}"
+            + (f"; trajectories {anneals[0]['xhat_traj']}" if vesde else ""))
+    return out
+
+
+def unrolled_walk(den_stack, dev, card: str, counters: dict) -> dict:
+    """Phase 9d: `UnrolledBAOAB` on the separable flagship's stack path (K3)
+    at 4AA, G = 256, `UNROLLED_STEPS` steps in chunks of `UNROLLED_CHUNK`:
+    K3 once per update and once per chunk (its first score), nothing else.
+    Then `BAOAB` from the same start on the same generator seed (not
+    counted): the frames compared bit for bit."""
+    from jamun_tpu_torch.sampling.mcmc import BAOAB, MCMCConfig
+    from jamun_tpu_torch.sampling.unrolled import UnrolledBAOAB
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    G, N = 256, 44
+    batch = make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=[N] * G, max_bonds=2 * N,
+                            scale=0.35, device=dev)
+    cfg = MCMCConfig(delta=0.04, friction=1.0, M=1.0, steps=UNROLLED_STEPS, save_every_n_steps=1,
+                     score_fn_clip=100.0)
+    mask = batch.node_mask[..., None].float()
+    y0 = batch.pos + SIGMA * torch.randn(
+        batch.pos.shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev) * mask
+
+    def score(y):
+        return den_stack.score(batch.replace_pos(y), SIGMA)
+
+    def walk(mcmc):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with torch.no_grad():
+            return mcmc(y0, score, gen, "gaussian", mask)
+
+    updates = (UNROLLED_STEPS - 1) // UNROLLED_CHUNK * UNROLLED_CHUNK
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, v, traj, scores = walk(UnrolledBAOAB(cfg, chunk_steps=UNROLLED_CHUNK))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    want = dict.fromkeys(launches, 0)
+    want["e3_stack"] = updates + updates // UNROLLED_CHUNK
+    assert launches == want, (launches, want)
+    assert traj.shape == (1 + updates, G, N, 3) and torch.isfinite(traj).all()
+    assert not scores.any()
+    _, _, ref, _ = walk(BAOAB(dataclasses.replace(cfg, steps=updates + 1)))
+    differ = bits_differ(traj, ref)
+    max_diff = float((traj - ref).abs().max())
+    out = dict(G=G, N=N, steps=UNROLLED_STEPS, chunk_steps=UNROLLED_CHUNK, seconds=dt,
+               ms_per_step=dt * 1e3 / updates, launches=launches, frames=traj.shape[0],
+               bits_differ_from_baoab=differ, max_abs_diff_from_baoab=max_diff)
+    log(f"phase 9d: UnrolledBAOAB on the stack path, 4AA N={N} G={G}, {UNROLLED_STEPS} steps in "
+        f"chunks of {UNROLLED_CHUNK}: {dt:.3f} s, {out['ms_per_step']:.3f} ms/step; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({updates} updates + "
+        f"{updates // UNROLLED_CHUNK} chunk starts); frames against BAOAB on the same generator: "
+        f"{differ} of {traj.numel()} values differ in their bits, largest difference "
+        f"{max_diff:.3g} nm; on {card}")
     return out
 
 
@@ -3339,6 +3643,11 @@ def main() -> int:
     with cli_workdir() as (work, atoms):
         train_cli = train_cli_runs(dev, card, counters, kb.KERNEL, work, atoms)
         sample_cli = sample_cli_runs(dev, card, counters, kb.KERNEL, work, atoms)
+        # ---- phase 9: Ophiuchus trained and sampled, VESDE on both runs ----
+        oph_train = ophiuchus_train_run(dev, card, counters, kb.KERNEL, work, atoms)
+        oph_sample = ophiuchus_vesde_sample_runs(dev, card, counters, kb.KERNEL, work, atoms)
+    # (d) UnrolledBAOAB on the stack path
+    unrolled = unrolled_walk(Denoiser(stack_models[torch.bfloat16], config), dev, card, counters)
 
     # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
     idrome, cg_batch, walk_end = idrome_runs(dev, card, counters, kb.KERNEL)
@@ -3405,7 +3714,8 @@ def main() -> int:
                   train_grad_rel_err=grad_err, train_above_128=train_tiled, train_sparse=train_nbr,
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
                   k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
-                  idrome=idrome)
+                  idrome=idrome, ophiuchus_train=oph_train, ophiuchus_vesde_sample=oph_sample,
+                  unrolled=unrolled)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

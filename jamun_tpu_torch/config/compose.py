@@ -6,7 +6,10 @@ A minimal stand-in for Hydra composition: a root config may declare
 `<config_dir>/<group>/<name>.yaml` and are merged at key `group` (or at the
 root for `# @package _global_` files). Overrides use dotted paths
 ("model.arch.n_layers=3"; "+key=val" adds, "~key" deletes), and
-`group/sub=name` replaces the node at group.sub with that file.
+`group/sub=name` replaces the node at group.sub with that file. One
+difference from JAX's: `group=name` where `<config_dir>/group/name.yaml`
+exists selects that file too, as Hydra does (`batch_sampler=vesde`); JAX's
+sets the string "vesde" there, a config nothing can sample with.
 Interpolation supports ${dotted.path}, ${env:VAR,default} and ${now:...}
 timestamps. YAML is read with PyYAML's `safe_load`.
 """
@@ -174,10 +177,13 @@ def compose(
     overrides = [o for o in overrides if not o.startswith("experiment=")]
     # Hydra-style group overrides: `model/arch=ophiuchus` REPLACES the config
     # node at model.arch with <config_dir>/model/arch/ophiuchus.yaml.
-    group_ovs = [
-        o for o in overrides
-        if "=" in o and "/" in o.split("=", 1)[0] and not o.startswith("~")
-    ]
+    def is_group(o: str) -> bool:
+        key, _, name = o.partition("=")
+        return "/" in key or (
+            "." not in key and os.path.isfile(os.path.join(config_dir, key, f"{name}.yaml"))
+        )
+
+    group_ovs = [o for o in overrides if "=" in o and not o.startswith("~") and is_group(o)]
     overrides = [o for o in overrides if o not in group_ovs]
 
     cfg = _compose_file(config_dir, config_name)

@@ -2,10 +2,10 @@
 (counterpart of `jamun_tpu/data/batching.py`).
 
 Graphs are padded to bucket sizes (N, B), so every batch shape comes from a
-small fixed set. `pad_to_bucket` is the JAX package's, residue layout
-included; `collate` stacks its rows into the port's `GraphBatch` (int64
-indices, bool masks), which carries no residue layout (that is Ophiuchus's,
-ROADMAP.md queue A, 'Ophiuchus'). Where a CUDA card is present the batch is
+small fixed set. `pad_to_bucket` is the JAX package's; `collate` stacks its
+rows into the port's `GraphBatch` (int64 indices, bool masks), with the
+residue layout that Ophiuchus reads when `BucketSpec.with_residue_layout`
+(the default), as JAX's does. Where a CUDA card is present the batch is
 made in page-locked host memory, so that `GraphBatch.to_device` copies it
 without a wait.
 """
@@ -140,7 +140,13 @@ def collate(
         max((len(t.bond_src) for t, _ in items), default=1),
         bucket_spec.bond_bucket(n_pad),
     )
-    rows = [pad_to_bucket(t, p, n_pad, b_pad) for t, p in items]
+    r_pad = None
+    if bucket_spec.with_residue_layout:
+        r_pad = bucket_spec.residue_bucket(max(t.num_residues for t, _ in items))
+    rows = [
+        pad_to_bucket(t, p, n_pad, b_pad, r_pad, bucket_spec.max_atoms_per_residue)
+        for t, p in items
+    ]
     G = num_graphs or len(rows)
     while len(rows) < G:
         dummy = {k: np.zeros_like(v) if isinstance(v, np.ndarray) else type(v)(0) for k, v in rows[0].items()}
@@ -155,7 +161,8 @@ def collate(
             t = t.to(torch.int64)
         return t.pin_memory() if pin else t
 
-    return GraphBatch(**{f.name: stack(f.name) for f in dataclasses.fields(GraphBatch)})
+    return GraphBatch(**{f.name: stack(f.name) for f in dataclasses.fields(GraphBatch)
+                         if f.name in rows[0]})
 
 
 def template_to_batch(

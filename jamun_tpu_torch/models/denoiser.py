@@ -1,4 +1,5 @@
-"""Denoiser core: EDM-style preconditioning around the E3Conv network.
+"""Denoiser core: EDM-style preconditioning around an equivariant arch
+(E3Conv or Ophiuchus).
 
 Counterpart of `jamun_tpu/models/denoiser.py:30-146` (the sampling side):
 
@@ -17,12 +18,18 @@ an explicit `torch.Generator`. The sparse path's helpers
 (`sparse_neighbors_active`, `neighbor_overflow`,
 `make_neighbor_cached_score`) are those of
 `jamun_tpu/models/denoiser.py:150-226`.
+
+Any arch runs, as in JAX's Denoiser: `nbr_cache` and `with_telemetry` go
+only to an arch whose `forward` takes them (an arch that reports nothing
+gives empty telemetry), and an arch without `neighbor_mode` /
+`neighbor_cap` runs dense (cap 32, JAX's default).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import math
 from typing import Dict, Optional, Tuple
 
@@ -66,8 +73,22 @@ class DenoiserConfig:
     bond_loss_coefficient: float = 1.0
 
 
+_ARCH_KWARGS = frozenset({"nbr_cache", "with_telemetry"})
+
+
+@functools.lru_cache(maxsize=None)
+def _takes(forward) -> frozenset:
+    """The keyword arguments of the Denoiser's that an arch's `forward`
+    takes (all of them through **kwargs)."""
+    params = inspect.signature(forward).parameters.values()
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params):
+        return _ARCH_KWARGS
+    return _ARCH_KWARGS & {p.name for p in params}
+
+
 class Denoiser:
-    """Wraps an E3Conv with the preconditioning; `score` feeds the walk."""
+    """Wraps an equivariant arch with the preconditioning; `score` feeds the
+    walk."""
 
     def __init__(self, arch, config: DenoiserConfig):
         self.arch = arch
@@ -89,14 +110,18 @@ class Denoiser:
         )
         radial_cutoff = self.effective_radial_cutoff(sigma) / c_in
         c_noise_t = torch.full((1,), c_noise, dtype=torch.float32, device=y.pos.device)
-        g_out = self.arch(
-            y.replace_pos(y.pos * c_in), c_noise_t, radial_cutoff, nbr_cache=nbr_cache,
-            with_telemetry=with_telemetry,
-        )
-        if with_telemetry:
+        takes = _takes(type(self.arch).forward)
+        kw = {}
+        if "nbr_cache" in takes:
+            kw["nbr_cache"] = nbr_cache
+        if with_telemetry and "with_telemetry" in takes:
+            kw["with_telemetry"] = True
+        g_out = self.arch(y.replace_pos(y.pos * c_in), c_noise_t, radial_cutoff, **kw)
+        tel = {}
+        if "with_telemetry" in kw:
             g_out, tel = g_out
-            return c_skip * y.pos + c_out * irreps_to_vector(g_out), tel
-        return c_skip * y.pos + c_out * irreps_to_vector(g_out)
+        xhat = c_skip * y.pos + c_out * irreps_to_vector(g_out)
+        return (xhat, tel) if with_telemetry else xhat
 
     def xhat(self, y: GraphBatch, sigma: float, with_telemetry: bool = False, nbr_cache=None):
         pos = y.pos
@@ -119,8 +144,12 @@ class Denoiser:
     def sparse_neighbors_active(self, n_atoms: int, training: bool = False) -> bool:
         """Whether the arch takes the sparse capped-K path at this size (the
         only path that drops edges)."""
-        mode = self.arch.neighbor_mode
+        mode = getattr(self.arch, "neighbor_mode", "dense")
         return mode == "nbr" or (mode == "auto" and neighbor_mode_auto(n_atoms, training))
+
+    @property
+    def neighbor_cap(self) -> int:
+        return int(getattr(self.arch, "neighbor_cap", 32))
 
     def _scaled_cutoff(self, sigma: float, D: int):
         c_in = normalization_factors(sigma, self.config.average_squared_distance, D)[0]
@@ -132,7 +161,7 @@ class Denoiser:
         against cutoff / c_in). Callers gate on `sparse_neighbors_active`."""
         c_in, cutoff = self._scaled_cutoff(sigma, y.pos.shape[-1])
         pos = mean_center(y.pos, y.node_mask) if self.config.mean_center else y.pos
-        return capped_neighbor_lists(pos * c_in, y.node_mask, cutoff, self.arch.neighbor_cap)[2]
+        return capped_neighbor_lists(pos * c_in, y.node_mask, cutoff, self.neighbor_cap)[2]
 
     def make_neighbor_cached_score(
         self, batch: GraphBatch, sigma: float, skin: float
@@ -140,14 +169,18 @@ class Denoiser:
         """The walk's Verlet-cached score (`sampling/mcmc.NeighborCachedScore`):
         the capped list within cutoff + skin (skin in the walk's nm), built on
         the arch's geometry, rebuilt when some atom moved more than skin / 2.
-        None when skin <= 0 or the arch runs dense at this size."""
-        if skin <= 0 or not self.sparse_neighbors_active(batch.pos.shape[1]):
+        None when skin <= 0, the arch runs dense at this size or takes no
+        list."""
+        if (
+            skin <= 0 or not self.sparse_neighbors_active(batch.pos.shape[1])
+            or "nbr_cache" not in _takes(type(self.arch).forward)
+        ):
             return None
         c_in, cutoff = self._scaled_cutoff(sigma, batch.pos.shape[-1])
 
         def rebuild(y):
             idx, superset, _ = capped_neighbor_lists(
-                y * c_in, batch.node_mask, cutoff + skin * c_in, self.arch.neighbor_cap
+                y * c_in, batch.node_mask, cutoff + skin * c_in, self.neighbor_cap
             )
             return idx, superset
 

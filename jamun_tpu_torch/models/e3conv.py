@@ -101,7 +101,10 @@ from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
 from jamun_tpu_torch.ops.sh import spherical_harmonics
 from jamun_tpu_torch.utils.device import resolve_device
 
-__all__ = ["E3Conv", "irreps_to_vector", "neighbor_mode_auto", "EDGE_FEATURE_ATOMS"]
+__all__ = [
+    "E3Conv", "irreps_to_vector", "vector_to_irreps", "neighbor_mode_auto", "compute_dtype",
+    "EDGE_FEATURE_ATOMS",
+]
 
 EDGE_FEATURE_ATOMS = 128  # up to here K1's edge features and K2 (K4); above, K5
 # "auto" neighbour mode: from these atom counts on JAX takes the sparse
@@ -114,6 +117,21 @@ _DTYPES = {None: None, "bfloat16": torch.bfloat16}  # the arch files' dtype stri
 def neighbor_mode_auto(n_atoms: int, training: bool) -> bool:
     """True when "auto" neighbour mode resolves to the sparse path."""
     return n_atoms >= (_NBR_AUTO_TRAIN_N if training else _NBR_AUTO_SAMPLE_N)
+
+
+def compute_dtype(dtype: Union[torch.dtype, str, None]) -> Optional[torch.dtype]:
+    """An arch's compute dtype: a torch dtype, or the arch files' "bfloat16"
+    / null."""
+    if isinstance(dtype, str) or dtype is None:
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype={dtype!r}")
+        return _DTYPES[dtype]
+    return dtype
+
+
+def vector_to_irreps(v: torch.Tensor) -> torch.Tensor:
+    """(x, y, z) -> the l=1 component order (y, z, x), from slices."""
+    return torch.cat([v[..., 1:3], v[..., 0:1]], dim=-1)
 
 
 def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
@@ -184,10 +202,7 @@ class E3Conv(nn.Module):
         `use_residue_information=False` embeds atoms by type alone, in the
         four embedding widths summed (JAX's `SimpleAtomEmbedding`)."""
         super().__init__()
-        if isinstance(dtype, str) or dtype is None:
-            if dtype not in _DTYPES:
-                raise ValueError(f"dtype={dtype!r}")
-            dtype = _DTYPES[dtype]
+        dtype = compute_dtype(dtype)
         if neighbor_mode not in ("dense", "nbr", "auto"):
             raise ValueError(f"neighbor_mode={neighbor_mode!r}")
         if pallas_variant not in PALLAS_VARIANTS:

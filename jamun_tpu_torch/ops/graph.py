@@ -32,14 +32,28 @@ class GraphBatch:
     bond_mask: torch.Tensor  # [G, B]
     loss_weight: torch.Tensor  # [G]
     graph_mask: torch.Tensor  # [G]
+    # the residue layout (`jamun_tpu/ops/graph.py:44-51`), which Ophiuchus
+    # reads: atoms grouped by residue in a [G, R, P] gather map (P the most
+    # atoms of a residue), built by `data/batching.collate`; None otherwise
+    residue_atom_index: Optional[torch.Tensor] = None  # [G, R, P] index into N (0 if padded)
+    residue_atom_mask: Optional[torch.Tensor] = None  # [G, R, P]
+    residue_ca_index: Optional[torch.Tensor] = None  # [G, R] index of the CA atom
+    residue_mask: Optional[torch.Tensor] = None  # [G, R]
+    residue_codes: Optional[torch.Tensor] = None  # [G, R]
 
     def replace_pos(self, pos: torch.Tensor) -> "GraphBatch":
         return dataclasses.replace(self, pos=pos)
 
+    def map(self, fn) -> "GraphBatch":
+        """fn applied to every tensor field; None fields stay None."""
+        return GraphBatch(**{
+            f.name: None if t is None else fn(t)
+            for f in dataclasses.fields(self)
+            for t in (getattr(self, f.name),)
+        })
+
     def to(self, device) -> "GraphBatch":
-        return GraphBatch(
-            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
-        )
+        return self.map(lambda t: t.to(device))
 
     def to_device(self, device) -> "GraphBatch":
         """The batch on `device`. A host batch bound for the card goes through
@@ -48,11 +62,7 @@ class GraphBatch:
         (the JAX loop's jitted step never waits on its input)."""
         device = torch.device(device)
         pin = device.type == "cuda" and self.pos.device.type == "cpu"
-        return GraphBatch(**{
-            f.name: (t.pin_memory() if pin else t).to(device, non_blocking=pin)
-            for f in dataclasses.fields(self)
-            for t in (getattr(self, f.name),)
-        })
+        return self.map(lambda t: (t.pin_memory() if pin else t).to(device, non_blocking=pin))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
-"""Parameter bridge between a flax param tree of the JAX E3Conv and the
-port's `E3Conv.state_dict()`.
+"""Parameter bridge between a flax param tree of a JAX arch (E3Conv,
+Ophiuchus) and the port's `state_dict()` of the same arch.
 
 The torch modules carry the flax names, so the mapping is the tree path
 joined with "." (e.g. `_HiddenLayer_0/ConvBlock_0/Conv_0/radial_nn/Dense_1/
@@ -26,7 +26,7 @@ _OTHER = "ROADMAP.md queue A, 'Other config targets'"
 
 def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (optionally under "params") -> a
-    state_dict of f32 tensors for `E3Conv.load_state_dict(..., strict=True)`."""
+    state_dict of f32 tensors for the arch's `load_state_dict(..., strict=True)`."""
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}

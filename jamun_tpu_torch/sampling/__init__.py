@@ -1,6 +1,6 @@
-"""Sampling: BAOAB and ABOBA walks, walk-jump, the Sampler and its callbacks
-(counterpart of `jamun_tpu/sampling/`; VESDE and UnrolledBAOAB are not
-ported)."""
+"""Sampling: BAOAB and ABOBA walks (also in chunks, `UnrolledBAOAB`),
+walk-jump, the VE-SDE reverse diffusion, the Sampler and its callbacks
+(counterpart of `jamun_tpu/sampling/`)."""
 
 from jamun_tpu_torch.sampling.mcmc import (
     ABOBA,
@@ -10,4 +10,6 @@ from jamun_tpu_torch.sampling.mcmc import (
     make_processed_score_fn,
 )
 from jamun_tpu_torch.sampling.sampler import Sampler, unbatch_samples
+from jamun_tpu_torch.sampling.unrolled import UnrolledBAOAB
+from jamun_tpu_torch.sampling.vesde import VESDEReverseDiffusionSampler
 from jamun_tpu_torch.sampling.walkjump import SingleMeasurementSampler

@@ -36,11 +36,8 @@ def _fold_frames(graphs: GraphBatch, frames: torch.Tensor) -> GraphBatch:
     """`graphs` repeated once per frame along the graph axis, with positions
     frames [C, G, N, 3] -> [C * G, N, 3]."""
     C = frames.shape[0]
-    fields = {
-        f.name: getattr(graphs, f.name).repeat((C,) + (1,) * (getattr(graphs, f.name).dim() - 1))
-        for f in dataclasses.fields(graphs) if f.name != "pos"
-    }
-    return GraphBatch(pos=frames.reshape((-1,) + tuple(frames.shape[2:])), **fields)
+    folded = graphs.map(lambda t: t.repeat((C,) + (1,) * (t.dim() - 1)))
+    return folded.replace_pos(frames.reshape((-1,) + tuple(frames.shape[2:])))
 
 
 class _HostFrames:

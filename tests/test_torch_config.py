@@ -12,14 +12,21 @@ where the port runs).
 
 import ast
 import dataclasses
+import importlib
 import inspect
 import os
 import re
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import yaml
 
 from jamun_tpu.config.compose import compose as j_compose
+from jamun_tpu.config.instantiate import instantiate as j_instantiate
+from jamun_tpu.data.batching import collate as j_collate
+from jamun_tpu.data.topology import Atom, Topology, preprocess_topology
 from jamun_tpu.models.denoiser import DenoiserConfig as JDenoiserConfig
 from jamun_tpu.models.e3conv import E3Conv as JE3Conv
 from jamun_tpu.train.loop import TrainerConfig as JTrainerConfig
@@ -27,7 +34,13 @@ from jamun_tpu_torch.cmdline.train import DEFAULT_CONFIG_DIR
 from jamun_tpu_torch.config.instantiate import _OTHER, _UNPORTED, instantiate, port_path
 from jamun_tpu_torch.config.compose import compose
 from jamun_tpu_torch.models.denoiser import DenoiserConfig
+from jamun_tpu_torch.models import (
+    CoarseGrainedBeadEmbedding,
+    Ophiuchus,
+    SimpleAtomEmbedding,
+)
 from jamun_tpu_torch.models.e3conv import E3Conv
+from jamun_tpu_torch.sampling import UnrolledBAOAB, VESDEReverseDiffusionSampler
 from jamun_tpu_torch.train.loop import TrainerConfig
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -119,13 +132,42 @@ def test_train_arch_builds_or_names_its_item(exp):
 
 def test_other_archs_build_or_name_their_item():
     """The separable flagship builds with bf16 and the kernels on; Ophiuchus
-    names its item."""
+    builds at the config's full width with as many parameters as JAX's
+    `init` gives it (on three alanines: the count does not depend on the
+    residues)."""
     port, _ = _compose_both("train_uncapped_4AA", ["model/arch=e3conv_separable"])
     arch = instantiate(port["model"]["arch"], device="cpu", seed=0)
     assert arch.kernels and arch.tensor_product == "uvu" and str(arch.dtype) == "torch.bfloat16"
-    port, _ = _compose_both("train_uncapped_4AA", ["model/arch=ophiuchus"])
-    with pytest.raises(NotImplementedError, match="queue A, 'Ophiuchus'"):
-        instantiate(port["model"]["arch"], device="cpu", seed=0)
+    port, jax_cfg = _compose_both("train_uncapped_4AA", ["model/arch=ophiuchus"])
+    arch = instantiate(port["model"]["arch"], device="cpu", seed=0)
+    assert isinstance(arch, Ophiuchus) and arch.tensor_product == "uvw"
+    jarch = j_instantiate(jax_cfg["model"]["arch"])
+    atoms = [Atom(index=i, name=n, element=n[0], residue_name="ALA", residue_index=i // 4,
+                  residue_seq=i // 4 + 1) for i, n in enumerate(["N", "CA", "C", "O"] * 3)]
+    pos = np.arange(36, dtype=np.float32).reshape(12, 3) * 0.05
+    batch = j_collate([(preprocess_topology(Topology(atoms=atoms, bonds=[]), pos)[0], pos)])
+    shapes = jax.eval_shape(jarch.init, jax.random.PRNGKey(0), batch, jnp.zeros((1,)), 1.0)
+    assert sum(p.numel() for p in arch.parameters()) == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+
+
+def test_former_unported_targets_build():
+    """The five targets the resolver's table named until the port had them
+    build through `instantiate` as the port's classes; the table names no
+    target whose module has it."""
+    for target, kw, cls in (
+        ("jamun_tpu.models.Ophiuchus", {"device": "cpu"}, Ophiuchus),
+        ("jamun_tpu.sampling.VESDEReverseDiffusionSampler", {}, VESDEReverseDiffusionSampler),
+        ("jamun_tpu.sampling.UnrolledBAOAB", {"config": {
+            "_target_": "jamun_tpu.sampling.MCMCConfig", "steps": 5}}, UnrolledBAOAB),
+        ("jamun_tpu.models.SimpleAtomEmbedding", {"embedding_dim": 4}, SimpleAtomEmbedding),
+        ("jamun_tpu.models.CoarseGrainedBeadEmbedding", {"bead_embedding_dim": 4},
+         CoarseGrainedBeadEmbedding),
+    ):
+        assert type(instantiate({"_target_": target, **kw})) is cls, target
+    for port in _UNPORTED:
+        module_path, _, attr = port.rpartition(".")
+        assert not hasattr(importlib.import_module(module_path), attr), port
 
 
 def test_defaults_equal_jax():

@@ -163,7 +163,8 @@ def test_to_device_pins_and_copies_without_blocking(monkeypatch):
         lambda self, *a, **k: calls.append(("to", str(a[0]), k.get("non_blocking"))) or self,
     )
     out = tb.to_device("cuda")
-    n = len(dataclasses.fields(GraphBatch))
+    # every field that holds a tensor (this batch has no residue layout)
+    n = sum(getattr(tb, f.name) is not None for f in dataclasses.fields(GraphBatch))
     assert calls == ["pin", ("to", "cuda", True)] * n
     assert isinstance(out, GraphBatch)
     calls.clear()
