@@ -192,7 +192,26 @@ Phases (any failure exits non-zero; nothing is caught):
      `UnrolledBAOAB` on the stack path (4AA, G = 256, 101 steps in chunks
      of 25: K3 once per update and once per chunk), its frames held against
      `BAOAB`'s on the same generator (the differing bits and the largest
-     difference printed).
+     difference printed);
+ 10. after phase 9, in phase 6's work directory, the rest of the
+     equivariant-ops library, none of which reaches a TPU kernel in JAX:
+     (a) `experiment=train_uncapped_4AA model.arch.tensor_product=
+     experimental` (120x0e + 32x1e, 5 layers, f32, batch 32) through the
+     train CLI, 20 steps validating once, then the sample CLI on it (4
+     chains per peptide, 2 x 100 steps); (b) `model/arch=e3conv_separable`
+     with SH `1x0e + 1x1e + 1x2e` and hidden `120x0e + 32x1e + 16x2e` (bf16),
+     20 steps, then a 50-step BAOAB walk of its EMA model at G = 8 through
+     the sample CLI; for each run finite, falling losses (the mean of steps
+     16-20 below that of 1-5), K1-K9 never (the structural gate), the
+     Kabsch kernel per training batch, ms/step, peak memory, its f32 score
+     on the card against the CPU's and its E(3) error on the card, of the
+     output and of the last hidden layer's features under the port's
+     Wigner D (1e-3 each), and a profiled 6-step walk of each sampling
+     model (device busy share); (c) `TransformerBlock` (120x0e + 32x1e, 4
+     heads), `Equiformer` and `Convnet` (32 channels) forward and backward
+     on the 4AA training batch (G = 32, N = 48): ms, peak memory, card
+     against CPU on 4 graphs (outputs and gradients, 1e-3), E(3) error on
+     the card (1e-3), K1-K9 never.
 `--out FILE` writes every number as JSON. An earlier line is a JSON object
 {"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
 last is a JSON object of per-kernel numbers; the last line is {"ok": true,
@@ -2946,6 +2965,347 @@ def unrolled_walk(den_stack, dev, card: str, counters: dict) -> dict:
     return out
 
 
+# phase 10: the rest of the equivariant-ops library on the card, in phase
+# 6's work directory: the experimental product at the flagship width
+# through the train and sample CLIs, the l = 2 separable model through the
+# train CLI and a BAOAB walk of its EMA model, and attention and EquiFold
+# forward and backward on the 4AA training batch. None of these reaches a
+# TPU kernel in JAX, and none launches K1-K9 here. Cut: 20 train steps,
+# validating once, instead of 10 epochs; sampling 4 chains per peptide,
+# 2 x 100 steps (experimental) and 1 x 50 (l = 2) instead of 5 x 20000
+P10_STEPS = 20
+L2_SH, L2_HIDDEN = "1x0e + 1x1e + 1x2e", "120x0e + 32x1e + 16x2e"
+P10_TRAIN_RUNS = {
+    # label: (run key, overrides, (tensor_product, irreps_hidden, irreps_sh, dtype))
+    "experimental": ("train_uncapped_4AA_experimental", ["model.arch.tensor_product=experimental"],
+                     ("experimental", "120x0e + 32x1e", "1x0e + 1x1e", None)),
+    "l2": ("train_uncapped_4AA_separable_l2",
+           ["model/arch=e3conv_separable", f"model.arch.irreps_sh={L2_SH}",
+            f"model.arch.irreps_hidden={L2_HIDDEN}"],
+           ("uvu", L2_HIDDEN, L2_SH, torch.bfloat16)),
+}
+# label: (train run label, repeat_init_samples, num_batches, steps per batch)
+P10_SAMPLE_RUNS = {"experimental": ("experimental", 4, 2, 100), "l2_walk": ("l2", 4, 1, 50)}
+P10_HEADS, P10_NC = 4, 32  # attention heads; EquiFold's channels (nc_s = nc_v)
+P10_COMPARE_GRAPHS = 4  # graphs of the training batch held against the CPU in 10c
+
+
+def p10_card_checks(run_dir: str, batch, dev) -> dict:
+    """A phase 10 run's trained weights (last.ckpt) in f32: the score on the
+    card against the CPU's (`cli_score_check`), and on the card the E(3)
+    error of the output (`1x1e`) and of the last hidden layer's features
+    (the hidden irreps, rotated by the port's Wigner D, `ops/wigner.py`),
+    each relative to its max."""
+    import pickle
+
+    from jamun_tpu_torch.cmdline.common import build_denoiser
+    from jamun_tpu_torch.utils.equivariance import equivariance_error
+
+    score_err = cli_score_check(run_dir, batch, dev)
+    with open(os.path.join(run_dir, "config.pkl"), "rb") as f:
+        cfg = pickle.load(f)  # written by this run's CLI
+    model_cfg = dict(cfg["model"], arch=dict(cfg["model"]["arch"], dtype=None))
+    den = build_denoiser(model_cfg, device=dev, seed=0)
+    arch = den.arch
+    arch.load_state_dict(
+        torch.load(os.path.join(run_dir, "checkpoints", "last.ckpt"), weights_only=True)["params"])
+    arch.requires_grad_(False)
+    assert not arch.kernels, "phase 10's archs take no kernel"
+    c_noise = torch.tensor([math.log(SIGMA) / 4.0], device=dev)
+    cutoff = den.effective_radial_cutoff(SIGMA)
+    b = batch.to_device(dev)
+    last = getattr(arch, f"_HiddenLayer_{arch.n_layers - 1}")
+    seen = {}
+    hook = last.register_forward_hook(lambda m, args, out: seen.__setitem__("h", out))
+
+    def hidden(x):
+        arch(x, c_noise, cutoff)
+        return seen["h"] * x.node_mask[..., None]
+
+    try:
+        with torch.no_grad():
+            out_scale = float(arch(b, c_noise, cutoff).abs().max())
+            hid_scale = float(hidden(b).abs().max())
+        out_err = equivariance_error(lambda x: arch(x, c_noise, cutoff), b) / out_scale
+        hid_err = equivariance_error(hidden, b, irreps_out=arch.irreps_hidden) / hid_scale
+    finally:
+        hook.remove()
+    return dict(score_rel_err=score_err, equivariance_rel_err=out_err,
+                hidden_equivariance_rel_err=hid_err, hidden_irreps=str(arch.irreps_hidden))
+
+
+def p10_train_runs(dev, card: str, counters: dict, kabsch_kernel, work: str) -> dict:
+    """Phases 10a and 10b, training: `P10_TRAIN_RUNS` through the train CLI
+    at the config's full width, `P10_STEPS` steps validating once; finite,
+    falling losses, K1-K9 never, the Kabsch kernel on every batch; ms/step,
+    peak memory; the card checks of `p10_card_checks` (1e-3)."""
+    import statistics
+
+    from jamun_tpu_torch.cmdline import train as train_cli
+
+    out = {}
+    for label, (run_key, extra, (tp, hidden, sh, dtype)) in P10_TRAIN_RUNS.items():
+        args = ["--experiment-dir", EXP_DIR, "experiment=train_uncapped_4AA", f"run_key={run_key}",
+                *extra, f"trainer.max_steps={P10_STEPS}", f"trainer.val_every_n_steps={P10_STEPS}",
+                "trainer.log_every_n_steps=1"]
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with count_forwards() as calls:
+            state = train_cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        kabsch = kabsch_kernel.launches
+        check_no_launches(f"phase 10 train {label}", launches, kabsch, want_kabsch=True)
+        arch = state.module
+        assert (arch.tensor_product, str(arch.irreps_hidden), str(arch.irreps_sh), arch.dtype) == (
+            tp, hidden, sh, dtype), (arch.tensor_product, arch.irreps_hidden, arch.irreps_sh, arch.dtype)
+        assert not arch.kernels and arch.n_layers == 5 and arch.edge_attr_dim == 64
+        run_dir = os.path.join("runs", run_key)
+        train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+        losses = [r["train/loss"] for r in train]
+        assert state.step == P10_STEPS and [r["step"] for r in train] == list(range(1, P10_STEPS + 1))
+        assert [r["step"] for r in val] == [P10_STEPS], val
+        assert all(math.isfinite(v) for v in losses + [r["val/loss"] for r in val])
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        assert last < first, (label, first, last)
+        assert calls["grad"] == P10_STEPS, calls
+        ms_step = statistics.median((b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:]))
+        checks = p10_card_checks(run_dir, cli_score_batch(work), dev)
+        for key in ("score_rel_err", "equivariance_rel_err", "hidden_equivariance_rel_err"):
+            assert checks[key] < 1e-3, (label, key, checks[key])
+        out[label] = dict(run_key=run_key, steps=P10_STEPS, seconds=seconds, ms_per_step=ms_step,
+                          peak_bytes=peak, losses=losses, val_loss=[r["val/loss"] for r in val],
+                          batch=32, launches=launches, kabsch_launches=kabsch, forwards=dict(calls),
+                          parameters=sum(p.numel() for p in arch.parameters()), **checks)
+        log(f"phase 10{'a' if label == 'experimental' else 'b'}: train {label} ({run_key}: {tp}, "
+            f"hidden {hidden}, SH {sh}, {'bf16' if dtype else 'f32'}, batch 32): {ms_step:.3f} ms/step "
+            f"(median gap of metrics.csv's rows), peak device memory {peak / 2**30:.3f} GiB, "
+            f"{out[label]['parameters']} parameters; losses " + " ".join(f"{v:.5f}" for v in losses)
+            + f" (mean of steps 1-5 {first:.5f}, 16-20 {last:.5f}); val loss {val[0]['val/loss']:.5f}; "
+            f"forwards {dict(calls)}; K1-K9 launches 0, Kabsch {kabsch}; f32 score card vs CPU rel "
+            f"err {checks['score_rel_err']:.3g} (tol 1e-3); E(3) error on the card, output "
+            f"{checks['equivariance_rel_err']:.3g}, hidden features ({checks['hidden_irreps']}) "
+            f"{checks['hidden_equivariance_rel_err']:.3g} of their max (tol 1e-3); {seconds:.1f} s in "
+            f"main on {card}")
+    return out
+
+
+def p10_sample_runs(dev, card: str, counters: dict, kabsch_kernel, work: str, atoms: dict) -> dict:
+    """Phase 10a's sampling and 10b's walk: `experiment=sample_uncapped_4AA`
+    through the sample CLI on the phase 10 runs (`P10_SAMPLE_RUNS`), BAOAB
+    with the EMA weights: no kernel at all, JAX's sampler layout on disk,
+    finite samples and metrics; warm ms/step and peak memory; then a
+    profiled 6-step walk of the sampling model (device busy share, device
+    ops per forward)."""
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+
+    out = {}
+    labels = sorted(CLI_VAL_SEQS)
+    for label, (train_label, repeat, batches, steps) in P10_SAMPLE_RUNS.items():
+        run_key = P10_TRAIN_RUNS[train_label][0]
+        args = ["--experiment-dir", EXP_DIR, "experiment=sample_uncapped_4AA",
+                f"checkpoint_dir=runs/{run_key}/checkpoints", f"init_datasets.root={cli_val_dir(work)}",
+                f"output_dir=runs/sample_{label}/sampler", f"repeat_init_samples={repeat}",
+                f"num_batches={batches}", f"num_sampling_steps_per_batch={steps}",
+                f"save_every_n_steps={SAMPLE_SAVE_EVERY}"]
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with count_forwards() as calls, time_metrics() as metric_time:
+            res = sample_cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: k.launches for name, k in counters.items()}
+        check_no_launches(f"phase 10 sample {label}", launches, kabsch_kernel.launches, want_kabsch=False)
+        assert not res["denoiser"].arch.kernels
+        assert calls == {"grad": 0, "no_grad": batches * (steps + 1)}, (label, calls)
+        frames = 1 + (steps - 1) // SAMPLE_SAVE_EVERY
+        on_disk = check_sampler_files(f"runs/sample_{label}/sampler", labels, repeat, batches, frames,
+                                      atoms, far=True)
+        chains = repeat * len(labels)
+        assert on_disk == chains * batches * frames, on_disk
+        for lbl in labels:
+            assert res["results"][lbl]["num_frames"] == repeat * batches * frames
+            assert math.isfinite(res["results"][lbl]["ramachandran_jsd"])
+        walk_s = [b["batch_seconds"] for b in res["per_batch"]]
+        warm = walk_s[1:] if batches > 1 else walk_s
+        out[label] = dict(run_key=run_key, chains=chains, batches=batches, steps=steps,
+                          frames_on_disk=on_disk, warm_ms_per_step=sum(warm) * 1e3 / (len(warm) * steps),
+                          batch_seconds=walk_s, metric_seconds=metric_time["seconds"], seconds=seconds,
+                          peak_bytes=peak, launches=launches, forwards=dict(calls))
+        # the device's share of a short walk of the sampling model
+        out[label]["profile"] = profile_walk(res["denoiser"], cli_score_batch(work).to_device(dev), dev, 6,
+                                             f"phase 10 {label} 4AA G=3")
+        log(f"phase 10{'a' if label == 'experimental' else 'b'}: sample CLI {label} ({run_key}, BAOAB, "
+            f"EMA weights): {chains} chains x {batches} batches x {steps} steps, {on_disk} frames on "
+            f"disk; {'warm ' if batches > 1 else ''}{out[label]['warm_ms_per_step']:.3f} ms/step "
+            "(batches " + " ".join(f"{t:.3f}" for t in walk_s) + " s); metrics on the host "
+            f"{metric_time['seconds']:.3f} s; forwards {dict(calls)}; no kernel launched; peak device "
+            f"memory {peak / 2**30:.3f} GiB; {seconds:.1f} s in main on {card}")
+    return out
+
+
+def p10_training_batch(work: str, dev):
+    """Phase 6's 4AA training batch: 32 frames (8 of each training
+    peptide), the 48-atom bucket, on the card."""
+    from jamun_tpu_torch.data.batching import collate
+    from jamun_tpu_torch.data.discovery import parse_datasets_from_directory
+
+    train_sets = parse_datasets_from_directory(
+        os.path.join(work, "data", "timewarp", "4AA-large", "train"), "^(.*)-traj-arrays.npz",
+        "^(.*)-traj-state0.pdb")
+    batch = collate([ds[25 * k] for ds in train_sets for k in range(8)])
+    assert tuple(batch.pos.shape) == (32, 48, 3), tuple(batch.pos.shape)
+    return batch.to_device(dev)
+
+
+def p10_modules(dev, batch, cutoff: float):
+    """Phase 10c's three modules at their phase widths, parameters drawn
+    from seed 0 (`params.init_parameters`), and for each a function of (the
+    module, a batch, its features) that builds the module's inputs from the
+    batch's positions and returns its outputs, the random inputs (seeded),
+    and how they rotate: ("name", module, fn, inputs, rotate(inputs, R, D))."""
+    import functools
+
+    from jamun_tpu_torch.ops.attention import TransformerBlock
+    from jamun_tpu_torch.ops.contrib.equifold import Convnet, Equiformer, RadialNN
+    from jamun_tpu_torch.ops.graph import dense_edge_data
+    from jamun_tpu_torch.ops.irreps import Irreps
+    from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
+    from jamun_tpu_torch.ops.sh import SH_IRREPS, spherical_harmonics
+    from jamun_tpu_torch.params import init_parameters
+
+    irreps = Irreps("120x0e + 32x1e")
+    G, N = batch.pos.shape[:2]
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((G, N, irreps.dim), generator=gen).to(dev) * batch.node_mask[..., None]
+    s = torch.randn((G, N, P10_NC), generator=gen).to(dev)
+    v = torch.randn((G, N, P10_NC, 3), generator=gen).to(dev)
+
+    def attr(d, bonded):  # 64 edge attributes: the radial basis, bonds shifted by one
+        return soft_one_hot_linspace(d, 0.0, cutoff, 64) + (1.0 if bonded else 0.0)
+
+    def attention(m, b, feats):
+        edges = dense_edge_data(b.pos, b.node_mask, b.bond_src, b.bond_dst, b.bond_mask, cutoff,
+                                functools.partial(spherical_harmonics, SH_IRREPS), attr)
+        return (m(feats[0], edges),)
+
+    def pairs(m, b, feats):
+        d = b.pos[:, :, None, :] - b.pos[:, None, :, :]  # i (dst) - j (src)
+        r = torch.sqrt((d * d).sum(-1) + 1e-12)
+        eye = torch.eye(N, dtype=torch.bool, device=b.pos.device)
+        mask = b.node_mask[:, :, None] & b.node_mask[:, None, :] & ~eye & (r < cutoff)
+        envelope = 0.5 * (torch.cos(math.pi * r / cutoff) + 1.0) * (r < cutoff)
+        return m(feats[0], feats[1], mask, r, d / r[..., None], envelope)
+
+    radial = functools.partial(RadialNN, rc=cutoff)
+    out = [
+        ("TransformerBlock", TransformerBlock(irreps, irreps, SH_IRREPS, 64, n_head=P10_HEADS), attention,
+         (x,), lambda f, R, D: (f[0] @ D.T,)),
+        ("Equiformer", Equiformer(P10_NC, P10_NC, radial, num_heads=P10_HEADS), pairs, (s, v),
+         lambda f, R, D: (f[0], f[1] @ R.T)),
+        ("Convnet", Convnet(P10_NC, P10_NC, radial), pairs, (s, v),
+         lambda f, R, D: (f[0], f[1] @ R.T)),
+    ]
+    return [(name, init_parameters(m, 0).to(dev), fn, feats, rot) for name, m, fn, feats, rot in out]
+
+
+def p10_attention_equifold(dev, card: str, counters: dict, work: str) -> dict:
+    """Phase 10c: `TransformerBlock` (120x0e + 32x1e, SH 1x0e + 1x1e, 64
+    edge attributes, 4 heads), `Equiformer` (32 channels, 4 heads) and
+    `Convnet` (32 channels) on phase 6's 4AA training batch (G = 32, N = 48,
+    its dense pairs within 1 nm), f32, forward and backward (a projection's
+    gradient in every parameter and input feature): ms per forward +
+    backward (CUDA events over 3 after one warm-up) and peak memory; the
+    card against the CPU on the batch's first `P10_COMPARE_GRAPHS` graphs
+    (outputs and gradients, 1e-3 of each one's max); the E(3) error on the
+    card at G = 32 (1e-3 of the output's max); K1-K9 never."""
+    import copy
+
+    from jamun_tpu_torch.ops.irreps import Irreps
+    from jamun_tpu_torch.ops.wigner import random_rotation
+
+    cutoff = 1.0
+    batch = p10_training_batch(work, dev)
+    for k in counters.values():
+        k.launches = 0
+    out = {}
+    for name, module, fn, feats, rotate in p10_modules(dev, batch, cutoff):
+        proj = [torch.randn(o.shape, generator=torch.Generator().manual_seed(6)).to(dev)
+                for o in fn(module, batch, feats)]
+
+        def fwd_bwd(m, b, inputs, p):
+            m.zero_grad()
+            inputs = [t.detach().clone().requires_grad_() for t in inputs]
+            outs = fn(m, b, inputs)
+            sum((o * q).sum() for o, q in zip(outs, p)).backward()
+            return [o.detach() for o in outs], {n: w.grad for n, w in m.named_parameters()}, [
+                t.grad for t in inputs]
+
+        fwd_bwd(module, batch, feats, proj)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fwd_bwd(module, batch, feats, proj)
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / 3
+        peak = torch.cuda.max_memory_allocated()
+
+        # the card against the CPU on the first graphs
+        sub = batch.map(lambda t: t[:P10_COMPARE_GRAPHS])
+        sub_feats = [t[:P10_COMPARE_GRAPHS] for t in feats]
+        sub_proj = [q[:P10_COMPARE_GRAPHS] for q in proj]
+        got = fwd_bwd(module, sub, sub_feats, sub_proj)
+        cpu = copy.deepcopy(module).to("cpu")
+        want = fwd_bwd(cpu, sub.to("cpu"), [t.cpu() for t in sub_feats], [q.cpu() for q in sub_proj])
+        errs = {}
+        for key, g, w in (("output", got[0], want[0]), ("input grad", got[2], want[2])):
+            errs[key] = max(rel_err(a.cpu(), b)[1] for a, b in zip(g, w))
+        errs["parameter grad"] = max(rel_err(got[1][n].cpu(), want[1][n])[1] for n in want[1])
+        for key, e in errs.items():
+            assert e < 1e-3, (name, key, e)
+
+        # E(3) on the card at the full batch
+        R = random_rotation(np.random.default_rng(7)).astype(np.float32)
+        D = torch.from_numpy(Irreps("120x0e + 32x1e").rotation_matrix(R).astype(np.float32)).to(dev)
+        Rt = torch.from_numpy(R).to(dev)
+        with torch.no_grad():
+            outs = fn(module, batch, feats)
+            rot_batch = batch.replace_pos(batch.pos @ Rt.T + 0.3)
+            outs_rot = fn(module, rot_batch, rotate(feats, Rt, D))
+            want_rot = rotate(outs, Rt, D)
+        mask = batch.node_mask[..., None]
+        equi = max(float(((a - b).flatten(2) * mask).abs().max()) / float(b.abs().max())
+                   for a, b in zip(outs_rot, want_rot))
+        assert equi < 1e-3, (name, equi)
+        assert all(torch.isfinite(o).all() for o in outs)
+        out[name] = dict(ms_fwd_bwd=ms, peak_bytes=peak, card_vs_cpu=errs, equivariance_rel_err=equi,
+                         parameters=sum(p.numel() for p in module.parameters()))
+        log(f"phase 10c: {name} on the 4AA training batch (G = 32, N = 48, f32): {ms:.3f} ms per "
+            f"forward + backward (CUDA events, 3 after a warm-up), peak device memory "
+            f"{peak / 2**30:.3f} GiB, {out[name]['parameters']} parameters; card vs CPU on "
+            f"{P10_COMPARE_GRAPHS} graphs: output {errs['output']:.3g}, parameter gradients "
+            f"{errs['parameter grad']:.3g}, input gradients {errs['input grad']:.3g} (tol 1e-3); E(3) "
+            f"error on the card {equi:.3g} of the output's max (tol 1e-3); on {card}")
+        del module
+        torch.cuda.empty_cache()
+    launches = {n: k.launches for n, k in counters.items()}
+    assert not any(launches.values()), launches
+    out["launches"] = launches
+    return out
+
+
 # phase 8: the IDRome regime through the CLIs: an IDRome-layout tree of two
 # disordered-region chains (`build_peptide`, hydrogens in `top.pdb`, every
 # atom in `traj.xtc`) of about 600 and 1100 heavy atoms (buckets 1024 and
@@ -3646,8 +4006,14 @@ def main() -> int:
         # ---- phase 9: Ophiuchus trained and sampled, VESDE on both runs ----
         oph_train = ophiuchus_train_run(dev, card, counters, kb.KERNEL, work, atoms)
         oph_sample = ophiuchus_vesde_sample_runs(dev, card, counters, kb.KERNEL, work, atoms)
-    # (d) UnrolledBAOAB on the stack path
-    unrolled = unrolled_walk(Denoiser(stack_models[torch.bfloat16], config), dev, card, counters)
+        # (d) UnrolledBAOAB on the stack path
+        unrolled = unrolled_walk(Denoiser(stack_models[torch.bfloat16], config), dev, card, counters)
+        torch.cuda.empty_cache()
+        # ---- phase 10: the experimental product, general l, attention and EquiFold ----
+        phase10 = dict(train=p10_train_runs(dev, card, counters, kb.KERNEL, work))
+        phase10["sample"] = p10_sample_runs(dev, card, counters, kb.KERNEL, work, atoms)
+        phase10["modules"] = p10_attention_equifold(dev, card, counters, work)
+    torch.cuda.empty_cache()
 
     # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
     idrome, cg_batch, walk_end = idrome_runs(dev, card, counters, kb.KERNEL)
@@ -3715,7 +4081,7 @@ def main() -> int:
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
                   k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
                   idrome=idrome, ophiuchus_train=oph_train, ophiuchus_vesde_sample=oph_sample,
-                  unrolled=unrolled)
+                  unrolled=unrolled, phase10=phase10)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,18 +1,26 @@
 """E3Conv: the E(3)-equivariant message-passing denoiser network.
 
-Counterpart of `jamun_tpu/models/e3conv.py` for l <= 1 hidden irreps
-(`Sx0e + Vx1e`). Parameters carry the flax names (`ConvBlock_0`,
-`_HiddenLayer_k`, `EquivariantMLP_0`, ...), so `params.from_jax_params`
-maps a JAX param tree onto this module one to one.
+Counterpart of `jamun_tpu/models/e3conv.py` for any `irreps_hidden`,
+`irreps_sh` and `tensor_product` JAX's takes. Parameters carry the flax
+names (`ConvBlock_0`, `_HiddenLayer_k`, `EquivariantMLP_0`, ...), so
+`params.from_jax_params` maps a JAX param tree onto this module one to one.
 
 `tensor_product` is JAX's, "uvw" by default: e3nn's fully connected product
-(`ops/tensor_product.py`) runs JAX's generic dense or sparse path on either
-device, as every kernel route in JAX is gated on "uvu". The separable "uvu"
-product takes the kernels below. `plain=True`, or `use_pallas=False` as the
-arch files spell it, is the CPU reference path: a call on the card raises.
+(`ops/tensor_product.py`) and the experimental product
+(`ops/experimental_tp.py`) run JAX's generic dense or sparse path on either
+device, as every kernel route in JAX is gated on "uvu". Whether a model may
+take the kernels is decided once, at construction, from its structure, by
+JAX's gates (`jamun_tpu/models/e3conv.py:501-575`, `jamun_tpu/ops/conv.py:
+77-92, 175-183`): the uvu product, hidden irreps `Sx0e + Vx1e` (V > 0), SH
+`1x0e + 1x1e` and outputs of l <= 1 and even parity (`kernels`). A model
+outside those (SH or hidden irreps with l = 2, say) runs the plain path on
+either device, as JAX's runs XLA. `plain=True`, or `use_pallas=False` as
+the arch files spell it, is the CPU reference path: a call on the card
+raises.
 
-The ways through the forward of the uvu product, picked once per call as
-JAX's `E3Conv` picks them (`jamun_tpu/models/e3conv.py:332-404`):
+The ways through the forward of a model whose structure takes the kernels,
+picked once per call as JAX's `E3Conv` picks them
+(`jamun_tpu/models/e3conv.py:332-404`):
   - `fused_stack=True`, for calls that nothing differentiates (the walk):
     the whole forward after the atom embedding in one launch
     (`ops/cuda/e3_stack`, K3) at N <= 64 and one noise level. Under
@@ -54,8 +62,9 @@ JAX's `E3Conv` picks them (`jamun_tpu/models/e3conv.py:332-404`):
     as JAX sends `training=True` to XLA. `with_telemetry=True` also returns
     {"neighbor_overflow": [G]}, the in-cutoff edges the cap dropped (not
     counted on a cached list), in place of flax's `sow`.
-`"dense"` runs the dense paths at any size. Widths outside the kernels
-raise NotImplementedError on the card.
+`"dense"` runs the dense paths at any size. A model whose structure takes
+the kernels but whose sizes (edge_attr_dim, radial width, N) are outside
+them raises NotImplementedError on the card.
 
 `pallas_variant` is JAX's (`jamun_tpu/models/e3conv.py:120`). `"packed"`, the
 default, is every path above. `"plane"` takes the dense calls (any N the
@@ -98,12 +107,12 @@ from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.mlp import EquivariantMLP
 from jamun_tpu_torch.ops.neighbors import neighbor_edge_data
 from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
-from jamun_tpu_torch.ops.sh import spherical_harmonics
+from jamun_tpu_torch.ops.sh import SH_IRREPS, spherical_harmonics
 from jamun_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "E3Conv", "irreps_to_vector", "vector_to_irreps", "neighbor_mode_auto", "compute_dtype",
-    "EDGE_FEATURE_ATOMS",
+    "kernel_structure", "EDGE_FEATURE_ATOMS",
 ]
 
 EDGE_FEATURE_ATOMS = 128  # up to here K1's edge features and K2 (K4); above, K5
@@ -129,6 +138,18 @@ def compute_dtype(dtype: Union[torch.dtype, str, None]) -> Optional[torch.dtype]
     return dtype
 
 
+def kernel_structure(tensor_product: str, irreps_hidden, irreps_sh, irreps_out) -> bool:
+    """JAX's structural gates of the kernel paths (`_chained_ok`,
+    `_stack_ok`, `Conv._fast_uvu_supported`): the uvu product, hidden
+    irreps `Sx0e + Vx1e` with V > 0, SH `1x0e + 1x1e`, and outputs of l <= 1
+    and even parity. Sizes (N, widths) are checked per call."""
+    sv = Irreps(irreps_hidden).sv_shape()
+    return (
+        tensor_product == "uvu" and sv is not None and sv[1] > 0 and Irreps(irreps_sh) == SH_IRREPS
+        and all(mi.ir.l <= 1 and mi.ir.p == 1 for mi in Irreps(irreps_out))
+    )
+
+
 def vector_to_irreps(v: torch.Tensor) -> torch.Tensor:
     """(x, y, z) -> the l=1 component order (y, z, x), from slices."""
     return torch.cat([v[..., 1:3], v[..., 0:1]], dim=-1)
@@ -140,6 +161,24 @@ def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
     call, and on the card that copy waits for the whole forward queued
     before it, so the host could never run ahead of the device."""
     return torch.cat([f[..., 2:3], f[..., 0:2]], dim=-1)
+
+
+class _XlaSigmoid(torch.autograd.Function):
+    """The sigmoid as XLA evaluates JAX's `logistic` op by op, 1 / (1 +
+    exp(-t)) in t's dtype, with the derivative JAX takes, s (1 - s). The
+    quotient's own derivative is NaN where exp(-t) overflows (t below about
+    -88): 0 * inf in the exponential's backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        s = 1 / (1 + torch.exp(-t))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, grad):
+        (s,) = ctx.saved_tensors
+        return grad * (s * (1 - s))
 
 
 class _HiddenLayer(nn.Module):
@@ -210,11 +249,6 @@ class E3Conv(nn.Module):
         self.pallas_variant = pallas_variant
         self.irreps_hidden, self.irreps_out = Irreps(irreps_hidden), Irreps(irreps_out)
         self.irreps_sh = Irreps(irreps_sh)
-        if self.irreps_hidden.sv_shape() is None or self.irreps_hidden.sv_shape()[1] == 0:
-            raise NotImplementedError(
-                f"hidden irreps {irreps_hidden}: want Sx0e + Vx1e "
-                "(ROADMAP.md queue A, 'General-l irreps')"
-            )
         self.n_layers = n_layers
         self.edge_attr_dim = edge_attr_dim
         self.dtype = dtype
@@ -223,7 +257,10 @@ class E3Conv(nn.Module):
         self.nbr_geom_kernel = nbr_geom_kernel
         self.plain = plain or not use_pallas
         self.tensor_product = tensor_product
-        self.kernels = tensor_product == "uvu" and not self.plain  # calls may take the kernels
+        # calls may take the kernels: JAX's structural gates, once
+        self.kernels = not self.plain and kernel_structure(
+            tensor_product, self.irreps_hidden, self.irreps_sh, self.irreps_out
+        )
         self.fused_stack = fused_stack
         self.bonded_dim = edge_attr_dim // 2
         self.radial_dim = (edge_attr_dim + 1) // 2
@@ -285,15 +322,15 @@ class E3Conv(nn.Module):
         return [getattr(self, f"_HiddenLayer_{k}") for k in range(self.n_layers)]
 
     def kernel_path_supported(self, n_atoms: int) -> bool:
-        """The shapes the layerwise kernels cover (K1 and K2 up to 128 atoms,
-        K5 above): the widths; the atom count only through K5's pair index."""
+        """The sizes the layerwise kernels cover (K1 and K2 up to 128 atoms,
+        K5 above) for a model whose structure takes them (`kernels`): the
+        widths; the atom count only through K5's pair index."""
         S, V = self.irreps_hidden.sv_shape()
         S_emb = self.embedder.irreps_out.sv_shape()[0]
         return (
             n_atoms <= k5.MAX_ATOMS
             and self.edge_attr_dim == 2 * k2.N_RADIAL
             and max(2 * S + 3 * V, 2 * S_emb) <= k2.MAX_WIDTH
-            and all(mi.ir.l <= 1 and mi.ir.p == 1 for mi in self.irreps_out)
         )
 
     def _wants_grad(self, batch: GraphBatch) -> bool:
@@ -445,7 +482,7 @@ class E3Conv(nn.Module):
         N = batch.pos.shape[1]
         on_card = batch.pos.device.type == "cuda"
         stack = self._stack_ok(batch, c_noise)
-        supported = self.kernel_path_supported(N)
+        supported = self.kernels and self.kernel_path_supported(N)
         # the training dispatch: the tiled kernel is forward only, so a call
         # that wants a gradient above 128 atoms takes the plain path wholesale
         kernels = self.kernels and supported and not (wants_grad and N > EDGE_FEATURE_ATOMS)
@@ -453,7 +490,7 @@ class E3Conv(nn.Module):
             raise NotImplementedError(
                 f"N={N}, edge_attr_dim={self.edge_attr_dim}, hidden {self.irreps_hidden}, "
                 f"output {self.irreps_out}: outside the layerwise kernels (edge_attr_dim 64, "
-                f"radial width <= {k2.MAX_WIDTH}, outputs l <= 1 of even parity); see "
+                f"radial width <= {k2.MAX_WIDTH}); see "
                 "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
             )
         x = self._embed(batch, c_noise)
@@ -493,7 +530,7 @@ class E3Conv(nn.Module):
         xv = x[..., S:].reshape(G, N, V, 3).transpose(-1, -2).to(cdt)  # [G, N, 3, V]
         s_pre = lin(blk.weight(0, 0), S, xs)
         s_act = torch.where(s_pre >= 0, s_pre, s_pre * torch.tensor(0.01, dtype=cdt))
-        gates = 1 / (1 + torch.exp(-lin(blk.weight(0, 1), S, xs)))
+        gates = _XlaSigmoid.apply(lin(blk.weight(0, 1), S, xs))
         gated = lin(blk.weight(1, 2), V, xv) * gates[:, :, None]
         parts = []
         for j, mi in enumerate(self.irreps_out):

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from jamun_tpu_torch.ops.gate import scale_irreps
+from jamun_tpu_torch.ops.tensor_product import scale_irreps
 from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.mlp import Dense
 

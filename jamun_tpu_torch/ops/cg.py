@@ -13,7 +13,12 @@ import math
 
 import numpy as np
 
-__all__ = ["su2_clebsch_gordan", "real_wigner_3j", "change_basis_real_from_complex"]
+__all__ = [
+    "su2_clebsch_gordan",
+    "real_wigner_3j",
+    "change_basis_real_from_complex",
+    "sh_normalization_constant",
+]
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,3 +120,26 @@ def real_wigner_3j(l1: int, l2: int, l3: int) -> np.ndarray:
         f"real_wigner_3j({l1},{l2},{l3}) failed orthogonality"
     )
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def sh_normalization_constant(l: int) -> float:
+    """Constant c_l such that the recursively built spherical harmonic
+    Y_l = c_l * einsum(w3j(1, l-1, l), Y_1, Y_{l-1}) has the "component"
+    normalization |Y_l(n)|^2 = 2l+1 on unit vectors n, with the sign pinned
+    so that the m=0 component at the +z pole is +sqrt(2l+1)."""
+    if l <= 1:
+        return 1.0
+    # the unnormalized recursion at the north pole n = +z
+    y1 = np.array([0.0, math.sqrt(3.0), 0.0])  # (y, z, x) order, z = 1
+    y = y1.copy()
+    for ll in range(2, l + 1):
+        w = real_wigner_3j(1, ll - 1, ll)
+        y = np.einsum("ijk,i,j->k", w, y1, y)
+        c = math.sqrt(2 * ll + 1) / np.linalg.norm(y)
+        if y[ll] < 0:
+            c = -c
+        y = c * y
+        if ll == l:
+            return float(c)
+    raise AssertionError

@@ -1,16 +1,23 @@
 """Equivariant graph convolution on dense padded batches.
 
-Counterpart of `jamun_tpu/ops/conv.py` (`Conv` and `ConvBlock`). Per edge:
-the tensor product of the source features, the edge SH and the radial-MLP
-weights; mean over the combined degree of dense pairs and bonds. `ConvBlock`
-wraps it as IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
+Counterpart of `jamun_tpu/ops/conv.py` (`Conv`, `SeparableConv`,
+`ExperimentalConv` and `ConvBlock`). Per edge: the tensor product of the
+source features, the edge SH and the radial-MLP weights; mean over the
+combined degree of dense pairs and bonds. `ConvBlock` wraps it as
+IrrepsLinear_1(Gate(Conv_0(x))) + IrrepsLinear_0(x).
 
-`tensor_product` is JAX's: "uvu", the separable product (l <= 1): uvu
-messages, then the post-linear, on the kernels below where the caller allows
-them; or "uvw", e3nn's fully connected product (`ops/tensor_product.py`,
-radial MLP of `tp.weight_numel` outputs, no post-linear), which takes JAX's
-generic path on either device, as every kernel route of JAX's `Conv` is
-gated on "uvu" (`jamun_tpu/ops/conv.py:55-71, 253-262, 353-377`).
+`tensor_product` is JAX's: "uvu", the separable product (`depthwise_tp`,
+then the post-linear), "uvw", e3nn's fully connected product, or
+"experimental", the full product and an externally weighted linear
+(`ops/experimental_tp.py`); the last two have no post-linear. The uvu
+product of `Sx0e (+ Vx1e)` with `1x0e + 1x1e` is JAX's fast shape
+(`_fast_uvu_supported`, `jamun_tpu/ops/conv.py:175-183`): its messages come
+from the closed form of `ops/fast_uvu.py`, on the kernels below where the
+caller allows them. Every other product, uvu of any l included, runs
+JAX's generic path on either device (`jamun_tpu/ops/conv.py:253-262,
+353-364`): the radial MLP's weights per path (`_path_weights`) and the
+product's einsums, as every kernel route of JAX's `Conv` is gated on the
+fast uvu shape.
 
 `Conv.forward(x, edges, kernel)`: the caller sets `kernel` for a call that
 may take the hand-written kernels (on the card; their plain twins on the
@@ -56,6 +63,7 @@ from jamun_tpu_torch.ops.cuda.dense_conv import fused_uvu_conv_dense, packed_uvu
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
 from jamun_tpu_torch.ops.cuda.fused_block_tiled import TiledGeometry, fused_block_tiled
 from jamun_tpu_torch.ops.cuda.nbr_conv import nbr_uvu_conv
+from jamun_tpu_torch.ops.experimental_tp import ExperimentalTensorProduct
 from jamun_tpu_torch.ops.fast_uvu import (
     fast_uvu_messages_dense,
     fast_uvu_messages_nbr,
@@ -67,33 +75,32 @@ from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 from jamun_tpu_torch.ops.mlp import ScalarMLP
 from jamun_tpu_torch.ops.neighbors import gather_neighbors
-from jamun_tpu_torch.ops.tensor_product import fully_connected_tp
+from jamun_tpu_torch.ops.sh import SH_IRREPS
+from jamun_tpu_torch.ops.tensor_product import depthwise_tp, fully_connected_tp
 
-__all__ = ["Conv", "ConvBlock", "depthwise_irreps", "PALLAS_VARIANTS", "TENSOR_PRODUCTS"]
+__all__ = [
+    "Conv", "SeparableConv", "ExperimentalConv", "ConvBlock", "depthwise_irreps",
+    "PALLAS_VARIANTS", "TENSOR_PRODUCTS",
+]
 
 PALLAS_VARIANTS = ("packed", "plane")  # JAX's `pallas_variant`
-TENSOR_PRODUCTS = ("uvu", "uvw")  # JAX's `tensor_product`, less "experimental"
+TENSOR_PRODUCTS = ("uvu", "uvw", "experimental")  # JAX's `tensor_product`
 
 
 def check_tensor_product(tensor_product: str) -> None:
-    if tensor_product == "experimental":
-        raise NotImplementedError(
-            "tensor_product='experimental' is not ported "
-            "(ROADMAP.md queue A, 'The experimental product')"
-        )
     if tensor_product not in TENSOR_PRODUCTS:
         raise ValueError(f"tensor_product={tensor_product!r}")
 
 
-def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
-    """Output irreps of the uvu product of `Sx0e (+ Vx1e)` with `1x0e + 1x1e`
-    restricted to irreps_out plus scalars: [Sx0e, Sx1e(, Vx1e, Vx0e, Vx1e)]."""
+def depthwise_irreps(irreps_in, irreps_out):
+    """The dtp irreps of the fast uvu shape, the product of `Sx0e (+ Vx1e)`
+    with `1x0e + 1x1e` restricted to irreps_out plus scalars, in the closed
+    form's block order [Sx0e, Sx1e(, Vx1e, Vx0e, Vx1e)]; None when the
+    shape is not that one (or irreps_out lacks 1e or has 2e, where
+    `depthwise_tp` makes other blocks)."""
     sv = Irreps(irreps_in).sv_shape()
     if sv is None or "1e" not in Irreps(irreps_out) or "2e" in Irreps(irreps_out):
-        raise NotImplementedError(
-            f"only l <= 1 uvu shapes are ported ({irreps_in} -> {irreps_out}); see "
-            "ROADMAP.md queue A, 'General-l irreps'"
-        )
+        return None
     S, V = sv
     blocks = [(S, "0e"), (S, "1e")]
     if V:
@@ -102,8 +109,8 @@ def depthwise_irreps(irreps_in, irreps_out) -> Irreps:
 
 
 class Conv(nn.Module):
-    """Tensor-field-network convolution with the depthwise (uvu) or the
-    fully connected (uvw) product."""
+    """Tensor-field-network convolution with the depthwise (uvu), the fully
+    connected (uvw) or the experimental product."""
 
     def __init__(
         self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
@@ -122,24 +129,32 @@ class Conv(nn.Module):
         self.tensor_product = tensor_product
         if tensor_product == "uvw":
             self.tp = fully_connected_tp(self.irreps_in, self.irreps_sh, self.irreps_out)
-            self.radial_nn = ScalarMLP(edge_attr_dim, self.tp.weight_numel, [edge_attr_dim])
-            self._post_linear = None
+        elif tensor_product == "experimental":
+            self.tp = ExperimentalTensorProduct(self.irreps_in, self.irreps_sh, self.irreps_out)
         else:
-            self.tp = None
-            dtp = depthwise_irreps(self.irreps_in, self.irreps_out)
-            self.radial_nn = ScalarMLP(edge_attr_dim, 2 * self.S + 3 * self.V, [edge_attr_dim])
-            self._post_linear = IrrepsLinear(dtp, self.irreps_out)
+            self.tp, dtp = depthwise_tp(self.irreps_in, self.irreps_sh, self.irreps_out)
+        # the closed-form messages of `ops/fast_uvu.py` (and the kernels):
+        # JAX's `_fast_uvu_supported`, where `depthwise_tp` makes the blocks
+        # of the closed form
+        self.fast_uvu = (
+            tensor_product == "uvu" and self.irreps_sh == SH_IRREPS
+            and depthwise_irreps(self.irreps_in, self.irreps_out) == self.tp.irreps_out
+        )
+        # registered before the post-linear: `reset_parameters` draws the
+        # modules' weights in this order from one generator
+        self.radial_nn = ScalarMLP(edge_attr_dim, self.tp.weight_numel, [edge_attr_dim])
+        self._post_linear = IrrepsLinear(dtp, self.irreps_out) if tensor_product == "uvu" else None
 
     def forward(self, x: torch.Tensor, edges: EdgeData, kernel: bool = False) -> torch.Tensor:
         """x [G, N, irreps_in.dim] -> [G, N, irreps_out.dim]. `kernel`: the
         caller allows the kernels (no gradient flows through them); on the
-        sparse path K6, on the dense path what `dense_route` picks. The uvw
-        product has no kernel and ignores it."""
+        sparse path K6, on the dense path what `dense_route` picks. A product
+        other than the fast uvu shape has no kernel and ignores it."""
         S, V = self.S, self.V
         cdt = self.dtype or x.dtype
         out_dtype = x.dtype
         x = x.to(cdt)
-        if self.tp is not None:
+        if not self.fast_uvu:
             out, deg = self._tp_messages(x, edges, out_dtype)
         elif edges.nbr_idx is None:
             route = self.dense_route(x, edges) if kernel else "plain"
@@ -170,7 +185,7 @@ class Conv(nn.Module):
         out, deg = out.to(out_dtype), deg.to(torch.float32)
 
         src = torch.gather(x, 1, edges.bond_src[..., None].expand(-1, -1, x.shape[-1]))
-        if self.tp is not None:
+        if not self.fast_uvu:
             msg_b = self.tp(src, edges.sh_bond.to(cdt), self._path_weights(edges.attr_bond.to(cdt)))
         else:
             msg_b = uvu_messages(src, edges.sh_bond, self.radial_nn(edges.attr_bond.to(cdt)), S, V)
@@ -187,16 +202,14 @@ class Conv(nn.Module):
         same numbers as JAX's one output split at the paths, but no tensor
         of every path's weights is made, nor in the backward a gradient of
         that size for each path's slice of it: at the flagship width a pair
-        carries 28992 weights."""
-        h = self.radial_nn.hidden(attr)
-        last = self.radial_nn.layer(self.radial_nn.n_layers - 1)
-        kernel, bias = last.kernel.to(h.dtype), last.bias.to(h.dtype)
-        return [h @ kernel[:, s] + bias[s] for s in self.tp.weight_slices()]
+        carries 28992 weights (uvw and experimental alike)."""
+        return self.radial_nn.split_forward(attr, self.tp.weight_slices())
 
     def _tp_messages(self, x: torch.Tensor, edges: EdgeData, out_dtype):
         """The summed messages and the degree of the radial edges through
-        `self.tp`: JAX's generic dense path (`jamun_tpu/ops/conv.py:353-364`),
-        or its generic sparse path on a capped list (`:253-262`). The sums
+        `self.tp` (any product but the fast uvu shape): JAX's generic dense
+        path (`jamun_tpu/ops/conv.py:353-364`), or its generic sparse path on
+        a capped list (`:253-262`). The sums
         accumulate in `out_dtype`, as `preferred_element_type` asks there."""
         cdt = x.dtype
         if edges.nbr_idx is None:
@@ -233,9 +246,10 @@ class Conv(nn.Module):
         (`Conv._pallas_supported` and `__call__`, `jamun_tpu/ops/conv.py
         :93-135, 266-342`): "conv_layer" (K2's layer mode), "packed_uvu_conv_dense"
         (K8), "fused_uvu_conv_dense" (K9) or "plain". Where JAX's gate sends
-        the call to XLA, the plain path runs: the uvw product, an input that is not
-        `Sx0e (+ Vx1e)`, edge attributes other than 64 wide or harmonics other
-        than `1x0e + 1x1e` (`supports_packed_conv` / `supports_fused_conv`), no
+        the call to XLA, the plain path runs: a product other than the fast
+        uvu shape (uvw, experimental, an input that is not `Sx0e (+ Vx1e)`,
+        harmonics other than `1x0e + 1x1e`), edge attributes other than 64
+        wide (`supports_packed_conv` / `supports_fused_conv`), no
         positions or bondedness-0 row in `edges`, V = 0 under "plane"
         (`supports_fused_conv` needs V > 0), and a call that wants a gradient
         (JAX has no VJP for #8 or #9; its training dispatch keeps such calls
@@ -244,8 +258,8 @@ class Conv(nn.Module):
         card."""
         sv = self.irreps_in.sv_shape()
         if (
-            self.tp is not None or sv is None or sv[0] == 0 or self.edge_attr_dim != 2 * N_RADIAL
-            or self.irreps_sh.dim != 4 or edges.pos is None or edges.bond0_embed is None
+            not self.fast_uvu or sv[0] == 0 or self.edge_attr_dim != 2 * N_RADIAL
+            or edges.pos is None or edges.bond0_embed is None
             or self._wants_grad(x, edges)
         ):
             return "plain"
@@ -288,6 +302,26 @@ class Conv(nn.Module):
             edges.nbr_idx.contiguous(), edges.nbr_mask.to(f32).contiguous(),
             w1.to(cdt).contiguous(), b1.contiguous(), d1.kernel.to(cdt).contiguous(),
             d1.bias.to(f32).contiguous(), self.S, self.V,
+        )
+
+
+class SeparableConv(Conv):
+    """`Conv` with the depthwise product and its post-linear (JAX's
+    `SeparableConv`)."""
+
+    def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
+                 pallas_variant: str = "packed"):
+        super().__init__(irreps_in, irreps_out, irreps_sh, edge_attr_dim, dtype, pallas_variant, "uvu")
+
+
+class ExperimentalConv(Conv):
+    """`Conv` with the full product and the externally weighted linear
+    (JAX's `ExperimentalConv`)."""
+
+    def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int, dtype=None,
+                 pallas_variant: str = "packed"):
+        super().__init__(
+            irreps_in, irreps_out, irreps_sh, edge_attr_dim, dtype, pallas_variant, "experimental"
         )
 
 

@@ -11,19 +11,9 @@ import torch
 import torch.nn.functional as F
 
 from jamun_tpu_torch.ops.irreps import Irreps
+from jamun_tpu_torch.ops.tensor_product import scale_irreps
 
 __all__ = ["Gate", "scale_irreps"]
-
-
-def scale_irreps(x: torch.Tensor, scales: torch.Tensor, irreps) -> torch.Tensor:
-    """Multiply the i-th irrep copy of x by scales[..., i]. The repeat counts
-    are Python ints, so nothing waits on the device."""
-    parts, ix = [], 0
-    for mi in Irreps(irreps):
-        s = scales[..., ix : ix + mi.mul]
-        parts.append(s.repeat_interleave(mi.ir.dim, dim=-1) if mi.ir.dim > 1 else s)
-        ix += mi.mul
-    return x * torch.cat(parts, dim=-1).to(x.dtype)
 
 
 class Gate:

@@ -1,18 +1,24 @@
 """Irreducible-representation metadata for O(3)-equivariant features.
 
-The port's own copy of `jamun_tpu/ops/irreps.py` (pure Python, no arrays).
-Features are flat tensors of shape [..., irreps.dim]; each (mul, l) block is
-laid out mul-major: block.reshape(..., mul, 2l+1). The l=1 components are in
-(y, z, x) order.
+The port's own copy of `jamun_tpu/ops/irreps.py`. Features are flat tensors
+of shape [..., irreps.dim]; each (mul, l) block is laid out mul-major:
+block.reshape(..., mul, 2l+1). The l=1 components are in (y, z, x) order.
+`unpack_irreps` / `pack_irreps` split and join such tensors by block;
+`Irreps.rotation_matrix` is the block-diagonal Wigner D (numpy, host side).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import List, Sequence, Tuple, Union
+from typing import Iterator, List, Sequence, Tuple, Union
 
-__all__ = ["Irrep", "MulIrrep", "Irreps"]
+import numpy as np
+import torch
+
+from jamun_tpu_torch.ops.wigner import wigner_D_from_matrix
+
+__all__ = ["Irrep", "MulIrrep", "Irreps", "unpack_irreps", "pack_irreps"]
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -105,6 +111,10 @@ class Irreps(tuple):
         """Total multiplicity (number of irrep copies)."""
         return sum(mi.mul for mi in self)
 
+    @property
+    def lmax(self) -> int:
+        return max((mi.ir.l for mi in self), default=0)
+
     def slices(self) -> List[slice]:
         out, ix = [], 0
         for mi in self:
@@ -134,6 +144,24 @@ class Irreps(tuple):
                 out.append([mi.mul, mi.ir])
         return Irreps([MulIrrep(m, ir) for m, ir in out])
 
+    def rotation_matrix(self, R: np.ndarray) -> np.ndarray:
+        """Block-diagonal representation matrix D(R) [dim, dim] (numpy). R is
+        a 3x3 rotation acting on (x, y, z); for an improper R (det < 0) the
+        odd-parity blocks take the parity sign."""
+        det = float(np.linalg.det(R))
+        Rp = np.asarray(R) * np.sign(det)
+        out = np.zeros((self.dim, self.dim))
+        ix = 0
+        for mi in self:
+            D = wigner_D_from_matrix(mi.ir.l, Rp)
+            if det < 0 and mi.ir.p == -1:
+                D = -D
+            for _ in range(mi.mul):
+                d = D.shape[0]
+                out[ix : ix + d, ix : ix + d] = D
+                ix += d
+        return out
+
     def sv_shape(self):
         """(S, V) when the irreps are `Sx0e` or `Sx0e + Vx1e` (the l <= 1
         shapes the separable conv and its kernels take), else None."""
@@ -142,3 +170,22 @@ class Irreps(tuple):
         if len(self) == 2 and self[0].ir == Irrep(0, 1) and self[1].ir == Irrep(1, 1):
             return self[0].mul, self[1].mul
         return None
+
+
+def unpack_irreps(x, irreps: Irreps) -> Iterator[Tuple[int, Irrep, "object"]]:
+    """Yield (mul, ir, field [..., mul, 2l+1]) per block of a tensor (or
+    numpy array) x [..., irreps.dim]."""
+    irreps = Irreps(irreps)
+    assert x.shape[-1] == irreps.dim, f"{tuple(x.shape)} vs {irreps}"
+    ix = 0
+    for mi in irreps:
+        field = x[..., ix : ix + mi.dim].reshape(tuple(x.shape[:-1]) + (mi.mul, mi.ir.dim))
+        ix += mi.dim
+        yield mi.mul, mi.ir, field
+
+
+def pack_irreps(fields, irreps: Irreps):
+    """The inverse of `unpack_irreps`: [..., mul, 2l+1] tensors back to one
+    [..., dim] tensor."""
+    flat = [f.reshape(tuple(f.shape[:-2]) + (mi.dim,)) for f, mi in zip(fields, Irreps(irreps))]
+    return torch.cat(flat, dim=-1)

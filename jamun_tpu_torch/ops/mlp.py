@@ -2,7 +2,9 @@
 
 `Dense` keeps flax's parameter orientation: `kernel` is [in, out] and the
 layer computes x @ kernel + bias. `ScalarMLP` is the radial network that makes
-the tensor-product weights; `EquivariantMLP` is the gated head.
+the tensor-product weights; `EquivariantMLP` is the gated head, for any
+hidden irreps list (each block's gate takes its l > 0 copies), with JAX's
+`use_layer_norm` (`ops/layer_norm.py` on each block's gate input).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from jamun_tpu_torch.ops.gate import Gate
 from jamun_tpu_torch.ops.irreps import Irreps
+from jamun_tpu_torch.ops.layer_norm import equivariant_layer_norm
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 
 __all__ = ["Dense", "ScalarMLP", "EquivariantMLP"]
@@ -66,26 +69,39 @@ class ScalarMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(self.n_layers - 1)(self.hidden(x))
 
+    def split_forward(self, x: torch.Tensor, slices) -> list:
+        """The output's columns at each of `slices`, one tensor each: the
+        final Dense layer runs on each slice's columns, so no tensor of all
+        the outputs is made (nor its gradient in the backward)."""
+        h = self.hidden(x)
+        last = self.layer(self.n_layers - 1)
+        kernel, bias = last.kernel.to(h.dtype), last.bias.to(h.dtype)
+        return [h @ kernel[:, s] + bias[s] for s in slices]
+
 
 class EquivariantMLPBlock(nn.Module):
-    def __init__(self, irreps_in, irreps_out):
+    def __init__(self, irreps_in, irreps_out, use_layer_norm: bool = False):
         super().__init__()
         self.gate = Gate(Irreps(irreps_out))
+        self.use_layer_norm = use_layer_norm
         self.IrrepsLinear_0 = IrrepsLinear(irreps_in, self.gate.irreps_in)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gate(self.IrrepsLinear_0(x))
+        x = self.IrrepsLinear_0(x)
+        if self.use_layer_norm:
+            x = equivariant_layer_norm(x, self.gate.irreps_in)
+        return self.gate(x)
 
 
 class EquivariantMLP(nn.Module):
     """Gated blocks, one per hidden irreps, then a final IrrepsLinear."""
 
-    def __init__(self, irreps_in, irreps_out, irreps_hidden_list=()):
+    def __init__(self, irreps_in, irreps_out, irreps_hidden_list=(), use_layer_norm: bool = False):
         super().__init__()
         irreps = Irreps(irreps_in)
         self.n_blocks = len(irreps_hidden_list)
         for i, hidden in enumerate(irreps_hidden_list):
-            blk = EquivariantMLPBlock(irreps, Irreps(hidden))
+            blk = EquivariantMLPBlock(irreps, Irreps(hidden), use_layer_norm)
             self.add_module(f"EquivariantMLPBlock_{i}", blk)
             irreps = blk.gate.irreps_out
         self.IrrepsLinear_0 = IrrepsLinear(irreps, Irreps(irreps_out))

@@ -8,10 +8,12 @@ the small CG contraction first:
     out[..., w, k]  = path_weight * sum_{u,v} W[..., u, v, w] t[..., u, v, k]
 
 `fully_connected_tp` is e3nn's FullyConnectedTensorProduct with external,
-unshared weights (the "uvw" product of `Conv`). Normalization follows e3nn's
+unshared weights (the "uvw" product of `Conv`); `depthwise_tp` the
+depthwise "uvu" product of any l (`jamun_tpu/ops/tensor_product.py:
+145-198`), whose outputs a post-linear mixes. Normalization follows e3nn's
 normalization="component", path_normalization="element". There is no
-hand-written kernel behind it, as there is none in JAX: XLA computes these
-einsums there.
+hand-written kernel behind either, as there is none in JAX: XLA computes
+these einsums there. `scale_irreps` multiplies each irrep copy by a scalar.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ import torch
 from jamun_tpu_torch.ops.cg import real_wigner_3j
 from jamun_tpu_torch.ops.irreps import Irreps
 
-__all__ = ["WeightedTensorProduct", "fully_connected_tp"]
+__all__ = [
+    "WeightedTensorProduct", "fully_connected_tp", "depthwise_tp", "scale_irreps",
+    "scale_irreps_transposed",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,3 +154,54 @@ class WeightedTensorProduct:
 def fully_connected_tp(irreps_in1, irreps_in2, irreps_out) -> WeightedTensorProduct:
     """e3nn's FullyConnectedTensorProduct (external, unshared weights)."""
     return WeightedTensorProduct(irreps_in1, irreps_in2, irreps_out)
+
+
+def depthwise_tp(irreps_in1, irreps_in2, irreps_out) -> Tuple[WeightedTensorProduct, Irreps]:
+    """The depthwise ("uvu") product of the separable conv. Returns (tp,
+    irreps_out_dtp): the dtp output irreps are every allowed (ir1 x ir2 ->
+    ir3) product with ir3 in irreps_out or a scalar, in path order."""
+    irreps_in1, irreps_in2, irreps_out = Irreps(irreps_in1), Irreps(irreps_in2), Irreps(irreps_out)
+    out_blocks, instructions = [], []
+    for i1, mi1 in enumerate(irreps_in1):
+        for i2, mi2 in enumerate(irreps_in2):
+            for ir3 in mi1.ir * mi2.ir:
+                if ir3 in irreps_out or (ir3.l == 0 and ir3.p == 1):
+                    instructions.append((i1, i2, len(out_blocks), "uvu"))
+                    out_blocks.append((mi1.mul, ir3))
+    irreps_out_dtp = Irreps(out_blocks)
+    return WeightedTensorProduct(irreps_in1, irreps_in2, irreps_out_dtp, instructions), irreps_out_dtp
+
+
+def scale_irreps(x: torch.Tensor, scales: torch.Tensor, irreps) -> torch.Tensor:
+    """Multiply the i-th irrep copy of x by scales[..., i] (scales
+    [..., irreps.num_irreps]). The repeat counts are Python ints, so nothing
+    waits on the device."""
+    parts, ix = [], 0
+    for mi in Irreps(irreps):
+        s = scales[..., ix : ix + mi.mul]
+        parts.append(s.repeat_interleave(mi.ir.dim, dim=-1) if mi.ir.dim > 1 else s)
+        ix += mi.mul
+    return x * torch.cat(parts, dim=-1).to(x.dtype)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def scale_irreps_transposed(xT: torch.Tensor, scales: torch.Tensor, irreps) -> torch.Tensor:
+    """`scale_irreps` on JAX's transposed slot-padded layout
+    (`pack_features_transposed`): xT [..., Sp + 3 Vp, N] for irreps `Sx0e
+    (+ Vx1e)`, S and V padded to multiples of 16, the three vector
+    components in planes; scales [..., S + V]."""
+    irreps = Irreps(irreps)
+    sv = irreps.sv_shape()
+    if sv is None:
+        raise ValueError(f"want Sx0e (+ Vx1e), got {irreps}")
+    S, V = sv
+    Sp, Vp = _pad16(S), _pad16(V)
+    parts = [scales[..., :S], scales.new_zeros(scales.shape[:-1] + (Sp - S,))]
+    if V:
+        zv = scales.new_zeros(scales.shape[:-1] + (Vp - V,))
+        parts += [scales[..., S:], zv] * 3
+    rows = torch.cat(parts, dim=-1)
+    return xT * rows[..., :, None].to(xT.dtype)

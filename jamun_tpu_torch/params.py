@@ -8,8 +8,24 @@ Orientation is kept as flax has it: a Dense `kernel` is [in, out] and the
 port's `ops.mlp.Dense` computes x @ kernel + bias; IrrepsLinear kernels
 `w_i_j` are [mul_in, mul_out] on both sides. Nothing is transposed.
 
+The same holds for every module of the equivariant-ops library:
+`ExperimentalConv` / `Conv(tensor_product="experimental")` (its radial MLP
+alone, `radial_nn/Dense_k/{kernel, bias}`: the external linear's weights
+come from it, and there is no post-linear), `IrrepsLinear` with paths of
+any l (`w_{i_in}_{i_out}` [mul_in, mul_out]),
+`MultiheadAttention` (`IrrepsLinear_0` the queries, `_PerEdgeConv_0/1` the
+keys and values, each a `radial_nn`, `dot_w` [weight_numel], `IrrepsLinear_1`),
+`TransformerBlock` (`IrrepsLinear_0`-`_3`, `MultiheadAttention_0`,
+`EquivariantMLP_0`), the wrappers of `ops/wrappers.py`, and EquiFold's
+modules (`ops/contrib/equifold.py`): `SVLinear`'s `w_s` [out, in], `b_s`
+[out], `w_v` [out, in]; per head (`DTPByHead`, Equiformer's `w_s_init`,
+`attn_msg_w_s`, ...) [H, out, in] and [H, out]; `RadialNN`'s `Dense_k` as
+flax's Dense ([in, out]). None of these is transposed either.
+
 `load_jax_train_state` places a whole JAX train state (as
-`train.checkpoints.read_flax_msgpack` reads it) in the port's `TrainState`.
+`train.checkpoints.read_flax_msgpack` reads it) in the port's `TrainState`;
+`init_parameters` draws a module's parameters from a seed (each submodule's
+flax initializer, on a CPU generator).
 """
 
 from __future__ import annotations
@@ -19,7 +35,7 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params", "load_jax_train_state"]
+__all__ = ["from_jax_params", "to_jax_params", "load_jax_train_state", "init_parameters"]
 
 _OTHER = "ROADMAP.md queue A, 'Other config targets'"
 
@@ -53,6 +69,18 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(k, {})
         node[leaf] = t.detach().cpu().numpy()
     return {"params": tree}
+
+
+def init_parameters(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every submodule's `reset_parameters(generator)` (flax's init
+    distributions) from one CPU generator seeded with `seed`, in module
+    order; returns the module."""
+    generator = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+    return module
 
 
 def _chain(node, what: str) -> List:

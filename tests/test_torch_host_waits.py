@@ -39,7 +39,9 @@ class HostOps(TorchDispatchMode):
     def __init__(self, allowed):
         super().__init__()
         self.allowed, self.depth = allowed, 0
-        self.reads, self.copies, self.draws, self.lifted = [], [], [], set()
+        self.reads, self.copies, self.draws = [], [], []
+        # host-made tensors by id, held so that no later tensor takes a freed one's id
+        self.lifted = {}
 
     def muted(self, fn):
         def inner(*args, **kwargs):
@@ -58,7 +60,7 @@ class HostOps(TorchDispatchMode):
             if name == "_local_scalar_dense" and not self.allowed(args[0]):
                 self.reads.append(tuple(args[0].shape))
             elif name == "lift_fresh":
-                self.lifted.add(id(out))
+                self.lifted[id(out)] = out
             elif name == "_to_copy" and id(args[0]) in self.lifted:
                 self.copies.append(tuple(args[0].shape))
             elif name == "randn":

@@ -175,9 +175,12 @@ def test_device_rule_and_unported_shapes():
             E3Conv(**ARCH)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_test_batch(2, 8)
-    # uvw is ported (tests/test_torch_uvw.py); the experimental product is not
-    with pytest.raises(NotImplementedError, match="queue A, 'The experimental product'"):
-        E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="experimental", device="cpu")
+    # uvw and the experimental product are ported (tests/test_torch_uvw.py,
+    # tests/test_torch_general_l.py): they build, on no kernel path
+    exp = E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="experimental", device="cpu")
+    assert exp.tensor_product == "experimental" and not exp.kernels
+    with pytest.raises(ValueError, match="tensor_product"):
+        E3Conv(irreps_hidden="16x0e + 8x1e", tensor_product="uuu", device="cpu")
     # the sparse capped-neighbour path is ported: "nbr" runs at any size and
     # reports the edges its cap drops
     nbr = E3Conv(**ARCH, neighbor_mode="nbr", neighbor_cap=4, device="cpu", seed=0)
