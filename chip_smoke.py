@@ -2,6 +2,7 @@
 
 Run from the repository root:
     python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py --phase8-repeat N [--out DIR]   (phase 8 alone, N times)
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the hand-written kernels from jamun_tpu_torch/csrc/ (one nvcc per
@@ -211,7 +212,33 @@ Phases (any failure exits non-zero; nothing is caught):
      heads), `Equiformer` and `Convnet` (32 channels) forward and backward
      on the 4AA training batch (G = 32, N = 48): ms, peak memory, card
      against CPU on 4 graphs (outputs and gradients, 1e-3), E(3) error on
-     the card (1e-3), K1-K9 never.
+     the card (1e-3), K1-K9 never;
+ 11. after phase 10, in phase 6's work directory, E3Conv's last fields and
+     the last utilities: (a) `tiled_kernel_training=True`, 5 `Trainer.fit`
+     steps at N = 256, G = 4, bf16, `neighbor_mode="dense"`, on phase 5d's
+     weights, batch and fixed noise draw: K5 six times per training forward
+     and no other conv kernel (the backward recomputes the block with K5's
+     plain twin), ms/step and peak memory beside phase 5d's plain path, and
+     the f32 gradients of `training_loss` on the K5 path against the plain
+     path on the card (G = 2, 1e-3 of each leaf's max); (b)
+     `model/arch=e3conv_separable model.arch.scan_layers=true` through the
+     train CLI for 10 steps (K1 once and K2 six times per forward, K4 six
+     times per step), its last checkpoint written in flax's layout with the
+     hidden layers stacked under `Scan_HiddenLayer_0`
+     (`write_flax_checkpoint(..., scan_layers=True)`) and read back bit for
+     bit, and the sample CLI on the run (K3 never: `scan_layers` keeps it
+     off; K1 and K2 per denoiser call), whose EMA score equals the same
+     weights unscanned bit for bit; (c) TF32 turned on before each CLI,
+     which must leave it off (`setup_torch`); (d) the same training run
+     with `trainer.visualize_denoise_sigmas=[0.02,0.04,0.08]`: finite
+     `val/scaled_rmsd_sigma{s}`; (e) `scripts/torch_make_synthetic_data.py`
+     and `scripts/torch_prepare_pdb.py` as subprocesses that load no module
+     of JAX, then `experiment=train_test` through the train CLI for 5 steps
+     on the synthetic output.
+`--phase8-repeat N` runs phase 8 alone (after the build) in N fresh
+processes, one after the other, keeping each one's output and error in
+`--out DIR` (default `runs/phase8_repeat`), and prints how many
+passed.
 `--out FILE` writes every number as JSON. An earlier line is a JSON object
 {"kabsch": {...}} (that kernel replaces no TPU kernel); the line before the
 last is a JSON object of per-kernel numbers; the last line is {"ok": true,
@@ -2412,13 +2439,15 @@ SAMPLE_RUNS = {
 SAMPLE_SAVE_EVERY = 5
 
 
-def write_flax_checkpoint(src: str, dst: str) -> None:
+def write_flax_checkpoint(src: str, dst: str, scan_layers: bool = False) -> None:
     """The port's checkpoint `src` (Adam, no schedule) written again in
     flax's msgpack layout, as JAX's `save_checkpoint` writes its TrainState
     (`flax.serialization.to_bytes`): the map {step, params, opt_state:
     {"0": {count, mu, nu}, "1": {}}, ema_params, rng}, each array
     ExtType(1, msgpack (shape, dtype name, C-order bytes)). The key `rng` is
-    zeros: the port carries none."""
+    zeros: the port carries none. With `scan_layers` (the model's flag) the
+    hidden layers of params, EMA, mu and nu go stacked under
+    `Scan_HiddenLayer_0`, as flax keeps a scanned E3Conv's."""
     import msgpack
 
     from jamun_tpu_torch.params import to_jax_params
@@ -2429,14 +2458,14 @@ def write_flax_checkpoint(src: str, dst: str) -> None:
     slots = {n: data["opt_state"]["state"][i] for n, i in zip(names, group["params"])}
 
     def slot(key):
-        return to_jax_params({n: st[key] for n, st in slots.items()})
+        return to_jax_params({n: st[key] for n, st in slots.items()}, scan_layers)
 
     tree = {
         "step": np.asarray(data["step"], np.int32),
-        "params": to_jax_params(data["params"]),
+        "params": to_jax_params(data["params"], scan_layers),
         "opt_state": {"0": {"count": np.asarray(group["count"], np.int32), "mu": slot("mu"),
                             "nu": slot("nu")}, "1": {}},
-        "ema_params": to_jax_params(data["ema_params"]),
+        "ema_params": to_jax_params(data["ema_params"], scan_layers),
         "rng": np.zeros(2, np.uint32),
     }
 
@@ -3306,6 +3335,259 @@ def p10_attention_equifold(dev, card: str, counters: dict, work: str) -> dict:
     return out
 
 
+# phase 11: the last fields of E3Conv and the last utilities, in phase 6's
+# work directory: (a) `tiled_kernel_training` (K5 under a gradient) at
+# N = 256, G = 4 beside phase 5's plain path on the same weights and noise;
+# (b) `model.arch.scan_layers=true` through the train CLI and the sample CLI,
+# with (c) the precision pin of both CLIs and (d) the per-sigma denoise
+# metrics on that run; (e) the data-preparation copies without JAX, then
+# the train CLI on their output
+P11_SCAN_STEPS = 10
+P11_SIGMAS = (0.02, 0.04, 0.08)
+P11_SAMPLE = (4, 1, 20)  # repeat_init_samples, num_batches, steps per batch
+
+
+def tiled_kernel_training(dev, card: str, counters: dict, plain: dict) -> dict:
+    """Phase 11a: a few `Trainer.fit` steps at N = 256, G = 4, bf16, dense,
+    with `tiled_kernel_training=True`, on phase 5d's weights (seed 0), batch
+    and fixed noise draw: K5 six times per training forward and no other
+    conv kernel; ms/step and peak memory beside phase 5d's plain path
+    (`plain`); then the f32 gradients of `training_loss` on the K5 path
+    against the plain path on the card, on the same weights and noise."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.models.e3conv import E3Conv
+
+    steps, G, N = 5, 4, 256
+    model = E3Conv(tensor_product="uvu", dtype=torch.bfloat16, neighbor_mode="dense",
+                   tiled_kernel_training=True, device=dev, seed=0)
+    den = Denoiser(model, DenoiserConfig(max_radius=1.0, average_squared_distance=0.3,
+                                         add_fixed_noise=True))
+    batch = tiled_batch(N, G, dev)
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = fit_batches(den, dev, [batch] * steps, max_steps=steps, log_every_n_steps=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    used = {name: k.launches for name, k in counters.items() if k.launches}
+    assert state.step == steps and used == {"fused_block_tiled": 6 * steps}, used
+    train = [m for _, m in metrics if "train/loss" in m]
+    losses = [m["train/loss"] for m in train]
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), losses
+    t_at = [(i + 1) / m["train/steps_per_sec"] for i, m in enumerate(train)]
+    steady = (t_at[-1] - t_at[0]) * 1e3 / (steps - 1)
+    log(f"phase 11a: tiled_kernel_training, G={G} N={N} bf16, dense: losses "
+        + " ".join(f"{v:.5f}" for v in losses)
+        + f" (phase 5d's plain path: " + " ".join(f"{v:.5f}" for v in plain["losses"]) + ")"
+        f"; {steady:.3f} ms/step over steps 2-{steps} against the plain path's "
+        f"{plain['ms_per_step_2_to_end']:.3f}; peak device memory {peak / 2**30:.3f} GiB against "
+        f"{plain['peak_bytes'] / 2**30:.3f}; launches {used} ({6 * steps} = six blocks x {steps} "
+        f"training forwards); on {card}")
+
+    # the f32 gradients, K5 path against the plain path on the card (G = 2)
+    config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.3, add_fixed_ones=True)
+    small = tiled_batch(N, 2, dev)
+    grads, n5 = [], []
+    for flag in (True, False):
+        m = E3Conv(tensor_product="uvu", neighbor_mode="dense", tiled_kernel_training=flag,
+                   device=dev, seed=0)
+        m.output_gain.data.fill_(1.0)
+        before = counters["fused_block_tiled"].launches
+        loss, _ = Denoiser(m, config).training_loss(small, SIGMA, torch.Generator(device=dev))
+        loss.backward()
+        n5.append(counters["fused_block_tiled"].launches - before)
+        grads.append({n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                      for n, p in m.named_parameters()})
+    assert n5 == [6, 0], n5
+    errs = {n: rel_err(grads[0][n], g)[1] for n, g in grads[1].items() if g.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    log(f"phase 11a: f32 training_loss gradients at N={N}, G=2, K5 path (6 launches) against "
+        f"the plain path on the card: {len(errs)} leaves, worst rel err {errs[worst]:.3g} "
+        f"({worst}) (tol 1e-3)")
+    assert errs[worst] < 1e-3, (worst, errs[worst])
+    return dict(G=G, N=N, steps=steps, losses=losses, ms_per_step_2_to_end=steady,
+                peak_bytes=peak, launches=used, plain_ms_per_step_2_to_end=plain["ms_per_step_2_to_end"],
+                plain_peak_bytes=plain["peak_bytes"], grad_leaves=len(errs),
+                grad_worst_rel_err=errs[worst], grad_worst_leaf=worst)
+
+
+def tf32_on() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def scanned_runs(dev, card: str, counters: dict, kabsch_kernel, work: str, atoms: dict) -> dict:
+    """Phases 11b-d: `experiment=train_uncapped_4AA model/arch=e3conv_separable
+    model.arch.scan_layers=true` through the train CLI (10 steps, validating
+    at the last with the per-sigma denoise metrics), then the sample CLI on
+    it; TF32 turned on before each CLI, which must turn it off itself."""
+    import pickle
+
+    from jamun_tpu_torch.cmdline import sample as sample_cli
+    from jamun_tpu_torch.cmdline import train as train_cli
+    from jamun_tpu_torch.cmdline.common import build_denoiser
+    from jamun_tpu_torch.params import SCANNED
+    from jamun_tpu_torch.train.checkpoints import read_flax_msgpack, restore_checkpoint
+    from jamun_tpu_torch.train.state import create_train_state
+
+    run_key = "train_uncapped_4AA_scanned"
+    run_dir = os.path.join("runs", run_key)
+    sigmas = "[" + ",".join(str(s) for s in P11_SIGMAS) + "]"
+    args = ["--experiment-dir", EXP_DIR, "experiment=train_uncapped_4AA", "model/arch=e3conv_separable",
+            "model.arch.scan_layers=true", f"run_key={run_key}", f"trainer.max_steps={P11_SCAN_STEPS}",
+            f"trainer.val_every_n_steps={P11_SCAN_STEPS}", "trainer.log_every_n_steps=1",
+            f"trainer.visualize_denoise_sigmas={sigmas}"]
+    for k in (*counters.values(), kabsch_kernel):
+        k.launches = 0
+    tf32_on()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with count_forwards() as calls:
+        state = train_cli.main(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    pinned = {"train": (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)}
+    assert pinned["train"] == (False, False), pinned
+    launches = {name: k.launches for name, k in counters.items() if k.launches}
+    forwards = calls["grad"] + calls["no_grad"]
+    assert state.module.scan_layers and state.step == P11_SCAN_STEPS
+    assert calls["grad"] == P11_SCAN_STEPS and calls["no_grad"] > len(P11_SIGMAS), calls
+    assert launches == {"edge_features": forwards, "conv_block": 6 * forwards,
+                        "conv_block_bwd": 6 * P11_SCAN_STEPS}, (launches, calls)
+    train, val = read_metrics_csv(os.path.join(run_dir, "metrics.csv"))
+    losses = [r["train/loss"] for r in train]
+    per_sigma = {s: val[-1][f"val/scaled_rmsd_sigma{s}"] for s in P11_SIGMAS}
+    assert len(losses) == P11_SCAN_STEPS and all(math.isfinite(v) for v in losses)
+    assert all(math.isfinite(v) for v in per_sigma.values()), per_sigma
+    gaps = [(b["time"] - a["time"]) * 1e3 for a, b in zip(train, train[1:])]
+    ms_step = sorted(gaps)[len(gaps) // 2]
+    log(f"phase 11b: train CLI, separable with scan_layers=true: {ms_step:.3f} ms/step (median "
+        f"gap of metrics.csv's rows), peak device memory {peak / 2**30:.3f} GiB, train loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, val loss {val[-1]['val/loss']:.5f}; forwards "
+        f"{dict(calls)}; launches {launches}, Kabsch {kabsch_kernel.launches}; on {card}")
+    log("phase 11d: val/scaled_rmsd_sigma{s} of the EMA model on the first validation batch: "
+        + ", ".join(f"{s}: {v:.5f}" for s, v in per_sigma.items()))
+
+    # the last checkpoint in flax's layout, its hidden layers stacked: read
+    # back into a fresh state, every tensor equal to the torch file's
+    src = os.path.join(run_dir, "checkpoints", "last.ckpt")
+    dst = os.path.join("runs", "flax_scanned", "checkpoints", "last.ckpt")
+    write_flax_checkpoint(src, dst, scan_layers=True)
+    tree = read_flax_msgpack(dst)
+    stacked = tree["params"]["params"][SCANNED]
+    n_layers = state.module.n_layers
+    assert not any(k.startswith("_HiddenLayer_") for k in tree["params"]["params"])
+    assert stacked["ConvBlock_0"]["Conv_0"]["radial_nn"]["Dense_1"]["kernel"].shape[0] == n_layers
+    with open(os.path.join(run_dir, "config.pkl"), "rb") as f:
+        cfg = pickle.load(f)  # written by this run's CLI
+    from jamun_tpu_torch.cmdline.common import build_optimizer
+
+    fresh = create_train_state(build_denoiser(cfg["model"], device=dev, seed=1),
+                               build_optimizer(cfg["model"]), seed=1, device=dev)
+    restore_checkpoint(dst, fresh)
+    saved = torch.load(src, map_location="cpu", weights_only=True)
+    assert fresh.step == saved["step"] == P11_SCAN_STEPS
+    for key, module in (("params", fresh.module), ("ema_params", fresh.ema)):
+        for name, t in module.state_dict().items():
+            assert torch.equal(t.cpu(), saved[key][name]), (key, name)
+    group = saved["opt_state"]["param_groups"][0]
+    assert fresh.optimizer.param_groups[0]["count"] == group["count"]
+    for (name, p), i in zip(fresh.module.named_parameters(), group["params"]):
+        for key in ("mu", "nu"):
+            assert torch.equal(fresh.optimizer.state[p][key].cpu(),
+                               saved["opt_state"]["state"][i][key]), (name, key)
+    log(f"phase 11b: last.ckpt written in flax's layout with {SCANNED} ({n_layers} layers "
+        "stacked) reads back bit for bit: parameters, EMA, Adam's mu, nu and count, the step")
+
+    # the sample CLI on the scanned run: the kernel default rule turns
+    # fused_stack on, and scan_layers keeps K3 off (K1 once and K2 six times
+    # per denoiser call)
+    repeat, batches, steps = P11_SAMPLE
+    for k in (*counters.values(), kabsch_kernel):
+        k.launches = 0
+    tf32_on()
+    with count_forwards() as scalls:
+        res = sample_cli.main([
+            "--experiment-dir", EXP_DIR, "experiment=sample_uncapped_4AA",
+            f"checkpoint_dir={run_dir}/checkpoints", f"init_datasets.root={cli_val_dir(work)}",
+            "output_dir=runs/sample_scanned/sampler", f"repeat_init_samples={repeat}",
+            f"num_batches={batches}", f"num_sampling_steps_per_batch={steps}",
+            f"save_every_n_steps={SAMPLE_SAVE_EVERY}"])
+    torch.cuda.synchronize()
+    pinned["sample"] = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    assert pinned["sample"] == (False, False), pinned
+    arch = res["denoiser"].arch
+    slaunches = {name: k.launches for name, k in counters.items() if k.launches}
+    assert arch.scan_layers and arch.fused_stack and scalls["grad"] == 0, (scalls, arch.fused_stack)
+    assert slaunches == {"edge_features": scalls["no_grad"], "conv_block": 6 * scalls["no_grad"]}, (
+        slaunches, scalls)
+    # its EMA score against the same weights unscanned (the layerwise path): bit for bit
+    batch = cli_score_batch(work).to_device(dev)
+    unscanned = build_denoiser(dict(cfg["model"], arch=dict(cfg["model"]["arch"], scan_layers=False)),
+                               device=dev, seed=0)
+    unscanned.arch.load_state_dict(arch.state_dict())
+    unscanned.arch.requires_grad_(False)
+    with torch.no_grad():
+        s_scan, s_flat = res["denoiser"].score(batch, SIGMA), unscanned.score(batch, SIGMA)
+    differ = bits_differ(s_scan, s_flat)
+    assert torch.isfinite(s_scan).all() and differ == 0, differ
+    log(f"phase 11b: sample CLI on the scanned run: {repeat * len(CLI_VAL_SEQS)} chains x "
+        f"{batches} x {steps} steps, forwards {dict(scalls)}, launches {slaunches} (K3 none: "
+        f"scan_layers keeps the whole-model kernel off); its EMA score on 3 fixed frames equals "
+        f"the same weights unscanned bit for bit ({s_scan.numel()} values)")
+    log(f"phase 11c: TF32 turned on before each CLI; after the train CLI (allow_tf32, cudnn) = "
+        f"{pinned['train']}, after the sample CLI {pinned['sample']}")
+    return dict(run_key=run_key, steps=P11_SCAN_STEPS, ms_per_step=ms_step, peak_bytes=peak,
+                losses=losses, val_loss=val[-1]["val/loss"], forwards=dict(calls), launches=launches,
+                scaled_rmsd_by_sigma=per_sigma, sample_forwards=dict(scalls),
+                sample_launches=slaunches, score_bits_differ=differ, tf32_after=pinned)
+
+
+def scripts_without_jax(dev, card: str, counters: dict) -> dict:
+    """Phase 11e: `scripts/torch_make_synthetic_data.py` and
+    `scripts/torch_prepare_pdb.py` as subprocesses of this interpreter, each
+    checked to have loaded no module of JAX or of the JAX package; then the
+    train CLI (`experiment=train_test`, its synthetic tree) for 5 steps on
+    the first one's output."""
+    from jamun_tpu_torch.cmdline import train as train_cli
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data = os.environ["JAMUN_DATA_PATH"]
+    runs = {
+        "torch_make_synthetic_data": ["--out", os.path.join(data, "synthetic", "train"),
+                                      "--n-frames", "200"],
+        "torch_prepare_pdb": ["AGS", "KWFE", "--capped", "--out", "pdbs"],
+    }
+    out = {}
+    for name, argv in runs.items():
+        script = os.path.join(repo, "scripts", f"{name}.py")
+        code = ("import runpy, sys\n"
+                f"sys.argv = [{script!r}, *{argv!r}]\n"
+                f"runpy.run_path({script!r}, run_name='__main__')\n"
+                "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'jamun_tpu'))\n"
+                "print('modules of JAX loaded:', bad); sys.exit(1 if bad else 0)\n")
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+        assert r.returncode == 0, (name, r.stdout, r.stderr)
+        out[name] = r.stdout.strip().splitlines()
+    with open(os.path.join("pdbs", "KWFE.pdb")) as f:
+        assert sum(line.startswith("ATOM") for line in f) > 30
+    for k in counters.values():
+        k.launches = 0
+    state = train_cli.main(["--experiment-dir", EXP_DIR, "experiment=train_test",
+                            "run_key=synthetic_test", "trainer.max_steps=5",
+                            "trainer.val_every_n_steps=5", "trainer.log_every_n_steps=1"])
+    train, val = read_metrics_csv(os.path.join("runs", "synthetic_test", "metrics.csv"))
+    losses = [r["train/loss"] for r in train]
+    assert state.step == 5 and len(losses) == 5 and all(math.isfinite(v) for v in losses), losses
+    assert val and math.isfinite(val[-1]["val/loss"])
+    log(f"phase 11e: the data-preparation copies ran without JAX ("
+        + "; ".join(f"{n}: {' | '.join(lines[-2:])}" for n, lines in out.items())
+        + f"); train_test on the synthetic output: 5 steps, losses "
+        + " ".join(f"{v:.5f}" for v in losses) + f", val loss {val[-1]['val/loss']:.5f}; on {card}")
+    return dict(scripts=out, losses=losses, val_loss=val[-1]["val/loss"])
+
+
 # phase 8: the IDRome regime through the CLIs: an IDRome-layout tree of two
 # disordered-region chains (`build_peptide`, hydrogens in `top.pdb`, every
 # atom in `traj.xtc`) of about 600 and 1100 heavy atoms (buckets 1024 and
@@ -3649,6 +3931,102 @@ def idrome_runs(dev, card: str, counters: dict, kabsch_kernel):
     return dict(data=data, train=train, sample=sample, analysis=analysis), cg_batch, walk_end
 
 
+def phase8(dev, card: str, counters: dict, kabsch_kernel, models: dict, c_in: float,
+           cutoff: float, results: dict) -> dict:
+    """Phase 8 (`idrome_runs`), then this path's kernels against their plain
+    versions at its shapes: K1, K2 and K4 on the beads' training batch, K6
+    and K7 at the walk's last frame (rows appended to `results`)."""
+    from jamun_tpu_torch.ops.cuda import conv_block as k2
+    from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
+    from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+    from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
+
+    idrome, cg_batch, walk_end = idrome_runs(dev, card, counters, kabsch_kernel)
+    results["conv_block_bwd"] += check_conv_block_bwd(
+        k2, k4, models, dev, TOL, shapes={"IDRome CG": cg_batch})
+    for name, rows in check_nbr_kernels(
+        k6, k7, models, dev, c_in, cutoff, shapes={"IDRome walk end": (walk_end, True)},
+    ).items():
+        results[name] += rows
+    return idrome
+
+
+def phase8_only(out_path) -> int:
+    """`--phase8-only`: build, then phase 8 and its kernel checks alone, on
+    the flagship weights of seed 0 as the full run makes them."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
+    from jamun_tpu_torch.ops.cuda.build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda"), card_line()
+    log(card)
+    build_all()
+    counters = all_counters()
+    config = DenoiserConfig(max_radius=1.0, average_squared_distance=0.5)
+    c_in = normalization_factors(SIGMA, config.average_squared_distance)[0]
+    models = {cdt: E3Conv(tensor_product="uvu", dtype=cdt, device=dev, seed=0)
+              for cdt in (torch.bfloat16, torch.float32)}
+    for m in models.values():
+        m.output_gain.data.fill_(1.0)
+        m.requires_grad_(False)
+    cutoff = Denoiser(models[torch.float32], config).effective_radial_cutoff(SIGMA) / c_in
+    results = {"conv_block_bwd": [], "nbr_conv": [], "nbr_edge_features": []}
+    idrome = phase8(dev, card, counters, kb.KERNEL, models, c_in, cutoff, results)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(dict(card=card, idrome=idrome, compare=results), f, indent=1, default=str)
+    log("phase 8 alone: passed")
+    return 0
+
+
+def phase8_repeat(runs: int, out_dir: str) -> int:
+    """`--phase8-repeat N`: phase 8 alone (`--phase8-only`) in N fresh
+    processes one after the other, each one's standard output and error
+    kept in `out_dir`; prints how many passed and the end of each failed
+    run's error output, and fails unless all passed."""
+    os.makedirs(out_dir, exist_ok=True)
+    passed, failed = 0, []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        with open(os.path.join(out_dir, f"phase8_run{i}.out"), "w") as out, \
+                open(os.path.join(out_dir, f"phase8_run{i}.err"), "w") as err:
+            rc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--phase8-only", "--out",
+                 os.path.join(out_dir, f"phase8_run{i}.json")], stdout=out, stderr=err,
+            ).returncode
+        log(f"phase 8 run {i}: rc {rc} in {time.perf_counter() - t0:.1f} s")
+        if rc == 0:
+            passed += 1
+        else:
+            with open(os.path.join(out_dir, f"phase8_run{i}.err")) as err:
+                failed.append((i, rc, err.read()[-4000:]))
+    for i, rc, tail in failed:
+        log(f"phase 8 run {i} failed with rc {rc}; the end of its standard error:\n{tail}")
+    log(f"phase 8 alone: {passed} of {runs} runs passed")
+    return 0 if passed == runs else 1
+
+
+def all_counters() -> dict:
+    """Every kernel's launch counter by name (K8 and K9 share a source, as
+    K2 and its layer mode do)."""
+    from jamun_tpu_torch.ops.cuda import conv_block as k2
+    from jamun_tpu_torch.ops.cuda import conv_block_bwd as k4
+    from jamun_tpu_torch.ops.cuda import dense_conv as k89
+    from jamun_tpu_torch.ops.cuda import e3_stack as k3
+    from jamun_tpu_torch.ops.cuda import edge_features as k1
+    from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+    from jamun_tpu_torch.ops.cuda import nbr_conv as k6
+    from jamun_tpu_torch.ops.cuda import nbr_edge_features as k7
+
+    return {k.name: k for k in (
+        k1.KERNEL, k2.KERNEL, k2.LAYER_KERNEL, k3.KERNEL, k4.KERNEL, k5.KERNEL, k6.KERNEL,
+        k7.KERNEL, k89.K8, k89.K9,
+    )}
+
+
 def main() -> int:
     args = sys.argv[1:]
     out_path = args[args.index("--out") + 1] if "--out" in args else None
@@ -3656,6 +4034,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--phase8-only" in args:
+        return phase8_only(out_path)
+    if "--phase8-repeat" in args:
+        return phase8_repeat(int(args[args.index("--phase8-repeat") + 1]),
+                             out_path or os.path.join("runs", "phase8_repeat"))
     from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig, normalization_factors
     from jamun_tpu_torch.models.e3conv import E3Conv
     from jamun_tpu_torch.ops.cuda import conv_block as k2
@@ -3681,11 +4064,7 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    # every kernel's launch counter (K8 and K9 share a source, as K2 and its layer mode do)
-    counters = {k.name: k for k in (
-        k1.KERNEL, k2.KERNEL, k2.LAYER_KERNEL, k3.KERNEL, k4.KERNEL, k5.KERNEL, k6.KERNEL,
-        k7.KERNEL, k89.K8, k89.K9,
-    )}
+    counters = all_counters()
     logs = build_all()
     # every source has its phase here (the Kabsch rotation replaces no TPU kernel)
     assert sorted(logs) == sorted({k.source.stem for k in (*counters.values(), kb.KERNEL)}), sorted(logs)
@@ -4013,19 +4392,19 @@ def main() -> int:
         phase10 = dict(train=p10_train_runs(dev, card, counters, kb.KERNEL, work))
         phase10["sample"] = p10_sample_runs(dev, card, counters, kb.KERNEL, work, atoms)
         phase10["modules"] = p10_attention_equifold(dev, card, counters, work)
+        torch.cuda.empty_cache()
+        # ---- phase 11: E3Conv's last fields, the precision pin, the denoise
+        # metrics and the data-preparation copies ----
+        t11 = time.perf_counter()
+        phase11 = dict(tiled_training=tiled_kernel_training(dev, card, counters, train_tiled))
+        phase11["scanned"] = scanned_runs(dev, card, counters, kb.KERNEL, work, atoms)
+        phase11["scripts"] = scripts_without_jax(dev, card, counters)
+        phase11["seconds"] = time.perf_counter() - t11
+        log(f"phase 11: {phase11['seconds']:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
-    idrome, cg_batch, walk_end = idrome_runs(dev, card, counters, kb.KERNEL)
-    # this path's kernels against their plain versions at its shapes: K1, K2
-    # and K4 on the beads' training batch, K6 and K7 at the walk's last frame
-    results["conv_block_bwd"] += check_conv_block_bwd(
-        k2, k4, models, dev, TOL, shapes={"IDRome CG": cg_batch})
-    for name, rows in check_nbr_kernels(
-        k6, k7, models, dev, c_in, cutoff, shapes={"IDRome walk end": (walk_end, True)},
-    ).items():
-        results[name] += rows
-    del cg_batch, walk_end
+    idrome = phase8(dev, card, counters, kb.KERNEL, models, c_in, cutoff, results)
 
     # ---- the report ----
     def main_row(rows, **match):
@@ -4081,7 +4460,7 @@ def main() -> int:
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
                   k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
                   idrome=idrome, ophiuchus_train=oph_train, ophiuchus_vesde_sample=oph_sample,
-                  unrolled=unrolled, phase10=phase10)
+                  unrolled=unrolled, phase10=phase10, phase11=phase11)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -45,6 +45,7 @@ from jamun_tpu_torch.train.checkpoints import find_checkpoint, restore_checkpoin
 from jamun_tpu_torch.train.distributions import ConstantSigma
 from jamun_tpu_torch.train.state import TrainState, create_train_state, make_train_step
 from jamun_tpu_torch.utils.device import resolve_device
+from jamun_tpu_torch.utils.torch_setup import setup_torch
 
 log = logging.getLogger("jamun_tpu_torch")
 
@@ -162,6 +163,7 @@ def run(cfg) -> Dict[str, Any]:
     sampling denoiser, EMA weights), "finetune_losses", "results" (label ->
     every metric's result), "rates" (the CSV's rows), "per_batch" (the
     timing callback's batches)}."""
+    setup_torch()  # the precision policy first, as JAX calls setup_jax
     device = resolve_device(cfg.get("device"))
     if cfg.get("init_datasets") is None:
         raise ValueError("init_datasets must be configured for sampling")

@@ -36,6 +36,7 @@ from jamun_tpu_torch.train.state import TrainState
 from jamun_tpu_torch.utils.average_squared_distance import compute_average_squared_distance_from_datasets
 from jamun_tpu_torch.utils.device import resolve_device
 from jamun_tpu_torch.utils.equivariance import assert_arch_equivariant
+from jamun_tpu_torch.utils.torch_setup import setup_torch
 
 log = logging.getLogger("jamun_tpu_torch")
 
@@ -58,6 +59,7 @@ def equivariance_self_test(denoiser: Denoiser, datamodule: DataModule, device) -
 
 
 def run(cfg) -> TrainState:
+    setup_torch()  # the precision policy first, as JAX calls setup_jax
     device = resolve_device(cfg.get("device"))
     datasets = instantiate(cfg["data"]["datasets"])
     val_cfg = cfg["data"].get("val_datasets")

@@ -2,4 +2,4 @@
 `defaults/` is the port's copy of the JAX package's config tree."""
 
 from jamun_tpu_torch.config.compose import apply_overrides, compose, merge, resolve_interpolations
-from jamun_tpu_torch.config.instantiate import instantiate, locate, resolve_target
+from jamun_tpu_torch.config.instantiate import instantiate, instantiate_dict_cfg, locate, resolve_target

@@ -19,9 +19,9 @@ from __future__ import annotations
 
 import functools
 import importlib
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
 
-__all__ = ["port_path", "resolve_target", "locate", "instantiate"]
+__all__ = ["port_path", "resolve_target", "locate", "instantiate", "instantiate_dict_cfg"]
 
 _OPTAX = {
     "optax.adam": "jamun_tpu_torch.train.optim.adam",
@@ -98,3 +98,10 @@ def instantiate(cfg: Any, **extra_kwargs) -> Any:
         return functools.partial(target, **kwargs)
     return target(**kwargs)
 
+
+def instantiate_dict_cfg(cfg: Dict[str, Any], verbose: bool = False) -> List[Any]:
+    """Every entry of a dict of configs that has a `_target_`, instantiated,
+    in the dict's order (JAX's `config/instantiate.py:57-65`; `verbose` is
+    taken and unused there too)."""
+    return [instantiate(sub) for sub in (cfg or {}).values()
+            if isinstance(sub, dict) and "_target_" in sub]

@@ -21,13 +21,18 @@ from jamun_tpu_torch.data.batching import BucketSpec, collate
 from jamun_tpu_torch.data.datasets import StreamingRandomChainDataset
 from jamun_tpu_torch.ops.graph import GraphBatch
 
-__all__ = ["DataModule"]
+__all__ = ["DataModule", "PREFETCH_THREAD"]
+
+PREFETCH_THREAD = "jamun-tpu-torch-prefetch"  # the prefetch thread's name
 
 
 def _prefetched(it: Iterator[GraphBatch], depth: int) -> Iterator[GraphBatch]:
     """`it`, run `depth` batches ahead in a daemon thread. An error in the
     thread is raised to the consumer; a consumer that stops early (closes or
-    drops the generator) stops the thread."""
+    drops the generator) stops the thread and waits for it to end, so that
+    no batch is still being collated (and pinned) when the caller goes on:
+    a process that exits right after a run that stopped mid-epoch would
+    otherwise end while the thread is inside a native call, and abort."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -51,7 +56,8 @@ def _prefetched(it: Iterator[GraphBatch], depth: int) -> Iterator[GraphBatch]:
             return
         put(end)
 
-    threading.Thread(target=worker, daemon=True).start()
+    thread = threading.Thread(target=worker, name=PREFETCH_THREAD, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -62,6 +68,7 @@ def _prefetched(it: Iterator[GraphBatch], depth: int) -> Iterator[GraphBatch]:
             yield item
     finally:
         stop.set()
+        thread.join()
 
 
 @dataclasses.dataclass

@@ -11,5 +11,6 @@ from jamun_tpu_torch.models.embeddings import (
 from jamun_tpu_torch.models.noise_conditioning import (
     NoiseConditionalScaling,
     NoiseConditionalSkipConnection,
+    NoiseEmbedding,
 )
 from jamun_tpu_torch.models.ophiuchus import Ophiuchus, tensor_square

@@ -39,8 +39,11 @@ picked once per call as JAX's `E3Conv` picks them
   - the plain path (library ops on `ops/graph.dense_edge_data`): a call that
     wants a gradient above 128 atoms takes it wholesale, on either device,
     as JAX's training dispatch sends such calls to XLA; position gradients
-    work there. `plain=True` forces it (CPU only): the reference the kernel
-    path is held to. A call "wants a gradient" when autograd is on and the
+    work there. With `tiled_kernel_training=True` (JAX's benchmarking
+    escape hatch, off by default) such a call takes K5 instead, whose
+    backward recomputes the block with K5's plain twin under autograd
+    (`fused_block_tiled_trainable`). `plain=True` forces the plain path (CPU
+    only): the reference the kernel path is held to. A call "wants a gradient" when autograd is on and the
     positions or any parameter require one, so inference above 128 atoms
     must run under `torch.no_grad()` (or with `requires_grad_(False)`):
     otherwise it leaves K5 for this path and its [G, N, N, 704] messages per
@@ -100,11 +103,12 @@ from jamun_tpu_torch.ops.conv import PALLAS_VARIANTS, ConvBlock
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
+from jamun_tpu_torch.ops.cuda.conv_block import EDGE_FEATURE_ATOMS
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
 from jamun_tpu_torch.ops.cuda.nbr_edge_features import nbr_edge_features
 from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data
 from jamun_tpu_torch.ops.irreps import Irreps
-from jamun_tpu_torch.ops.mlp import EquivariantMLP
+from jamun_tpu_torch.ops.mlp import EquivariantMLP, xla_sigmoid
 from jamun_tpu_torch.ops.neighbors import neighbor_edge_data
 from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
 from jamun_tpu_torch.ops.sh import SH_IRREPS, spherical_harmonics
@@ -115,7 +119,6 @@ __all__ = [
     "kernel_structure", "EDGE_FEATURE_ATOMS",
 ]
 
-EDGE_FEATURE_ATOMS = 128  # up to here K1's edge features and K2 (K4); above, K5
 # "auto" neighbour mode: from these atom counts on JAX takes the sparse
 # capped-neighbour path (`jamun_tpu/models/e3conv.py:38-44`)
 _NBR_AUTO_TRAIN_N = 256
@@ -163,24 +166,6 @@ def irreps_to_vector(f: torch.Tensor) -> torch.Tensor:
     return torch.cat([f[..., 2:3], f[..., 0:2]], dim=-1)
 
 
-class _XlaSigmoid(torch.autograd.Function):
-    """The sigmoid as XLA evaluates JAX's `logistic` op by op, 1 / (1 +
-    exp(-t)) in t's dtype, with the derivative JAX takes, s (1 - s). The
-    quotient's own derivative is NaN where exp(-t) overflows (t below about
-    -88): 0 * inf in the exponential's backward."""
-
-    @staticmethod
-    def forward(ctx, t):
-        s = 1 / (1 + torch.exp(-t))
-        ctx.save_for_backward(s)
-        return s
-
-    @staticmethod
-    def backward(ctx, grad):
-        (s,) = ctx.saved_tensors
-        return grad * (s * (1 - s))
-
-
 class _HiddenLayer(nn.Module):
     """Noise scaling -> ConvBlock -> noise-conditional skip blend."""
 
@@ -226,6 +211,9 @@ class E3Conv(nn.Module):
         pallas_variant: str = "packed",
         device=None,
         seed: Optional[int] = None,
+        atom_axis: Optional[str] = None,
+        scan_layers: bool = False,
+        tiled_kernel_training: bool = False,
     ):
         """`dtype` is the compute dtype (parameters stay f32), a torch dtype
         or the arch files' "bfloat16" / null; `use_pallas=False` is the arch
@@ -239,8 +227,29 @@ class E3Conv(nn.Module):
         generator, so a seed gives the same weights on any device;
         `pallas_variant` ("packed" | "plane") is JAX's (module docstring);
         `use_residue_information=False` embeds atoms by type alone, in the
-        four embedding widths summed (JAX's `SimpleAtomEmbedding`)."""
+        four embedding widths summed (JAX's `SimpleAtomEmbedding`).
+
+        JAX's last three fields: `atom_axis` names a mesh axis of the
+        atom-sharded mode, which one card has not, so anything but None
+        raises; `scan_layers` is JAX's `nn.scan` over the hidden layers,
+        whose parameters flax stacks on a leading axis under
+        `Scan_HiddenLayer_0`: the port keeps its `_HiddenLayer_k` modules
+        and their per-layer compute, `params.from_jax_params` /
+        `to_jax_params(..., scan_layers=True)` slice and stack that subtree,
+        and the whole-model kernel stays off, as JAX's `_stack_ok` keeps it
+        off under scan; `tiled_kernel_training` lets a call that wants a
+        gradient above 128 atoms take K5 forward (`ops/cuda/
+        fused_block_tiled.fused_block_tiled_trainable`) instead of the plain
+        path."""
         super().__init__()
+        if atom_axis is not None:
+            raise NotImplementedError(
+                f"atom_axis={atom_axis!r}: the atom-sharded mode needs a mesh of several "
+                "devices (ROADMAP.md queue A, 'Parallel')"
+            )
+        self.atom_axis = atom_axis
+        self.scan_layers = scan_layers
+        self.tiled_kernel_training = tiled_kernel_training
         dtype = compute_dtype(dtype)
         if neighbor_mode not in ("dense", "nbr", "auto"):
             raise ValueError(f"neighbor_mode={neighbor_mode!r}")
@@ -341,13 +350,13 @@ class E3Conv(nn.Module):
         )
 
     def _stack_ok(self, batch: GraphBatch, c_noise: torch.Tensor) -> bool:
-        """Whether this call runs the whole-model kernel: the flag is on,
-        nothing wants a gradient (the kernel is forward only; the counterpart
-        of JAX's `training=False`), one noise level, and a shape K3 takes
-        (`stack_supported`: N <= 64)."""
+        """Whether this call runs the whole-model kernel: the flag is on and
+        `scan_layers` off (JAX's `_stack_ok`), nothing wants a gradient (the
+        kernel is forward only; the counterpart of JAX's `training=False`),
+        one noise level, and a shape K3 takes (`stack_supported`: N <= 64)."""
         if (
-            not self.fused_stack or not self.kernels or self.pallas_variant != "packed"
-            or c_noise.numel() != 1
+            not self.fused_stack or self.scan_layers or not self.kernels
+            or self.pallas_variant != "packed" or c_noise.numel() != 1
         ):
             return False
         if self._wants_grad(batch):
@@ -483,9 +492,12 @@ class E3Conv(nn.Module):
         on_card = batch.pos.device.type == "cuda"
         stack = self._stack_ok(batch, c_noise)
         supported = self.kernels and self.kernel_path_supported(N)
-        # the training dispatch: the tiled kernel is forward only, so a call
-        # that wants a gradient above 128 atoms takes the plain path wholesale
-        kernels = self.kernels and supported and not (wants_grad and N > EDGE_FEATURE_ATOMS)
+        # the training dispatch (JAX's `e3conv.py:333-338`): a call that wants
+        # a gradient above 128 atoms takes the plain path wholesale, unless
+        # `tiled_kernel_training` lets it take K5 with its recomputed backward
+        kernels = self.kernels and supported and not (
+            wants_grad and N > EDGE_FEATURE_ATOMS and not self.tiled_kernel_training
+        )
         if on_card and self.kernels and not supported:
             raise NotImplementedError(
                 f"N={N}, edge_attr_dim={self.edge_attr_dim}, hidden {self.irreps_hidden}, "
@@ -530,7 +542,7 @@ class E3Conv(nn.Module):
         xv = x[..., S:].reshape(G, N, V, 3).transpose(-1, -2).to(cdt)  # [G, N, 3, V]
         s_pre = lin(blk.weight(0, 0), S, xs)
         s_act = torch.where(s_pre >= 0, s_pre, s_pre * torch.tensor(0.01, dtype=cdt))
-        gates = _XlaSigmoid.apply(lin(blk.weight(0, 1), S, xs))
+        gates = xla_sigmoid(lin(blk.weight(0, 1), S, xs))
         gated = lin(blk.weight(1, 2), V, xv) * gates[:, :, None]
         parts = []
         for j, mi in enumerate(self.irreps_out):

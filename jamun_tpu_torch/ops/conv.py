@@ -39,7 +39,9 @@ through the hand-written kernels on the card (their plain twins on the CPU),
 in the regime its geometry argument names, as JAX's `ConvBlock._fused_block`
 does: on `PairFeatures` (up to 128 atoms) `fused_conv_block` (K2) when no
 gradient is wanted and `conv_block_trainable` (K2 forward, K4 backward) when
-one is; on `TiledGeometry` (any size) `fused_block_tiled` (K5), forward only.
+one is; on `TiledGeometry` (any size) `fused_block_tiled` (K5), and when a
+gradient is wanted `fused_block_tiled_trainable` (K5 forward, the recomputed
+backward of JAX's `make_trainable_conv_block_v2`).
 """
 
 from __future__ import annotations
@@ -61,7 +63,11 @@ from jamun_tpu_torch.ops.cuda.conv_block import (
 )
 from jamun_tpu_torch.ops.cuda.dense_conv import fused_uvu_conv_dense, packed_uvu_conv_dense
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
-from jamun_tpu_torch.ops.cuda.fused_block_tiled import TiledGeometry, fused_block_tiled
+from jamun_tpu_torch.ops.cuda.fused_block_tiled import (
+    TiledGeometry,
+    fused_block_tiled,
+    fused_block_tiled_trainable,
+)
 from jamun_tpu_torch.ops.cuda.nbr_conv import nbr_uvu_conv
 from jamun_tpu_torch.ops.experimental_tp import ExperimentalTensorProduct
 from jamun_tpu_torch.ops.fast_uvu import (
@@ -363,8 +369,8 @@ class ConvBlock(nn.Module):
         128 atoms) or `TiledGeometry` (`tiled_geometry_inputs`, any size).
         Returns f32 [G, N, Sc + 3Vg]. On `PairFeatures` it is differentiable
         in x, the block's parameters and bond0/bond1 when autograd asks for
-        it; on `TiledGeometry` a wanted gradient raises (the model sends such
-        calls to the plain path)."""
+        it, on either geometry (the model sends a call that wants a gradient
+        above 128 atoms here only under `tiled_kernel_training`)."""
         cdt = compute_dtype or x.dtype
         conv = self.Conv_0
         masters = block_master_weights(
@@ -377,11 +383,7 @@ class ConvBlock(nn.Module):
         )
         if isinstance(geometry, TiledGeometry):
             if wants_grad:
-                raise NotImplementedError(
-                    "ConvBlock.fused: the tiled kernel is forward only (JAX's tiled_kernel_training, "
-                    "ROADMAP.md queue A, 'Tiled kernel training'); a call that wants a gradient "
-                    "above 128 atoms takes the plain path"
-                )
+                return fused_block_tiled_trainable(x, geometry, masters)
             return fused_block_tiled(x, geometry, cast_block_weights(masters, cdt))
         if wants_grad:
             return conv_block_trainable(x, *geometry, masters)

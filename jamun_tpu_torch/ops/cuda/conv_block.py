@@ -40,15 +40,16 @@ from jamun_tpu_torch.ops.fast_uvu import uvu_messages
 __all__ = [
     "BlockWeights", "PairFeatures", "block_master_weights", "cast_block_weights", "pack_block_weights",
     "fused_conv_block", "fused_conv_block_plain", "conv_block_residuals_plain",
-    "conv_block_trainable", "linear_scales", "rounded_divisor", "pair_sums_plain",
+    "conv_block_trainable", "master_grads", "linear_scales", "rounded_divisor", "pair_sums_plain",
     "LayerWeights", "layer_weights", "conv_layer", "conv_layer_plain",
-    "KERNEL", "LAYER_KERNEL", "N_RADIAL", "MAX_WIDTH", "occupancy", "smem_bytes",
+    "KERNEL", "LAYER_KERNEL", "N_RADIAL", "MAX_WIDTH", "EDGE_FEATURE_ATOMS", "occupancy", "smem_bytes",
     "threads_for", "pair_tiles_bytes", "epilogue_tiles_bytes", "staged_b_bytes", "scratch_bytes",
     "MAX_SMEM", "stage_fits",
 ]
 
 N_RADIAL = 32  # the kernel's radial basis size (edge_attr_dim 64)
 MAX_WIDTH = 384  # radial MLP output width 2S + 3V the kernel takes (one thread each)
+EDGE_FEATURE_ATOMS = 128  # up to here K1's edge features and K2 (K4); above, K5
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 19 + [_I] * 7 + [_P]
@@ -485,14 +486,21 @@ class _TrainableConvBlock(torch.autograd.Function):
     def backward(ctx, g):
         x, ef, bf, bond_src, bond_dst, agg, deg, *wt = ctx.saved_tensors
         w = BlockWeights(*wt, *ctx.shape)
-        grads = conv_block_bwd(g.contiguous(), x, ef, bf, bond_src, bond_dst, w, agg, deg)
-        # the VJP divides by the f32 sqrt(fan-in), as `packed_conv_block_bwd`
-        # does (`packed_conv.py:2317`), whatever the forward's rounded divisor
-        scales = linear_scales(*ctx.shape)
-        d_masters = [
-            grads[k] / scales[k] if k in scales else grads[k] for k in BlockWeights._fields[:11]
-        ]
-        return (grads["dx"].to(x.dtype), None, None, None, None, None, *d_masters)
+        dx, d_masters = master_grads(g, x, ef, bf, bond_src, bond_dst, w, agg, deg)
+        return (dx, None, None, None, None, None, *d_masters)
+
+
+def master_grads(g, x, ef, bf, bond_src, bond_dst, w: BlockWeights, agg, deg):
+    """K4 on the packed weights `w`, its gradients taken back to the f32
+    masters: (dx in x's dtype, [d_master per `BlockWeights` tensor field])."""
+    grads = conv_block_bwd(g.contiguous(), x, ef, bf, bond_src, bond_dst, w, agg, deg)
+    # the VJP divides by the f32 sqrt(fan-in), as `packed_conv_block_bwd`
+    # does (`packed_conv.py:2317`), whatever the forward's rounded divisor
+    scales = linear_scales(w.S, w.V, w.Sc, w.Vg)
+    d_masters = [
+        grads[k] / scales[k] if k in scales else grads[k] for k in BlockWeights._fields[:11]
+    ]
+    return grads["dx"].to(x.dtype), d_masters
 
 
 def conv_block_trainable(x, ef, bf, bond_src, bond_dst, masters: BlockWeights) -> torch.Tensor:

@@ -291,7 +291,7 @@ def conv_block_bwd(g, x, ef, bf, bond_src, bond_dst, w, agg, deg) -> dict:
         raise NotImplementedError(
             f"conv_block_bwd: N={N}, B={B}: the pair pass's list of its sources' pairs does not "
             f"fit a block's shared memory (K2's regime, N <= 128, does); see "
-            "ROADMAP.md queue A, 'Tiled kernel training'"
+            "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
         )
     f32 = torch.float32
     checks = [

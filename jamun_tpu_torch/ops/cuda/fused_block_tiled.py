@@ -18,9 +18,14 @@ Inputs: block input x [G, N, S + 3V] (packed irreps, compute dtype), the
 `TiledGeometry` of `tiled_geometry_inputs` (scaled positions, masks, bonds,
 cutoff) and the block's `BlockWeights` (`ops/cuda/conv_block`, the same
 packing as K2's). Output: f32 [G, N, Sc + 3Vg] in gate.irreps_out layout.
-Forward only: the positions get no gradient (a position that wants one
-raises, as `packed_geometry_inputs` refuses it), and a call that
-differentiates the block above 128 atoms takes the model's plain path.
+The kernel itself is forward only. `fused_block_tiled_trainable` is the
+counterpart of `make_trainable_conv_block_v2` (`packed_conv.py:2923-2976`,
+which `E3Conv(tiled_kernel_training=True)` reaches): K5 forward, and as its
+backward JAX's `f_bwd`: above 128 atoms the block recomputed by the plain
+twin under autograd (JAX differentiates `xla_reference=True`), up to 128
+atoms K1's edge features rebuilt and K4 (with K2 for the aggregates K4
+reads). The positions get no gradient either way (a position that wants one
+raises, as `packed_geometry_inputs` refuses it).
 """
 
 from __future__ import annotations
@@ -33,17 +38,22 @@ import torch
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda.build import CudaKernel
 from jamun_tpu_torch.ops.cuda.conv_block import (
+    EDGE_FEATURE_ATOMS,
     MAX_WIDTH,
     N_RADIAL,
     BlockWeights,
     _aggregate_plain,
     _epilogue_plain,
+    cast_block_weights,
+    fused_conv_block,
+    master_grads,
 )
-from jamun_tpu_torch.ops.cuda.edge_features import edge_features_plain
+from jamun_tpu_torch.ops.cuda.edge_features import edge_features, edge_features_plain
 
 __all__ = [
     "TiledGeometry", "tiled_geometry_inputs", "fused_block_tiled",
-    "fused_block_tiled_plain", "KERNEL", "MAX_ATOMS", "MAX_GRAPHS", "MAX_SHARED_BYTES",
+    "fused_block_tiled_plain", "fused_block_tiled_trainable", "KERNEL", "MAX_ATOMS", "MAX_GRAPHS",
+    "MAX_SHARED_BYTES",
     "pair_layout", "layout", "occupancy",
 ]
 
@@ -265,3 +275,58 @@ def fused_block_tiled(x, geo: TiledGeometry, w: BlockWeights, return_degree: boo
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     return (out, deg) if return_degree else out
+
+
+class _TrainableTiledBlock(torch.autograd.Function):
+    """Forward K5; backward JAX's `f_bwd` of `make_trainable_conv_block_v2`.
+    The weight inputs are the f32 masters of `block_master_weights`: the
+    cast to the compute dtype and the 1/sqrt(fan-in) scale happen inside,
+    so the weight gradients stay f32 as JAX's VJP returns them. The
+    geometry gets no gradient (JAX returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, x, pos, node_mask, bond_src, bond_dst, bond_mask, spec, *masters):
+        geo = TiledGeometry(pos, node_mask, bond_src, bond_dst, bond_mask, *spec[4:])
+        w = cast_block_weights(BlockWeights(*masters, *spec[:4]), x.dtype)
+        ctx.save_for_backward(x, pos, node_mask, bond_src, bond_dst, bond_mask, *masters)
+        ctx.spec = spec
+        return fused_block_tiled(x, geo, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, pos, node_mask, bond_src, bond_dst, bond_mask, *masters = ctx.saved_tensors
+        shape, (cutoff, n_radial) = ctx.spec[:4], ctx.spec[4:]
+        geo = TiledGeometry(pos, node_mask, bond_src, bond_dst, bond_mask, cutoff, n_radial)
+        if x.shape[1] <= EDGE_FEATURE_ATOMS:
+            # JAX's branch at `packed_conv.py:2950-2960`: K1's features again,
+            # K2 for the aggregates and degree K4 reads, then K4
+            w = cast_block_weights(BlockWeights(*masters, *shape), x.dtype)
+            ef, bf = edge_features(pos, node_mask, bond_src, bond_dst, bond_mask, cutoff,
+                                   n_radial, x.dtype)
+            _, agg, deg = fused_conv_block(x, ef, bf, bond_src, bond_dst, w, residuals=True)
+            dx, d_masters = master_grads(g, x, ef, bf, bond_src, bond_dst, w, agg, deg)
+        else:
+            # `packed_conv.py:2961-2967`: autograd through the same block, here
+            # K5's plain twin (JAX's `xla_reference=True`)
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_(True)
+                mr = [m.detach().requires_grad_(True) for m in masters]
+                out = fused_block_tiled_plain(
+                    xr, geo, cast_block_weights(BlockWeights(*mr, *shape), x.dtype)
+                )
+                dx, *d_masters = torch.autograd.grad(out, [xr, *mr], g, allow_unused=True)
+            d_masters = [torch.zeros_like(m) if d is None else d for m, d in zip(masters, d_masters)]
+        return (dx, None, None, None, None, None, None, *d_masters)
+
+
+def fused_block_tiled_trainable(x, geo: TiledGeometry, masters: BlockWeights) -> torch.Tensor:
+    """`fused_block_tiled` on the f32 masters of `block_master_weights`,
+    differentiable in x and every master (counterpart of
+    `make_trainable_conv_block_v2`). Forward K5 on the card; the backward
+    recomputes (module docstring). A position that wants a gradient raises."""
+    _refuse_position_gradient(geo.pos)
+    spec = (masters.S, masters.V, masters.Sc, masters.Vg, geo.cutoff, geo.n_radial)
+    return _TrainableTiledBlock.apply(
+        x, geo.pos, geo.node_mask, geo.bond_src, geo.bond_dst, geo.bond_mask, spec,
+        *masters.tensors(),
+    )

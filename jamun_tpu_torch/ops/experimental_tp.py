@@ -14,6 +14,7 @@ from typing import List, Sequence, Tuple, Union
 import torch
 
 from jamun_tpu_torch.ops.cg import real_wigner_3j
+from jamun_tpu_torch.ops.cuda.conv_block import rounded_divisor
 from jamun_tpu_torch.ops.irreps import Irreps
 
 __all__ = ["full_tensor_product", "ExperimentalTensorProduct", "external_linear"]
@@ -93,7 +94,10 @@ class _ExternalLinear:
             mi = self.irreps_in[ii]
             f = x[..., sl_in[ii]].reshape(batch + (m_in, mi.ir.dim))
             w = w.reshape(w.shape[:-1] + (m_in, m_out))
-            blk = torch.einsum("...ui,...uw->...wi", f, w) / math.sqrt(max(self._fan[io], 1))
+            # the divisor rounded to the compute dtype first, as JAX's weak
+            # typing rounds `blk / math.sqrt(fan)` (a bf16 divisor in bf16)
+            blk = torch.einsum("...ui,...uw->...wi", f, w)
+            blk = blk / rounded_divisor(math.sqrt(max(self._fan[io], 1)), blk.dtype, blk.device)
             out[io] = blk if out[io] is None else out[io] + blk
         flat = [
             x.new_zeros(batch + (mo.dim,)) if blk is None else blk.reshape(batch + (mo.dim,))

@@ -20,7 +20,30 @@ from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.layer_norm import equivariant_layer_norm
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 
-__all__ = ["Dense", "ScalarMLP", "EquivariantMLP"]
+__all__ = [
+    "Dense", "ScalarMLP", "EquivariantMLP", "torch_linear_kernel_init", "torch_linear_bias_init",
+    "xla_sigmoid", "silu",
+]
+
+
+def _uniform(generator: torch.Generator, shape, bound: float, dtype) -> torch.Tensor:
+    return ((torch.rand(tuple(shape), generator=generator) * 2 - 1) * bound).to(dtype)
+
+
+def torch_linear_kernel_init(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    """torch.nn.Linear's default for a kernel [fan_in, out]: U(+-1/sqrt(fan_in))
+    (JAX's initializer of the same name, drawn from a torch generator)."""
+    return _uniform(generator, shape, shape[0] ** -0.5, dtype)
+
+
+def torch_linear_bias_init(fan_in: int):
+    """torch.nn.Linear's default for a bias: an initializer
+    (generator, shape, dtype) -> U(+-1/sqrt(fan_in))."""
+
+    def init(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+        return _uniform(generator, shape, fan_in**-0.5, dtype)
+
+    return init
 
 
 class Dense(nn.Module):
@@ -39,16 +62,48 @@ class Dense(nn.Module):
             self.kernel.data.zero_()
             self.bias.data.fill_(1.0)
             return
-        bound = self.kernel.shape[0] ** -0.5
-        for p in (self.kernel, self.bias):
-            p.data.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+        self.kernel.data.copy_(torch_linear_kernel_init(generator, self.kernel.shape))
+        self.bias.data.copy_(torch_linear_bias_init(self.kernel.shape[0])(generator, self.bias.shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
 
 
+class _XlaSigmoid(torch.autograd.Function):
+    """The sigmoid as XLA evaluates JAX's `logistic` op by op, 1 / (1 +
+    exp(-t)) in t's dtype, with the derivative JAX takes, s (1 - s). The
+    quotient's own derivative is NaN where exp(-t) overflows (t below about
+    -88): 0 * inf in the exponential's backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        s = 1 / (1 + torch.exp(-t))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, grad):
+        (s,) = ctx.saved_tensors
+        return grad * (s * (1 - s))
+
+
+def xla_sigmoid(t: torch.Tensor) -> torch.Tensor:
+    """JAX's sigmoid with XLA's rounding points in t's dtype (`_XlaSigmoid`)."""
+    return _XlaSigmoid.apply(t)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """JAX's `nn.silu`, x * sigmoid(x), with XLA's rounding points in a 16-bit
+    dtype: each of exp, 1 + ., 1 / . and the product rounded to x's dtype
+    (torch's fused SiLU rounds once). f32 and wider take `F.silu`."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x * xla_sigmoid(x)
+    return F.silu(x)
+
+
 class ScalarMLP(nn.Module):
-    """Dense -> SiLU per hidden width, then a final Dense."""
+    """Dense -> SiLU per hidden width, then a final Dense; in a 16-bit
+    compute dtype the SiLU rounds where JAX's XLA path rounds (`silu`)."""
 
     def __init__(self, in_features: int, out_features: int, hidden_features: Sequence[int]):
         super().__init__()
@@ -63,7 +118,7 @@ class ScalarMLP(nn.Module):
     def hidden(self, x: torch.Tensor) -> torch.Tensor:
         """The input of the final Dense layer."""
         for i in range(self.n_layers - 1):
-            x = F.silu(self.layer(i)(x))
+            x = silu(self.layer(i)(x))
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

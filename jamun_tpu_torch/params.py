@@ -22,6 +22,14 @@ modules (`ops/contrib/equifold.py`): `SVLinear`'s `w_s` [out, in], `b_s`
 `attn_msg_w_s`, ...) [H, out, in] and [H, out]; `RadialNN`'s `Dense_k` as
 flax's Dense ([in, out]). None of these is transposed either.
 
+`E3Conv(scan_layers=True)` in JAX runs its hidden layers under `nn.scan`,
+and flax keeps their parameters in one subtree, `Scan_HiddenLayer_0`, each
+leaf with a leading axis of length `n_layers`. The port keeps its
+`_HiddenLayer_k` modules either way: `from_jax_params` slices that subtree
+into them (it knows the subtree by its name), and `to_jax_params(...,
+scan_layers=True)` stacks them back; the model says whether it is scanned,
+the shapes are not read for it.
+
 `load_jax_train_state` places a whole JAX train state (as
 `train.checkpoints.read_flax_msgpack` reads it) in the port's `TrainState`;
 `init_parameters` draws a module's parameters from a seed (each submodule's
@@ -35,40 +43,73 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params", "load_jax_train_state", "init_parameters"]
+__all__ = ["from_jax_params", "to_jax_params", "load_jax_train_state", "init_parameters", "SCANNED"]
 
 _OTHER = "ROADMAP.md queue A, 'Other config targets'"
 
 
+SCANNED = "Scan_HiddenLayer_0"  # flax's name of `nn.scan(_HiddenLayer, ...)`'s subtree
+_LAYER = "_HiddenLayer_"
+
+
+def _leaves(node: Mapping, prefix: str = ""):
+    for k, v in node.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, Mapping):
+            yield from _leaves(v, name)
+        else:
+            yield name, v
+
+
 def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (optionally under "params") -> a
-    state_dict of f32 tensors for the arch's `load_state_dict(..., strict=True)`."""
+    state_dict of f32 tensors for the arch's `load_state_dict(..., strict=True)`.
+    A scanned E3Conv's `Scan_HiddenLayer_0` goes to `_HiddenLayer_k`, each
+    leaf's slice k of its leading axis."""
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            name = f"{prefix}.{k}" if prefix else k
-            if isinstance(v, Mapping):
-                walk(v, name)
-            else:
-                out[name] = torch.from_numpy(np.array(v, dtype=np.float32))
-
-    walk(tree, "")
+    for name, v in _leaves(tree):
+        a = np.array(v, dtype=np.float32)
+        head, _, rest = name.partition(".")
+        if head == SCANNED:
+            for k in range(a.shape[0]):
+                out[f"{_LAYER}{k}.{rest}"] = torch.from_numpy(a[k])
+        else:
+            out[name] = torch.from_numpy(a)
     return out
 
 
-def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse: a state_dict -> {"params": nested dict of numpy arrays}."""
+def to_jax_params(state_dict: Mapping[str, torch.Tensor], scan_layers: bool = False) -> dict:
+    """The inverse: a state_dict -> {"params": nested dict of numpy arrays}.
+    With `scan_layers=True` (the model's own flag) the `_HiddenLayer_k`
+    modules go to one `Scan_HiddenLayer_0` subtree, each leaf stacked over k
+    on a new leading axis, where flax keeps a scanned E3Conv's layers."""
     tree: dict = {}
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
     for name, t in state_dict.items():
-        node = tree
-        *path, leaf = name.split(".")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = t.detach().cpu().numpy()
+        a = t.detach().cpu().numpy()
+        head, _, rest = name.partition(".")
+        if scan_layers and head.startswith(_LAYER):
+            if not layers:
+                tree[SCANNED] = {}  # flax's place for it: where the first layer was
+            layers.setdefault(int(head[len(_LAYER):]), {})[rest] = a
+            continue
+        _put(tree, name, a)
+    if scan_layers:
+        if sorted(layers) != list(range(len(layers))) or not layers:
+            raise ValueError(f"scan_layers: hidden layers {sorted(layers)} are not 0..n-1")
+        for rest in layers[0]:
+            _put(tree[SCANNED], rest, np.stack([layers[k][rest] for k in range(len(layers))]))
     return {"params": tree}
+
+
+def _put(tree: dict, name: str, value) -> None:
+    node = tree
+    *path, leaf = name.split(".")
+    for k in path:
+        node = node.setdefault(k, {})
+    node[leaf] = value
 
 
 def init_parameters(module: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -160,6 +201,10 @@ def load_jax_train_state(tree: Mapping, state):
     `state.module` and `state.ema` (strict), `step`, and `opt_state` into the
     optimizer (`_load_jax_opt_state`). A rule the port lacks, or a chained
     schedule it cannot place, raises rather than load a wrong state.
+
+    A scanned E3Conv's trees (its layers stacked under
+    `Scan_HiddenLayer_0`) load the same way: `from_jax_params` slices
+    them, in the parameters, the EMA and Adam's mu and nu alike.
 
     `rng` (a JAX PRNG key) is not carried: the port draws its noise from
     `torch.Generator`s, which a JAX key cannot seed to the same stream, so

@@ -12,7 +12,10 @@ directory layout is JAX's: an always-written `last.ckpt`, the top k by
 bytes tell them apart: a `torch.save` file is a zip (`PK\x03\x04`), a flax
 file starts with a msgpack map (0x80-0x8f, 0xde or 0xdf); any other start
 raises. `read_flax_msgpack` decodes a flax file without flax, and
-`params.load_jax_train_state` places JAX's state in the port's.
+`params.load_jax_train_state` places JAX's state in the port's, a scanned
+E3Conv's too (`scan_layers=True`: flax's stacked `Scan_HiddenLayer_0` in
+the parameters, the EMA and Adam's mu and nu, sliced onto the port's
+layers by name). The port's own files keep one entry per layer either way.
 """
 
 from __future__ import annotations

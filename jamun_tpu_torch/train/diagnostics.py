@@ -3,9 +3,10 @@
 
 `SigmaDistributionDiagnostics` gathers (step, sigma, loss, grad_norm) at
 each logged train step and writes them as a CSV per epoch, with a density
-plot where matplotlib is installed, as in JAX. JAX's per-sigma denoise metrics
-(`visualize_denoise_metrics`) are not ported (ROADMAP.md queue A,
-'Denoise visualization').
+plot where matplotlib is installed, as in JAX. `visualize_denoise_metrics`
+denoises one batch at a ladder of fixed sigmas and returns the per-sigma
+metrics (JAX's `train/diagnostics.py:83-106`, the reference's
+`VisualizeDenoise` without its wandb views); it needs no plotting package.
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ from __future__ import annotations
 import csv
 import importlib.util
 import os
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["SigmaDistributionDiagnostics"]
+from jamun_tpu_torch.models.denoiser import Denoiser
+
+__all__ = ["SigmaDistributionDiagnostics", "visualize_denoise_metrics"]
 
 
 class SigmaDistributionDiagnostics:
@@ -72,3 +76,29 @@ class SigmaDistributionDiagnostics:
         fig.savefig(os.path.join(self.output_dir, f"sigma_distribution_epoch{epoch}.png"), dpi=100)
         plt.close(fig)
 
+
+
+def visualize_denoise_metrics(
+    denoiser,
+    module: torch.nn.Module,
+    batch,
+    sigmas: Sequence[float] = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32),
+    seed: int = 0,
+) -> Dict[float, Dict[str, float]]:
+    """Noise `batch` at each sigma and denoise it with `module` (the EMA
+    weights, in `denoiser`'s configuration, aligned as in evaluation) ->
+    {sigma: {metric: its mean over the valid graphs}}. Sigma i draws its
+    noise from a generator on the batch's device seeded with seed + i (JAX
+    seeds a PRNG key the same way; the draws differ between the two)."""
+    den = Denoiser(module, denoiser.config)
+    gm = batch.graph_mask.to(torch.float32)
+    denom = torch.clamp(gm.sum(), min=1.0)
+    out: Dict[float, Dict[str, float]] = {}
+    for i, sigma in enumerate(sigmas):
+        generator = torch.Generator(device=batch.pos.device).manual_seed(seed + i)
+        with torch.no_grad():
+            _, aux = den.noise_and_compute_loss(
+                batch, float(sigma), generator, denoiser.config.align_noisy_input_during_evaluation
+            )
+        out[float(sigma)] = {k: float((v * gm).sum() / denom) for k, v in aux.items()}
+    return out

@@ -6,8 +6,9 @@ datamodule, resume_from)` trains `denoiser.arch` in place for up to
 `max_epochs` epochs or `max_steps` steps, logs every `log_every_n_steps`,
 validates on the EMA weights every `val_every_n_steps` (or at each epoch's
 end) and saves a checkpoint at every validation (`train/checkpoints.py`),
-stops on a non-finite validation loss when `check_finite` is set, and
-collects the sigma diagnostics.
+stops on a non-finite validation loss when `check_finite` is set,
+collects the sigma diagnostics, and with `visualize_denoise_sigmas` logs
+`val/scaled_rmsd_sigma{s}` at each validation (`visualize_denoise_metrics`).
 
 The port runs on one card: `num_devices` above 1 and `atom_sharded=True`
 raise (ROADMAP.md queue A, 'Parallel'); "auto" is a no-op. There is no
@@ -29,7 +30,7 @@ import torch
 
 from jamun_tpu_torch.models.denoiser import Denoiser
 from jamun_tpu_torch.train.checkpoints import CheckpointManager, restore_checkpoint
-from jamun_tpu_torch.train.diagnostics import SigmaDistributionDiagnostics
+from jamun_tpu_torch.train.diagnostics import SigmaDistributionDiagnostics, visualize_denoise_metrics
 from jamun_tpu_torch.train.loggers import ConsoleLogger, MultiLogger
 from jamun_tpu_torch.train.state import (
     TrainState,
@@ -60,7 +61,7 @@ class TrainerConfig:
     atom_shard_threshold: int = 1024
     seed: int = 0
     collect_sigma_diagnostics: bool = True  # sigma against loss and grad norm, a CSV per epoch
-    visualize_denoise_sigmas: tuple = ()  # not ported: must stay empty
+    visualize_denoise_sigmas: tuple = ()  # per-sigma denoise metrics at each validation
 
 
 class Trainer:
@@ -73,10 +74,6 @@ class Trainer:
             raise NotImplementedError(
                 f"num_devices={config.num_devices}, atom_sharded={config.atom_sharded}: training "
                 "on several devices is not ported (ROADMAP.md queue A, 'Parallel')"
-            )
-        if config.visualize_denoise_sigmas:
-            raise NotImplementedError(
-                "visualize_denoise_sigmas is not ported (ROADMAP.md queue A, 'Denoise visualization')"
             )
         self.config = config
         self.device = resolve_device(device)
@@ -135,19 +132,19 @@ class Trainer:
                     metrics["epoch"] = epoch
                     self.logger.log_metrics(metrics, step)
                 if cfg.val_every_n_steps and step % cfg.val_every_n_steps == 0:
-                    stop = self._validate(state, eval_step, datamodule) or stop
+                    stop = self._validate(state, eval_step, datamodule, denoiser) or stop
                 if cfg.max_steps and step >= cfg.max_steps:
                     stop = True
                 if stop:
                     break
             if not cfg.val_every_n_steps:
-                stop = self._validate(state, eval_step, datamodule) or stop
+                stop = self._validate(state, eval_step, datamodule, denoiser) or stop
             if self.diagnostics:
                 self.diagnostics.flush(epoch)
         self.logger.finalize()
         return state
 
-    def _validate(self, state: TrainState, eval_step, datamodule) -> bool:
+    def _validate(self, state: TrainState, eval_step, datamodule, denoiser: Denoiser) -> bool:
         """Logs val/* averaged over batches and saves a checkpoint; True when
         training should stop (a non-finite loss)."""
         cfg = self.config
@@ -166,6 +163,15 @@ class Trainer:
         if n == 0:
             return False
         metrics = {f"val/{k}": v / n for k, v in totals.items()}
+        if cfg.visualize_denoise_sigmas:
+            # JAX's `train/loop.py:243-250`: the EMA weights on the first
+            # validation batch, one metric per sigma
+            batch0 = next(iter(datamodule.val_batches())).to_device(self.device)
+            per_sigma = visualize_denoise_metrics(
+                denoiser, state.ema, batch0, sigmas=cfg.visualize_denoise_sigmas
+            )
+            for sigma, aux in per_sigma.items():
+                metrics[f"val/scaled_rmsd_sigma{sigma}"] = aux["scaled_rmsd"]
         self.logger.log_metrics(metrics, state.step)
         self.ckpt.save(state, state.step, metrics)
         if cfg.check_finite and not math.isfinite(metrics.get("val/loss", 0.0)):

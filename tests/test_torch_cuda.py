@@ -706,3 +706,37 @@ def test_aligned_training_step_never_waits(cuda, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert state.step == 1 and kb.KERNEL.launches - n == 1
+
+
+@pytest.mark.parametrize("n_atoms", [136, 40], ids=["recompute", "k4"])
+def test_trainable_tiled_block_matches_cpu(cuda, n_atoms):
+    """K5 under autograd (`ConvBlock.fused` on a `TiledGeometry` with a
+    gradient wanted): one K5 launch forward; the backward recomputes the
+    plain twin above 128 atoms, or runs K1, K2 and K4 at or below. Output
+    and every gradient (x and each parameter), f32, against the same block
+    on the CPU (the twins throughout)."""
+    from jamun_tpu_torch.ops.conv import ConvBlock
+
+    batch = make_test_batch(num_graphs=2, max_nodes=n_atoms, max_bonds=2 * n_atoms, scale=0.6,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    base = ConvBlock("16x0e + 8x1e", "16x0e + 8x1e", "1x0e + 1x1e", 64)
+    for m in base.modules():
+        if m is not base and hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    x = torch.randn((2, n_atoms, 40), generator=gen)
+    bond = torch.randn((2, 32), generator=gen)
+    cot = torch.randn((2, n_atoms, 40), generator=gen)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        m = copy.deepcopy(base).to(dev)
+        b = batch.to(dev)
+        geo = k5.tiled_geometry_inputs(b.pos, b.node_mask, b.bond_src, b.bond_dst, b.bond_mask, 0.9)
+        xt = x.clone().to(dev).requires_grad_(True)  # a leaf of its own on each device
+        n5 = k5.KERNEL.launches
+        out = m.fused(xt, geo, bond[0].to(dev), bond[1].to(dev))
+        assert k5.KERNEL.launches - n5 == (1 if dev.type == "cuda" else 0)
+        (out * cot.to(dev)).sum().backward()
+        outs.append([out.detach().cpu(), xt.grad.cpu()] + [p.grad.cpu() for p in m.parameters()])
+    for got, want in zip(outs[1], outs[0]):
+        assert _rel(got, want) <= TOL[torch.float32]

@@ -255,13 +255,22 @@ def test_equivariant_mlp():
 
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|optax|jamun_tpu)(?:\.|\s|$)", re.M)
+_DATA_SCRIPTS = (  # the copies of the data-preparation scripts on jamun_tpu_torch.data
+    "torch_make_synthetic_data.py", "torch_prepare_pdb.py", "torch_chunk_trajectory.py",
+    "torch_process_mdgen.py", "torch_process_fast_folding_proteins.py", "torch_to_all_atom.py",
+)
 
 
 def test_port_imports_no_jax():
-    """No source of the port, and not chip_smoke.py, imports jax, flax, optax
-    or jamun_tpu (the pattern does not match jamun_tpu_torch), and importing
-    every module of the port in a fresh interpreter loads none of them."""
-    sources = sorted((REPO / "jamun_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """No source of the port, not chip_smoke.py and no `scripts/torch_*.py`
+    (the data-preparation copies included) imports jax, flax, optax or
+    jamun_tpu (the pattern does not match jamun_tpu_torch), and importing
+    every module of the port and every data-preparation copy in a fresh
+    interpreter loads none of them."""
+    scripts = sorted((REPO / "scripts").rglob("torch_*.py"))
+    data_scripts = [p for p in scripts if p.name in _DATA_SCRIPTS]
+    assert sorted(p.name for p in data_scripts) == sorted(_DATA_SCRIPTS)
+    sources = sorted((REPO / "jamun_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + scripts
     assert len(sources) > 10
     offenders = [str(p) for p in sources if _FORBIDDEN.search(p.read_text())]
     assert not offenders, offenders
@@ -273,8 +282,11 @@ def test_port_imports_no_jax():
         for p in sorted((REPO / "jamun_tpu_torch").rglob("*.py"))
     ]
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"for i, p in enumerate({[str(p) for p in data_scripts]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'data_script_{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'jamun_tpu')]\n"
         "print(len(bad)); sys.exit(1 if bad else 0)\n"
     )

@@ -182,15 +182,17 @@ def test_geometry_refuses_position_gradients(grad_mode):
                 k5.fused_block_tiled(torch.zeros(2, 136, 24), geo, None)
         else:
             assert k5.tiled_geometry_inputs(pos, *args).pos.shape == pos.shape  # grad mode off: goes
-    # a block input or a weight that wants a gradient raises too: forward only
+    # a block input or a weight that wants a gradient takes the trainable
+    # block (K5 forward, JAX's recomputed backward): the same output as the
+    # forward without autograd, now with a graph to differentiate
     small = make_test_batch(**SHAPES["n32_dst8"][0], device="cpu")
+    call = lambda: tm.fused(torch.from_numpy(x), _geo(small), *map(torch.from_numpy, bond))  # noqa: E731
     with torch.set_grad_enabled(grad_mode):
-        call = lambda: tm.fused(torch.from_numpy(x), _geo(small), *map(torch.from_numpy, bond))  # noqa: E731
-        if grad_mode:
-            with pytest.raises(NotImplementedError, match="queue A, .Tiled kernel training."):
-                call()
-        else:
-            assert call().shape == (2, 32, 40)
+        out = call()
+    with torch.no_grad():
+        want = call()
+    assert out.shape == (2, 32, 40) and out.requires_grad == grad_mode
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
