@@ -235,6 +235,35 @@ Phases (any failure exits non-zero; nothing is caught):
      and `scripts/torch_prepare_pdb.py` as subprocesses that load no module
      of JAX, then `experiment=train_test` through the train CLI for 5 steps
      on the synthetic output.
+ 12. after phase 11, in phase 6's work directory, the parallel slice
+     (`jamun_tpu_torch/parallel/`, `parallel.launch.spawn`: processes
+     joined through a file, one deadline each). NCCL refuses two ranks on
+     one card, so two ranks share it over gloo with CUDA tensors (the
+     gathers and sums copy through the host), and NCCL runs a group of one:
+     (a) data-parallel `Trainer.fit` at the flagship width (uvu,
+     120x0e + 32x1e, 5 layers) on `train_uncapped_4AA`'s shape (G = 32,
+     N = 48, 44 atoms): bf16 with Adam, 5 steps, each rank 16 graphs with
+     K1 5, K2 30, K4 30 and the Kabsch kernel 5 launches; f32 with SGD
+     (nesterov momentum), 5 steps, the losses and gradient norms within
+     1e-5 relative and the parameters within 1e-5 of each leaf's max of the
+     single-process fit of the same global batch and draws; then the train
+     CLI (`train_uncapped_4AA`, separable) in an NCCL group of one with
+     `parallel.num_devices=1`, 5 steps, its run directory written; (b)
+     `Sampler(num_devices=2)` at 4AA (G = 256, 2 x 101 BAOAB steps, K3 on
+     each rank as often as in the single-process walk) against the
+     single-process `Sampler` (the differing bits, the largest error
+     within 1e-4 of the largest entry); (c)
+     atom-sharded at IDRome scale (flagship width, f32, chains of 1024 and
+     2048 atoms, the plain sparse path on every rank): two `Trainer.fit`
+     steps' losses and the last one's gradients against the single-process
+     steps (1e-5, 1e-4 of each leaf's max), and 2 x 20 steps of
+     `Sampler(atom_sharded=True)` against the single-process walk (K6
+     there; 1e-3 of the largest entry). Times are of the second step or
+     batch (the first carries each process's warm-up); (d) the optax rules of the port on the card, 5 bf16
+     `Trainer.fit` steps each: sgd with nesterov momentum, adamw with a
+     mask of the flax names and bf16 `mu_dtype`, adam with
+     `warmup_cosine_decay_schedule` as its learning rate (finite losses, K1,
+     K2 and K4 launching).
 `--phase8-repeat N` runs phase 8 alone (after the build) in N fresh
 processes, one after the other, keeping each one's output and error in
 `--out DIR` (default `runs/phase8_repeat`), and prints how many
@@ -4009,6 +4038,287 @@ def phase8_repeat(runs: int, out_dir: str) -> int:
     return 0 if passed == runs else 1
 
 
+# phase 12: the parallel slice (`jamun_tpu_torch/parallel/`)
+P12_ARCH = dict(tensor_product="uvu")  # the flagship's widths are E3Conv's defaults
+P12_CONFIG = dict(max_radius=1.0, average_squared_distance=0.3)
+P12_STEPS = 5
+P12_TRAIN_KERNELS = ("edge_features", "conv_block", "conv_block_bwd", "kabsch")
+P12_ALL_KERNELS = (
+    "edge_features", "conv_block", "conv_layer", "e3_stack", "conv_block_bwd",
+    "fused_block_tiled", "nbr_conv", "nbr_edge_features", "packed_uvu_conv_dense",
+    "fused_uvu_conv_dense", "kabsch",
+)
+P12_WALK = dict(delta=0.04, friction=1.0, M=1.0, save_every_n_steps=1, score_fn_clip=100.0)
+P12_IDR_ATOMS = (1024, 2048)
+P12_IDR_WALK_STEPS = 20
+
+
+def p12_spec(dtype=None, gain=None, device="cuda:0", **arch):
+    """A worker spec (`parallel.launch`): the flagship E3Conv drawn from seed
+    0 (`gain` sets its output gain), the denoiser's configuration, the card
+    ("cuda": each rank's own)."""
+    from jamun_tpu_torch.models.e3conv import E3Conv
+
+    kw = dict(P12_ARCH, dtype=dtype, **arch)
+    model = E3Conv(**kw, device="cpu", seed=0)
+    if gain is not None:
+        model.output_gain.data.fill_(gain)
+    return dict(arch=kw, state=model.state_dict(), config=P12_CONFIG, device=device)
+
+
+def p12_fit_spec(spec, batches, optimizer, atom_sharded=False, steps=P12_STEPS):
+    from jamun_tpu_torch.parallel.launch import batch_spec
+
+    return dict(spec, train=[batch_spec(b) for b in batches], optimizer=optimizer, sigma=SIGMA,
+                counters=P12_ALL_KERNELS,
+                trainer=dict(max_steps=steps, log_every_n_steps=1, atom_sharded=atom_sharded,
+                             collect_sigma_diagnostics=False))
+
+
+def p12_logged(metrics):
+    return [(m["train/loss"], m["train/grad_norm"]) for _, m in metrics if "train/loss" in m]
+
+
+def p12_ms_per_step(metrics) -> float:
+    """ms a step after the first (the first carries each process's warm-up),
+    from the logged steps' synchronised `steps_per_sec`."""
+    at = [s / m["train/steps_per_sec"] for s, m in metrics if "train/loss" in m]
+    return (at[-1] - at[0]) * 1e3 / (len(at) - 1)
+
+
+def p12_rel(got: dict, want: dict) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    return max(float((got[k].float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+               for k, w in want.items())
+
+
+def p12_samples_err(got: list, want: list, keys=("y_traj", "xhat_traj", "sample")) -> dict:
+    """Per key over every batch and graph: differing bits and the largest
+    error relative to the largest entry."""
+    out = {}
+    for key in keys:
+        a = np.stack([g[key] for batch in got for g in batch])
+        b = np.stack([w[key] for batch in want for w in batch])
+        out[key] = dict(bits_differ=int((a != b).sum()), of=int(a.size),
+                        max_rel_err=float(np.abs(a - b).max() / np.abs(b).max()))
+    return out
+
+
+def phase12(dev, card: str, work: str) -> dict:
+    """Phase 12 (module docstring): data-parallel training and sampling,
+    the train CLI under NCCL, atom sharding at IDRome scale, and the optax
+    rules of item 19, on the card. The single-process references run
+    first; every two-rank run then shares one process group (one start)."""
+    from jamun_tpu_torch.parallel import launch
+    from jamun_tpu_torch.train import optim
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    t12 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    ranks_dir = os.path.join(work, "p12_ranks")
+
+    def zero_elsewhere(launches: dict, allowed, label: str) -> None:
+        assert all(v == 0 for k, v in launches.items() if k not in allowed), (label, launches)
+
+    # the specs: (a) data-parallel training at the flagship width, (b) the
+    # data-parallel walk on K3, (c) atom sharding on chains of 1024 and 2048
+    G, N = 32, 48
+    train = [make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=[44] * G, max_bonds=96,
+                             seed=s, device="cpu") for s in range(P12_STEPS)]
+    fit_bf16 = p12_fit_spec(p12_spec("bfloat16"), train, ("adam", dict(learning_rate=2e-3)))
+    sgd = ("sgd", dict(learning_rate=5e-2, momentum=0.9, nesterov=True))
+    fit_f32 = p12_fit_spec(p12_spec(), train, sgd)
+    walk = dict(p12_spec("bfloat16", gain=1.0, fused_stack=True),
+                batch=launch.batch_spec(make_test_batch(
+                    num_graphs=256, max_nodes=44, nodes_per_graph=[44] * 256, max_bonds=88,
+                    scale=0.35, device="cpu")),
+                sigma=SIGMA, num_batches=2, mcmc=dict(P12_WALK, steps=101), counters=P12_ALL_KERNELS)
+    idr = {}
+    for n_atoms in P12_IDR_ATOMS:
+        chain = chain_batch(n_atoms, 1, "cpu")
+        spec = p12_spec(gain=1.0)
+        idr[n_atoms] = dict(
+            step=p12_fit_spec(spec, [chain], ("sgd", dict(learning_rate=1e-3)), True, steps=2),
+            walk=dict(spec, batch=launch.batch_spec(chain), sigma=SIGMA, num_batches=2,
+                      mcmc=dict(P12_WALK, steps=P12_IDR_WALK_STEPS), counters=P12_ALL_KERNELS),
+        )
+
+    # the single process, then both ranks
+    t0 = time.perf_counter()
+    single = launch.fit_worker(0, 1, fit_f32)
+    alone_walk = launch.sample_worker(0, 1, walk)
+    for n_atoms, c in idr.items():
+        c["alone_step"] = launch.fit_worker(
+            0, 1, dict(c["step"], trainer=dict(c["step"]["trainer"], atom_sharded=False)))
+        c["alone_walk"] = launch.sample_worker(0, 1, c["walk"])
+    single_s = time.perf_counter() - t0
+    plan = [(launch.fit_worker, fit_bf16), (launch.fit_worker, fit_f32), (launch.sample_worker, walk)]
+    for c in idr.values():
+        plan += [(launch.fit_worker, c["step"]),
+                 (launch.sample_worker, dict(c["walk"], atom_sharded=True))]
+    t0 = time.perf_counter()
+    per_rank = launch.spawn(launch.run_plan, 2, (plan,), backend="gloo",
+                            workdir=os.path.join(ranks_dir, "gloo"), timeout=900)
+    ranks_s = time.perf_counter() - t0
+    bf16_ranks, f32_ranks, walk_ranks, *idr_ranks = zip(*per_rank)
+
+    # ---- (a) data-parallel training ----
+    want = {"edge_features": P12_STEPS, "conv_block": 6 * P12_STEPS,
+            "conv_block_bwd": 6 * P12_STEPS, "kabsch": P12_STEPS}
+    for r, res in enumerate(bf16_ranks):
+        zero_elsewhere(res["launches"], want, f"dp bf16 rank {r}")
+        assert {k: res["launches"][k] for k in want} == want, (r, res["launches"])
+        assert res["steps"] == P12_STEPS
+    losses = p12_logged(bf16_ranks[0]["metrics"])
+    assert len(losses) == P12_STEPS and all(math.isfinite(v) for pair in losses for v in pair)
+    for r, res in enumerate(f32_ranks):
+        assert {k: res["launches"][k] for k in want} == want, (r, res["launches"])
+    got, ref = p12_logged(f32_ranks[0]["metrics"]), p12_logged(single["metrics"])
+    step_err = max(abs(a - b) / abs(b) for x, y in zip(got, ref) for a, b in zip(x, y))
+    param_err = p12_rel(f32_ranks[0]["params"], {k: v.cpu() for k, v in single["params"].items()})
+    ranks_equal = all(torch.equal(f32_ranks[0]["params"][k], f32_ranks[1]["params"][k])
+                      for k in single["params"])
+    assert len(got) == P12_STEPS and step_err <= 1e-5, (got, ref)
+    assert param_err <= 1e-5 and ranks_equal, (param_err, ranks_equal)
+    ms = dict(bf16=p12_ms_per_step(bf16_ranks[0]["metrics"]),
+              f32=p12_ms_per_step(f32_ranks[0]["metrics"]), f32_alone=p12_ms_per_step(single["metrics"]))
+    out["dp_train"] = dict(
+        G=G, N=N, atoms=44, steps=P12_STEPS, ranks=2, backend="gloo (CUDA tensors)",
+        bf16_launches_per_rank=[res["launches"] for res in bf16_ranks],
+        bf16_losses=[v for v, _ in losses], ms_per_step_after_the_first=ms,
+        f32_step_rel_err=step_err, f32_param_rel_err=param_err, f32_ranks_equal=ranks_equal,
+    )
+    log(f"phase 12a: data-parallel Trainer.fit, 2 gloo ranks on one card, G={G} ({G // 2} per rank) "
+        f"N={N}: bf16 Adam {P12_STEPS} steps, launches per rank "
+        f"{[{k: r['launches'][k] for k in want} for r in bf16_ranks]}, losses "
+        + " ".join(f"{v:.5f}" for v, _ in losses)
+        + f", {ms['bf16']:.3f} ms/step on rank 0 (steps 2-{P12_STEPS}); f32 SGD (nesterov) against "
+        f"the single-process fit: losses and grad norms max rel err {step_err:.3g} (tol 1e-5), "
+        f"parameters {param_err:.3g} of each leaf's max (tol 1e-5), ranks equal {ranks_equal}; "
+        f"{ms['f32']:.3f} ms/step on rank 0 against {ms['f32_alone']:.3f} alone (steps 2-"
+        f"{P12_STEPS}) on {card}")
+
+    # ---- (b) data-parallel walk-jump on K3 ----
+    k3 = alone_walk["launches"]["e3_stack"]
+    assert k3 > 0
+    for r, res in enumerate(walk_ranks):
+        assert res["launches"]["e3_stack"] == k3, (r, res["launches"], k3)
+        zero_elsewhere(res["launches"], ("e3_stack",), f"dp walk rank {r}")
+        for batch in res["samples"]:
+            check_samples(batch, 256, 44, 101, f"dp walk rank {r}")
+    walk_err = [p12_samples_err(res["samples"], alone_walk["samples"]) for res in walk_ranks]
+    assert all(e["max_rel_err"] <= 1e-4 for errs in walk_err for e in errs.values()), walk_err
+    ms_walk = [walk_ranks[0]["batch_seconds"][1] * 1e3 / 101,
+               alone_walk["batch_seconds"][1] * 1e3 / 101]
+    out["dp_walk"] = dict(G=256, N=44, steps=101, batches=2, k3_per_rank=k3, err=walk_err,
+                          ms_per_step_batch_2=dict(rank0=ms_walk[0], alone=ms_walk[1]))
+    log(f"phase 12b: Sampler(num_devices=2) at 4AA, G=256 (128 per rank), 2 x 101 BAOAB steps, "
+        f"bf16 stack: K3 {k3} launches on each rank, as alone; trajectories against the "
+        f"single-process Sampler (rank 0): "
+        + ", ".join(f"{k} {v['bits_differ']} of {v['of']} values differ, max rel err "
+                    f"{v['max_rel_err']:.3g} (tol 1e-4)" for k, v in walk_err[0].items())
+        + f"; batch 2 {ms_walk[0]:.3f} ms/step on rank 0 against {ms_walk[1]:.3f} alone on {card}")
+
+    # ---- (c) atom-sharded at IDRome scale ----
+    out["atom_sharded"] = {}
+    for (n_atoms, c), step_ranks, atom_walk_ranks in zip(idr.items(), idr_ranks[0::2], idr_ranks[1::2]):
+        logged, want_logged = p12_logged(step_ranks[0]["metrics"]), p12_logged(c["alone_step"]["metrics"])
+        loss = logged[-1][0]
+        loss_err = max(abs(a - b) / abs(b) for x, y in zip(logged, want_logged) for a, b in zip(x, y))
+        grad_err = p12_rel(step_ranks[0]["grads"],
+                           {k: v.cpu() for k, v in c["alone_step"]["grads"].items()})
+        assert loss_err <= 1e-5 and grad_err <= 1e-4, (n_atoms, loss_err, grad_err)
+        for r in range(2):
+            zero_elsewhere(step_ranks[r]["launches"], ("kabsch",), f"atom step {n_atoms} rank {r}")
+            zero_elsewhere(atom_walk_ranks[r]["launches"], (), f"atom walk {n_atoms} rank {r}")
+        assert c["alone_walk"]["launches"]["nbr_conv"] > 0
+        werr = [p12_samples_err(res["samples"], c["alone_walk"]["samples"]) for res in atom_walk_ranks]
+        assert all(e["max_rel_err"] <= 1e-3 for errs in werr for e in errs.values()), werr
+        ms = dict(step=p12_ms_per_step(step_ranks[0]["metrics"]),
+                  step_alone=p12_ms_per_step(c["alone_step"]["metrics"]),
+                  walk=atom_walk_ranks[0]["batch_seconds"][1] * 1e3 / P12_IDR_WALK_STEPS,
+                  walk_alone=c["alone_walk"]["batch_seconds"][1] * 1e3 / P12_IDR_WALK_STEPS)
+        out["atom_sharded"][n_atoms] = dict(
+            loss=loss, step_rel_err=loss_err, grad_rel_err=grad_err, walk_err=werr,
+            ms_per_step_second=ms,
+        )
+        log(f"phase 12c: atom-sharded N={n_atoms} (one chain, 2 gloo ranks of {n_atoms // 2} rows, "
+            f"f32, plain sparse path): 2 Trainer.fit steps, loss {loss:.6f}, losses and grad norms "
+            f"rel err {loss_err:.3g} (tol 1e-5), the last step's gradients {grad_err:.3g} of each "
+            f"leaf's max (tol 1e-4) against the single-process steps; 2 x {P12_IDR_WALK_STEPS}-step "
+            f"walk against the single-process walk (K6 there, "
+            f"{c['alone_walk']['launches']['nbr_conv']} launches): "
+            + ", ".join(f"{k} max rel err {v['max_rel_err']:.3g}" for k, v in werr[0].items())
+            + f"; the second step {ms['step']:.3f} ms on rank 0 (alone {ms['step_alone']:.3f}), the "
+            f"second walk batch {ms['walk']:.3f} ms/step (alone {ms['walk_alone']:.3f}) on {card}")
+    out["seconds_single"], out["seconds_two_ranks"] = single_s, ranks_s
+    log(f"phase 12: the single-process references {single_s:.1f} s, every two-rank run with "
+        f"the start of the 2 processes {ranks_s:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the train CLI in an NCCL group of one (`parallel.num_devices=1`: JAX's no-op)
+    argv = ["--experiment-dir", EXP_DIR, "experiment=train_uncapped_4AA",
+            "model/arch=e3conv_separable", "run_key=p12_nccl", f"trainer.max_steps={P12_STEPS}",
+            f"trainer.val_every_n_steps={P12_STEPS}", "trainer.log_every_n_steps=1",
+            "trainer.val_max_batches=1", "parallel.num_devices=1"]
+    t0 = time.perf_counter()
+    (cli,) = launch.spawn(launch.train_cli_worker, 1, (argv,), workdir=os.path.join(ranks_dir, "nccl"),
+                          backend="nccl", cwds=[work], timeout=600,
+                          env={"JAMUN_DATA_PATH": os.environ["JAMUN_DATA_PATH"]})
+    cli_s = time.perf_counter() - t0
+    run = os.path.join("runs", "p12_nccl")
+    assert cli["step"] == P12_STEPS
+    for f in ("config.pkl", "metrics.csv", "checkpoints/last.ckpt", "checkpoints/manifest.json"):
+        assert os.path.join(run, f) in cli["files"], (f, cli["files"])
+    cli_train, cli_val = read_metrics_csv(os.path.join(work, run, "metrics.csv"))
+    assert [r["step"] for r in cli_train] == list(range(1, P12_STEPS + 1))
+    assert all(math.isfinite(r["train/loss"]) for r in cli_train) and len(cli_val) == 1
+    out["nccl_cli"] = dict(steps=cli["step"], seconds=cli_s,
+                           losses=[r["train/loss"] for r in cli_train], files=cli["files"])
+    log(f"phase 12a: train CLI (train_uncapped_4AA, separable, parallel.num_devices=1) in an NCCL "
+        f"group of one: {cli['step']} steps, losses "
+        + " ".join(f"{r['train/loss']:.5f}" for r in cli_train)
+        + f", val loss {cli_val[0]['val/loss']:.5f}, run directory written; {cli_s:.1f} s with the "
+        f"process start on {card}")
+
+    # ---- (d) the optax rules of the port on the card ----
+    bf16 = p12_spec("bfloat16")
+    mask = {"params": {}}  # JAX's tree of the flax names: no decay of biases and embeddings
+    for name in bf16["state"]:
+        node = mask["params"]
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = not (leaf == "bias" or "embedding" in leaf)
+    rules = {
+        "sgd_nesterov": sgd,
+        "adamw_mask_bf16_mu": ("adamw", dict(learning_rate=2e-3, weight_decay=1e-2, mask=mask,
+                                             mu_dtype="bfloat16")),
+        "adam_warmup_cosine": ("adam", dict(learning_rate=optim.warmup_cosine_decay_schedule(
+            0.0, 2e-3, 2, P12_STEPS))),
+    }
+    out["optax_rules"] = {}
+    for label, rule in rules.items():
+        res = launch.fit_worker(0, 1, p12_fit_spec(bf16, train, rule))
+        logged = p12_logged(res["metrics"])
+        moved = max(float((res["params"][k].cpu() - bf16["state"][k]).abs().max())
+                    for k in res["params"])
+        assert len(logged) == P12_STEPS and all(math.isfinite(v) for pair in logged for v in pair)
+        assert {k: res["launches"][k] for k in want} == want and moved > 0, (label, res["launches"])
+        out["optax_rules"][label] = dict(losses=[v for v, _ in logged], largest_change=moved,
+                                         ms_per_step=p12_ms_per_step(res["metrics"]),
+                                         launches=res["launches"])
+        log(f"phase 12d: {label}: {P12_STEPS} bf16 Trainer.fit steps at G={G} N={N}, losses "
+            + " ".join(f"{v:.5f}" for v, _ in logged)
+            + f", largest parameter change {moved:.3g}, "
+            f"{out['optax_rules'][label]['ms_per_step']:.3f} ms/step (steps 2-{P12_STEPS}), "
+            f"launches {[res['launches'][k] for k in want]} on {card}")
+    out["seconds"] = time.perf_counter() - t12
+    log(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def all_counters() -> dict:
     """Every kernel's launch counter by name (K8 and K9 share a source, as
     K2 and its layer mode do)."""
@@ -4401,6 +4711,8 @@ def main() -> int:
         phase11["scripts"] = scripts_without_jax(dev, card, counters)
         phase11["seconds"] = time.perf_counter() - t11
         log(f"phase 11: {phase11['seconds']:.1f} s")
+        # ---- phase 12: data-parallel and atom-sharded training and sampling ----
+        phase12_out = phase12(dev, card, work)
     torch.cuda.empty_cache()
 
     # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
@@ -4460,7 +4772,7 @@ def main() -> int:
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
                   k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
                   idrome=idrome, ophiuchus_train=oph_train, ophiuchus_vesde_sample=oph_sample,
-                  unrolled=unrolled, phase10=phase10, phase11=phase11)
+                  unrolled=unrolled, phase10=phase10, phase11=phase11, phase12=phase12_out)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -40,6 +40,7 @@ from jamun_tpu_torch.metrics.score_distribution import ScoreDistributionMetrics
 from jamun_tpu_torch.metrics.visualize import SampleVisualizer
 from jamun_tpu_torch.models.denoiser import Denoiser
 from jamun_tpu_torch.ops.graph import GraphBatch
+from jamun_tpu_torch.parallel.distributed import initialize_distributed, process_index, rank
 from jamun_tpu_torch.sampling.sampler import Sampler
 from jamun_tpu_torch.train.checkpoints import find_checkpoint, restore_checkpoint
 from jamun_tpu_torch.train.distributions import ConstantSigma
@@ -164,6 +165,8 @@ def run(cfg) -> Dict[str, Any]:
     every metric's result), "rates" (the CSV's rows), "per_batch" (the
     timing callback's batches)}."""
     setup_torch()  # the precision policy first, as JAX calls setup_jax
+    initialize_distributed()  # torchrun's group, or none
+    writer = rank() == 0  # rank 0 alone writes the outputs
     device = resolve_device(cfg.get("device"))
     if cfg.get("init_datasets") is None:
         raise ValueError("init_datasets must be configured for sampling")
@@ -184,13 +187,15 @@ def run(cfg) -> Dict[str, Any]:
             ChemicalValidityMetrics(ds),
             ScoreDistributionMetrics(ds),
             SampleVisualizer(ds, out_dir),
-        ]
+        ] if writer else []
         for ds in datasets
     ]
     metrics_cb = _AllMetricsCallback(metrics_per_dataset, graph_to_dataset, labels)
     timing_cb = MeasureSamplingTimeCallback(label_for_graph=[labels[d] for d in graph_to_dataset])
+    # parallel.atom_sharded: each molecule's atoms split over the ranks, read
+    # as JAX's CLI reads it (true / "true" / "on" only); parallel.num_devices
+    # > 1 splits the chains (the process group of torchrun)
     par = dict(cfg.get("parallel") or {})
-    # several devices and atom sharding raise here, before any work
     sampler = Sampler(
         callbacks=[metrics_cb, timing_cb],
         atom_sharded=par.get("atom_sharded") in (True, "true", "on"),
@@ -235,18 +240,19 @@ def run(cfg) -> Dict[str, Any]:
     sampling_denoiser = Denoiser(state.ema, denoiser.config)  # sample with the EMA weights
     batch_sampler = instantiate(cfg["batch_sampler"])
     log.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda" else device)
-    # one card: process index 0 (JAX adds jax.process_index())
+    # the per-node seed offset (JAX's `cmdline/sample.py:190`): the ranks of
+    # one node share a seed, as the devices of one JAX host do
     sampler.sample(
         sampling_denoiser,
         batch_sampler,
         num_batches=cfg.get("num_batches", 5),
         init_graphs=init_graphs,
         continue_chain=cfg.get("continue_chain", True),
-        seed=int(cfg.get("seed", 0)),
+        seed=int(cfg.get("seed", 0)) + process_index(),
     )
 
     rows = {}
-    if timing_cb.total_samples:
+    if timing_cb.total_samples and writer:
         # per label, the warm rate first (batch 0 carries the kernels' build)
         rows = timing_cb.rates()
         if timing_cb.last_neighbor_overflow is not None:

@@ -11,6 +11,11 @@ directory `runs/<run_key>/` as JAX's CLI does: `config.pkl`, `config.yaml`,
 `checkpoints/` (`last.ckpt`, `step<N>.ckpt`, `manifest.json`),
 `metrics.csv` and `diagnostics/`. The model, the state and every batch go to
 the override `device` (`device=cpu` runs on the CPU); without it, the card.
+
+Under torchrun (`torchrun --nproc_per_node=K -m jamun_tpu_torch.cmdline.train
+... parallel.num_devices=K`) each rank takes its card and `Trainer.fit` runs
+data parallel, or atom sharded by `parallel.atom_sharded`; rank 0 alone
+writes the run directory.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from jamun_tpu_torch.config.compose import compose
 from jamun_tpu_torch.config.instantiate import instantiate
 from jamun_tpu_torch.data.datamodule import DataModule
 from jamun_tpu_torch.models.denoiser import Denoiser
+from jamun_tpu_torch.parallel.distributed import initialize_distributed, rank
 from jamun_tpu_torch.train.loggers import ConsoleLogger, CSVLogger, MultiLogger, maybe_wandb_logger
 from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
 from jamun_tpu_torch.train.state import TrainState
@@ -60,6 +66,8 @@ def equivariance_self_test(denoiser: Denoiser, datamodule: DataModule, device) -
 
 def run(cfg) -> TrainState:
     setup_torch()  # the precision policy first, as JAX calls setup_jax
+    initialize_distributed()  # torchrun's group, or none
+    writer = rank() == 0  # rank 0 alone writes the run directory
     device = resolve_device(cfg.get("device"))
     datasets = instantiate(cfg["data"]["datasets"])
     val_cfg = cfg["data"].get("val_datasets")
@@ -78,6 +86,8 @@ def run(cfg) -> TrainState:
     trainer_cfg = dict(cfg["trainer"])
     trainer_cfg.pop("_target_", None)
     trainer_cfg["ema_decay"] = cfg["model"].get("ema_decay", trainer_cfg.get("ema_decay", 0.999))
+    # parallel.{atom_sharded,atom_shard_threshold,num_devices}: the mesh
+    # dispatch of `Trainer.fit` (data parallel or atom sharded)
     par = dict(cfg.get("parallel") or {})
     for k in ("atom_sharded", "atom_shard_threshold", "num_devices"):
         if par.get(k) is not None:
@@ -89,23 +99,24 @@ def run(cfg) -> TrainState:
     sigma_distribution = instantiate(cfg["model"]["sigma"])
 
     run_dir = os.path.join("runs", str(cfg.get("run_key", "run")))
-    os.makedirs(run_dir, exist_ok=True)
     tconf.checkpoint_dir = os.path.join(run_dir, "checkpoints")
-
-    # the resolved config (with the computed normalization) beside the
-    # checkpoints, so that sampling can rebuild the model
-    resolved = dict(cfg)
-    resolved.setdefault("model", {})
-    resolved["model"] = dict(resolved["model"], average_squared_distance=float(asd))
-    with open(os.path.join(run_dir, "config.pkl"), "wb") as f:
-        pickle.dump(resolved, f)
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump({k: v for k, v in resolved.items() if k != "__global_package__"}, f)
-    loggers = MultiLogger(
-        ConsoleLogger(),
-        CSVLogger(run_dir),
-        maybe_wandb_logger(cfg.get("wandb_project")),
-    )
+    loggers = MultiLogger()
+    if writer:
+        os.makedirs(run_dir, exist_ok=True)
+        # the resolved config (with the computed normalization) beside the
+        # checkpoints, so that sampling can rebuild the model
+        resolved = dict(cfg)
+        resolved.setdefault("model", {})
+        resolved["model"] = dict(resolved["model"], average_squared_distance=float(asd))
+        with open(os.path.join(run_dir, "config.pkl"), "wb") as f:
+            pickle.dump(resolved, f)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump({k: v for k, v in resolved.items() if k != "__global_package__"}, f)
+        loggers = MultiLogger(
+            ConsoleLogger(),
+            CSVLogger(run_dir),
+            maybe_wandb_logger(cfg.get("wandb_project")),
+        )
 
     if cfg["model"].get("test_equivariance"):
         err = equivariance_self_test(denoiser, datamodule, device)

@@ -7,7 +7,11 @@ fixed table, held as strings, so that nothing here imports `jamun_tpu`,
 `jax`, `flax` or `optax`:
 
   - `jamun_tpu.<path>` -> `jamun_tpu_torch.<path>`;
-  - `optax.adam`, `optax.adamw`, `optax.adagrad` -> `jamun_tpu_torch.train.optim.*`;
+  - optax's `adam`, `adamw`, `nadam`, `nadamw`, `adagrad`, `adamax`,
+    `lion`, `sgd`, `rmsprop` and the schedules `constant_schedule`,
+    `linear_schedule`, `cosine_decay_schedule`,
+    `warmup_cosine_decay_schedule`, `exponential_decay` ->
+    `jamun_tpu_torch.train.optim.*`;
   - a `jamun_tpu_torch.<path>` target stands as it is (the port's own
     `config/defaults/`).
 
@@ -23,10 +27,14 @@ from typing import Any, Dict, List, Optional
 
 __all__ = ["port_path", "resolve_target", "locate", "instantiate", "instantiate_dict_cfg"]
 
+# optax's rules and schedules the port has (`train/optim.py`)
 _OPTAX = {
-    "optax.adam": "jamun_tpu_torch.train.optim.adam",
-    "optax.adamw": "jamun_tpu_torch.train.optim.adamw",
-    "optax.adagrad": "jamun_tpu_torch.train.optim.adagrad",
+    f"optax.{name}": f"jamun_tpu_torch.train.optim.{name}"
+    for name in (
+        "adam", "adamw", "adagrad", "nadam", "nadamw", "adamax", "lion", "sgd", "rmsprop",
+        "constant_schedule", "linear_schedule", "cosine_decay_schedule",
+        "warmup_cosine_decay_schedule", "exponential_decay",
+    )
 }
 # targets of the JAX package that the port lacks, by the title of their
 # item (none since the port has every target of the repo's configs)

@@ -39,6 +39,7 @@ from jamun_tpu_torch.models.e3conv import irreps_to_vector, neighbor_mode_auto
 from jamun_tpu_torch.ops.geometry import kabsch_align, mean_center
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
+from jamun_tpu_torch.parallel.mesh import all_reduce_max, all_reduce_sum, global_graph_mean, randn_graphs
 from jamun_tpu_torch.sampling.mcmc import NeighborCachedScore
 
 __all__ = ["DenoiserConfig", "Denoiser", "normalization_factors", "loss_weight", "masked_graph_mean"]
@@ -202,7 +203,7 @@ class Denoiser:
         elif cfg.add_fixed_noise:
             noise = _fixed_noise(tuple(pos.shape[1:]), pos.device, pos.dtype)[None].expand_as(pos)
         else:
-            noise = torch.randn(pos.shape, generator=generator, device=generator.device).to(pos)
+            noise = randn_graphs(pos.shape, generator).to(pos)
         pos = pos + float(sigma) * noise * x.node_mask[..., None].to(pos.dtype)
         if cfg.mirror_augmentation_rate > 0:
             # chosen on the device, as JAX's `jnp.where`: reading the draw on
@@ -262,22 +263,33 @@ class Denoiser:
         return (per_graph, aux, out[3]) if with_telemetry else (per_graph, aux)
 
     def training_loss(
-        self, x: GraphBatch, sigma: float, generator: torch.Generator
+        self, x: GraphBatch, sigma: float, generator: torch.Generator, mesh=None
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The scalar loss averaged over valid graphs (`graph_mask`), and the
         aux metrics averaged the same way (plus "loss"). On the sparse path
         the aux also holds the cap's dropped edges per graph,
         "neighbor_overflow_mean" over the valid graphs and
-        "neighbor_overflow_max", which the Trainer logs."""
+        "neighbor_overflow_max", which the Trainer logs. Over a
+        data-parallel `mesh` (`parallel/mesh.py`) the means and the max run
+        over the valid graphs of every rank, and the loss returned is this
+        rank's share of the global mean (its gradients summed over the
+        ranks are the mean's)."""
         per_graph, aux, tel = self.noise_and_compute_loss(
             x, sigma, generator, self.config.align_noisy_input_during_training, True
         )
-        loss, aux = masked_graph_mean(per_graph, aux, x.graph_mask)
+        group = mesh.group if mesh is not None else None
+        if group is None:
+            loss, aux = masked_graph_mean(per_graph, aux, x.graph_mask)
+        else:
+            loss, aux = global_graph_mean(per_graph, aux, x.graph_mask, mesh)
         ov = tel.get("neighbor_overflow")
         if ov is not None:
             ovf, gm = ov.to(loss.dtype), x.graph_mask
-            aux["neighbor_overflow_mean"] = (ovf * gm).sum() / torch.clamp(gm.sum(), min=1)
-            aux["neighbor_overflow_max"] = torch.where(gm, ovf, torch.zeros_like(ovf)).max()
+            sums = all_reduce_sum(torch.stack([(ovf * gm).sum(), gm.sum().to(loss.dtype)]), group)
+            aux["neighbor_overflow_mean"] = sums[0] / torch.clamp(sums[1], min=1)
+            aux["neighbor_overflow_max"] = all_reduce_max(
+                torch.where(gm, ovf, torch.zeros_like(ovf)).max(), group
+            )
         return loss, aux
 
 

@@ -67,7 +67,11 @@ picked once per call as JAX's `E3Conv` picks them
     counted on a cached list), in place of flax's `sow`.
 `"dense"` runs the dense paths at any size. A model whose structure takes
 the kernels but whose sizes (edge_attr_dim, radial width, N) are outside
-them raises NotImplementedError on the card.
+them raises NotImplementedError on the card. Under `atom_axis` (the
+atom-sharded mode, `parallel/atom_sharded.py`) every call takes the plain
+path on either device, dense or sparse as "auto" decides on the whole
+molecule, with the sources gathered from every rank (JAX gates each kernel
+off there: `jamun_tpu/models/e3conv.py:220,356,512,548`).
 
 `pallas_variant` is JAX's (`jamun_tpu/models/e3conv.py:120`). `"packed"`, the
 default, is every path above. `"plane"` takes the dense calls (any N the
@@ -92,6 +96,7 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from jamun_tpu_torch.models.embeddings import AtomEmbeddingWithResidueInformation, SimpleAtomEmbedding
@@ -112,6 +117,7 @@ from jamun_tpu_torch.ops.mlp import EquivariantMLP, xla_sigmoid
 from jamun_tpu_torch.ops.neighbors import neighbor_edge_data
 from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
 from jamun_tpu_torch.ops.sh import SH_IRREPS, spherical_harmonics
+from jamun_tpu_torch.parallel.mesh import all_gather, check_axis_name, gather_halo, resolve_group
 from jamun_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -229,9 +235,12 @@ class E3Conv(nn.Module):
         `use_residue_information=False` embeds atoms by type alone, in the
         four embedding widths summed (JAX's `SimpleAtomEmbedding`).
 
-        JAX's last three fields: `atom_axis` names a mesh axis of the
-        atom-sharded mode, which one card has not, so anything but None
-        raises; `scan_layers` is JAX's `nn.scan` over the hidden layers,
+        JAX's last three fields: `atom_axis` is the atom-sharded mode's
+        process group (or "data", the default group; `parallel/
+        atom_sharded.py` calls `sharded_forward` with its group): the batch holds this
+        rank's destination rows, positions are gathered once per forward and
+        features once per layer, and every call runs the plain path, as
+        JAX's; `scan_layers` is JAX's `nn.scan` over the hidden layers,
         whose parameters flax stacks on a leading axis under
         `Scan_HiddenLayer_0`: the port keeps its `_HiddenLayer_k` modules
         and their per-layer compute, `params.from_jax_params` /
@@ -242,11 +251,7 @@ class E3Conv(nn.Module):
         fused_block_tiled.fused_block_tiled_trainable`) instead of the plain
         path."""
         super().__init__()
-        if atom_axis is not None:
-            raise NotImplementedError(
-                f"atom_axis={atom_axis!r}: the atom-sharded mode needs a mesh of several "
-                "devices (ROADMAP.md queue A, 'Parallel')"
-            )
+        check_axis_name(atom_axis)
         self.atom_axis = atom_axis
         self.scan_layers = scan_layers
         self.tiled_kernel_training = tiled_kernel_training
@@ -424,6 +429,9 @@ class E3Conv(nn.Module):
         ({"neighbor_overflow": [G]} where the sparse path built its lists)."""
         N = batch.pos.shape[1]
         on_card = batch.pos.device.type == "cuda"
+        if self.atom_axis is not None:
+            out, tel = self.sharded_forward(batch, c_noise, radial_cutoff, resolve_group(self.atom_axis))
+            return (out, tel) if with_telemetry else out
         if self.plain and on_card:
             raise ValueError(
                 "plain=True (use_pallas=False) is the CPU reference path; the card runs the kernels"
@@ -444,6 +452,38 @@ class E3Conv(nn.Module):
         else:
             out = self._dense_forward(batch, c_noise, radial_cutoff, wants_grad)
         return (out, tel) if with_telemetry else out
+
+    def sharded_forward(self, batch: GraphBatch, c_noise, radial_cutoff, group):
+        """The atom-sharded forward of this rank's destination rows over the
+        process group `group` (`jamun_tpu/models/e3conv.py:186-206`):
+        positions and mask gathered from every rank, each row's global index
+        for the self-pair, "auto" decided on the whole molecule, the plain
+        path throughout. `group` None is the single process, whose rows are
+        the whole molecule and whose gathers are identities (JAX's one-device
+        mesh). Returns (out, telemetry)."""
+        G, n_loc = batch.pos.shape[:2]
+        rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
+        sharded = dict(
+            src_pos=gather_halo(batch.pos, group, 1),
+            src_mask=all_gather(batch.node_mask, group, 1),
+            dst_index=(rank * n_loc + torch.arange(n_loc, device=batch.pos.device)).expand(G, n_loc),
+        )
+        n_total = n_loc * world
+        tel = {}
+        if self.neighbor_mode == "nbr" or (
+            self.neighbor_mode == "auto" and neighbor_mode_auto(n_total, self._wants_grad(batch))
+        ):
+            edges, overflow = neighbor_edge_data(
+                batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
+                radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh),
+                self._attr_fn(radial_cutoff), cap=self.neighbor_cap,
+                bond0_embed=self.embed_bondedness[0], **sharded,
+            )
+            tel["neighbor_overflow"] = overflow
+        else:
+            edges = self._plain_edges(batch, radial_cutoff, **sharded)
+        edges = dataclasses.replace(edges, atom_axis=group)
+        return self._standard_forward(batch, c_noise, edges, False), tel
 
     def _embed(self, batch: GraphBatch, c_noise: torch.Tensor) -> torch.Tensor:
         return self.NoiseConditionalScaling_0(self.embedder(batch), c_noise)
@@ -581,11 +621,11 @@ class E3Conv(nn.Module):
 
         return attr_fn
 
-    def _plain_edges(self, batch: GraphBatch, radial_cutoff):
+    def _plain_edges(self, batch: GraphBatch, radial_cutoff, **sharded):
         return dense_edge_data(
             batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
             radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh),
             self._attr_fn(radial_cutoff), bond0_embed=self.embed_bondedness[0],
-            bond1_embed=self.embed_bondedness[1],
+            bond1_embed=self.embed_bondedness[1], **sharded,
         )
 

@@ -26,6 +26,11 @@ path (`EdgeData.nbr_idx` set, from `ops/neighbors.py`) the messages of the
 kept edges then come from K6 (`ops/cuda/nbr_conv`), and from
 `fast_uvu_messages_nbr` on the radial MLP otherwise; bonds, the mean and the
 post-linear follow as on the dense path (`jamun_tpu/ops/conv.py:198-265`).
+In the atom-sharded mode (`EdgeData.atom_axis` set, by `E3Conv(atom_axis=
+...)`) the source features are all-gathered once per layer
+(`parallel.mesh.gather_halo`, whose backward is a reduce-scatter), the
+destination rows stay this rank's, and no kernel runs, as JAX's gates
+(`jamun_tpu/ops/conv.py:125,154,193-196`).
 On the dense path `Conv.dense_route` picks what JAX's `Conv.__call__` picks
 (`jamun_tpu/ops/conv.py:266-342`): under `pallas_variant="packed"` K2's layer
 mode (`conv_layer`: pairs, bonds, mean and post-linear in one launch) when
@@ -82,6 +87,7 @@ from jamun_tpu_torch.ops.linear import IrrepsLinear
 from jamun_tpu_torch.ops.mlp import ScalarMLP
 from jamun_tpu_torch.ops.neighbors import gather_neighbors
 from jamun_tpu_torch.ops.sh import SH_IRREPS
+from jamun_tpu_torch.parallel.mesh import gather_halo
 from jamun_tpu_torch.ops.tensor_product import depthwise_tp, fully_connected_tp
 
 __all__ = [
@@ -160,15 +166,20 @@ class Conv(nn.Module):
         cdt = self.dtype or x.dtype
         out_dtype = x.dtype
         x = x.to(cdt)
+        # the atom-sharded halo: the sources are the whole gathered molecule,
+        # the destination rows (and the output) this rank's
+        src = x if edges.atom_axis is None else gather_halo(x, edges.atom_axis, 1)
+        if edges.atom_axis is not None:
+            kernel = False  # JAX gates every kernel off under an atom axis
         if not self.fast_uvu:
-            out, deg = self._tp_messages(x, edges, out_dtype)
+            out, deg = self._tp_messages(src, edges, out_dtype)
         elif edges.nbr_idx is None:
             route = self.dense_route(x, edges) if kernel else "plain"
             if route == "conv_layer":
                 return self._kernel_layer(x, edges).to(out_dtype)
             if route == "plain":
                 w_dense = self.radial_nn(edges.attr_dense.to(cdt))
-                out, deg = fast_uvu_messages_dense(x, edges.sh_dense, w_dense, edges.adj, S, V)
+                out, deg = fast_uvu_messages_dense(src, edges.sh_dense, w_dense, edges.adj, S, V)
             else:
                 fn = packed_uvu_conv_dense if route == "packed_uvu_conv_dense" else fused_uvu_conv_dense
                 d0, d1 = self.radial_nn.layer(0), self.radial_nn.layer(1)
@@ -186,15 +197,15 @@ class Conv(nn.Module):
                 )
             w_nbr = self.radial_nn(edges.attr_nbr.to(cdt))
             out, deg = fast_uvu_messages_nbr(
-                x, edges.sh_nbr, w_nbr, edges.nbr_idx, edges.nbr_mask, S, V
+                src, edges.sh_nbr, w_nbr, edges.nbr_idx, edges.nbr_mask, S, V
             )
         out, deg = out.to(out_dtype), deg.to(torch.float32)
 
-        src = torch.gather(x, 1, edges.bond_src[..., None].expand(-1, -1, x.shape[-1]))
+        src_b = torch.gather(src, 1, edges.bond_src[..., None].expand(-1, -1, src.shape[-1]))
         if not self.fast_uvu:
-            msg_b = self.tp(src, edges.sh_bond.to(cdt), self._path_weights(edges.attr_bond.to(cdt)))
+            msg_b = self.tp(src_b, edges.sh_bond.to(cdt), self._path_weights(edges.attr_bond.to(cdt)))
         else:
-            msg_b = uvu_messages(src, edges.sh_bond, self.radial_nn(edges.attr_bond.to(cdt)), S, V)
+            msg_b = uvu_messages(src_b, edges.sh_bond, self.radial_nn(edges.attr_bond.to(cdt)), S, V)
         msg_b = msg_b.to(out_dtype) * edges.bond_mask[..., None].to(out_dtype)
         dst = edges.bond_dst[..., None]
         out = out.scatter_add(1, dst.expand(-1, -1, msg_b.shape[-1]), msg_b)
@@ -211,17 +222,19 @@ class Conv(nn.Module):
         carries 28992 weights (uvw and experimental alike)."""
         return self.radial_nn.split_forward(attr, self.tp.weight_slices())
 
-    def _tp_messages(self, x: torch.Tensor, edges: EdgeData, out_dtype):
+    def _tp_messages(self, src: torch.Tensor, edges: EdgeData, out_dtype):
         """The summed messages and the degree of the radial edges through
-        `self.tp` (any product but the fast uvu shape): JAX's generic dense
-        path (`jamun_tpu/ops/conv.py:353-364`), or its generic sparse path on
-        a capped list (`:253-262`). The sums
-        accumulate in `out_dtype`, as `preferred_element_type` asks there."""
-        cdt = x.dtype
+        `self.tp` (any product but the fast uvu shape) from the source
+        features `src`: JAX's generic dense path
+        (`jamun_tpu/ops/conv.py:353-364`), or its generic sparse path on a
+        capped list (`:253-262`). The sums accumulate in `out_dtype`, as
+        `preferred_element_type` asks there."""
+        cdt, x = src.dtype, src
         if edges.nbr_idx is None:
             w = self._path_weights(edges.attr_dense.to(cdt))  # [G, dst, src, *] per path
-            G, N, D = x.shape
-            msg = self.tp(x[:, None].expand(G, N, N, D), edges.sh_dense.to(cdt), w)
+            G, N_src, D = x.shape
+            N = edges.adj.shape[1]
+            msg = self.tp(x[:, None].expand(G, N, N_src, D), edges.sh_dense.to(cdt), w)
             out = torch.einsum("gijd,gij->gid", msg.to(out_dtype), edges.adj.to(out_dtype))
             return out, edges.adj.sum(-1)
         w = self._path_weights(edges.attr_nbr.to(cdt))  # [G, N, K, *] per path

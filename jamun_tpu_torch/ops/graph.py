@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["GraphBatch", "EdgeData", "dense_edge_data"]
+__all__ = ["GraphBatch", "EdgeData", "dense_edge_data", "self_pairs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +96,18 @@ class EdgeData:
     radial_cutoff: Optional[float] = None
     bond1_embed: Optional[torch.Tensor] = None  # [A // 2] bondedness-1 row
     pair_features: Optional[tuple] = None  # (ef, bf) of `ops/cuda/edge_features`
+    # the atom-sharded mode: the process group over which `Conv` gathers its
+    # source features (the halo); the destination rows are this rank's
+    atom_axis: Optional[object] = None
+
+
+def self_pairs(pos: torch.Tensor, src_pos: torch.Tensor, dst_index: Optional[torch.Tensor]):
+    """[G or 1, N, N_src] bool: the pair of a destination row with itself
+    (`dst_index` gives the rows' global indices in the atom-sharded mode)."""
+    N, N_src = pos.shape[1], src_pos.shape[1]
+    if dst_index is None:
+        return torch.eye(N, N_src, dtype=torch.bool, device=pos.device)[None]
+    return dst_index[:, :, None] == torch.arange(N_src, device=pos.device)[None, None, :]
 
 
 def dense_edge_data(
@@ -110,6 +122,9 @@ def dense_edge_data(
     dense: bool = True,
     bond0_embed: Optional[torch.Tensor] = None,
     bond1_embed: Optional[torch.Tensor] = None,
+    src_pos: Optional[torch.Tensor] = None,
+    src_mask: Optional[torch.Tensor] = None,
+    dst_index: Optional[torch.Tensor] = None,
 ) -> EdgeData:
     """Build EdgeData from positions (the bonds alone with `dense=False`),
     with the raw fields the dense kernels read.
@@ -119,18 +134,24 @@ def dense_edge_data(
     pairs, bonded ones included, with the self-pair masked out; bonds are an
     additional edge set (bondedness 1), so a bonded pair in cutoff contributes
     two messages. Edge vector = pos[src] - pos[dst].
+
+    The atom-sharded mode (`jamun_tpu/ops/graph.py:134-139`): `pos` and
+    `node_mask` hold this rank's destination rows, `src_pos` / `src_mask`
+    the whole gathered molecule, `dst_index` [G, N] the global index of
+    each destination row (for the self-pair); `bond_src` indexes the
+    sources, `bond_dst` the local rows.
     """
     sh_dense = attr_dense = adj = None
+    if src_pos is None:
+        src_pos, src_mask = pos, node_mask
     if dense:
-        N = pos.shape[1]
-        edge_vec = pos[:, None, :, :] - pos[:, :, None, :]  # [g, i(dst), j(src)]
+        edge_vec = src_pos[:, None, :, :] - pos[:, :, None, :]  # [g, i(dst), j(src)]
         dist = torch.linalg.vector_norm(edge_vec + 1e-12, dim=-1)
-        eye = torch.eye(N, dtype=torch.bool, device=pos.device)[None]
-        pair_mask = node_mask[:, :, None] & node_mask[:, None, :] & ~eye
+        pair_mask = node_mask[:, :, None] & src_mask[:, None, :] & ~self_pairs(pos, src_pos, dst_index)
         adj = ((dist < radial_cutoff) & pair_mask).to(pos.dtype)
         sh_dense, attr_dense = sh_fn(edge_vec), attr_fn(dist, bonded=False)
 
-    src = torch.gather(pos, 1, bond_src[..., None].expand(-1, -1, 3))
+    src = torch.gather(src_pos, 1, bond_src[..., None].expand(-1, -1, 3))
     dst = torch.gather(pos, 1, bond_dst[..., None].expand(-1, -1, 3))
     bvec = src - dst
     bdist = torch.linalg.vector_norm(bvec + 1e-12, dim=-1)

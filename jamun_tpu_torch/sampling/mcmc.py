@@ -29,6 +29,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from jamun_tpu_torch.parallel.mesh import randn_graphs
+
 __all__ = [
     "MCMCConfig", "BAOAB", "ABOBA", "NeighborCachedScore", "VerletListScore",
     "make_processed_score_fn", "initialize_velocity",
@@ -95,9 +97,7 @@ def initialize_velocity(
 ) -> torch.Tensor:
     if isinstance(v_init, str):
         if v_init == "gaussian":
-            return math.sqrt(u) * torch.randn(
-                y.shape, generator=generator, dtype=y.dtype, device=y.device
-            )
+            return math.sqrt(u) * randn_graphs(y.shape, generator, y.dtype, y.device)
         if v_init == "zero":
             return torch.zeros_like(y)
         raise ValueError(f"{v_init} not in (gaussian, zero)")
@@ -170,7 +170,7 @@ class _SplittingSampler:
         ys, scores = [], []
         for i in range(total + 1):
             if i > 0:
-                R = torch.randn(y.shape, generator=generator, dtype=y.dtype, device=y.device)
+                R = randn_graphs(y.shape, generator, y.dtype, y.device)
                 carry = self.step(carry, R * mask if mask is not None else R, processed)
             if i >= first and (i - first) % every == 0:
                 ys.append(carry[0])

@@ -5,8 +5,18 @@ Counterpart of `jamun_tpu/sampling/sampler.py`. The denoiser holds its own
 parameters, so `sample` takes no parameter tree; `seed` makes an explicit
 `torch.Generator` on the sampler's device. JAX's `donate_state` (buffer
 donation into the jitted batch program) has no counterpart: PyTorch frees a
-batch's tensors when the next batch replaces them. Chains over several
-devices and atom sharding are not ported (ROADMAP.md queue A, 'Parallel').
+batch's tensors when the next batch replaces them.
+
+Over a process group (`parallel/`), as JAX's `Sampler` over a mesh:
+`num_devices` > 1 (or a `mesh`) splits the chains, each rank walking its
+contiguous slice of the graphs (padded with masked dummy graphs to a
+multiple of the ranks) with no collective during the walk; its draws are
+its rows of the global draw (`parallel.mesh.GraphShardGenerator`), so the
+chains equal the single-process run's. `atom_sharded=True` splits each
+molecule's atoms instead (`parallel/atom_sharded.py`): every rank walks the
+whole batch and runs its rows of each forward (in one process, the whole
+molecule on the same plain path, as JAX's over a one-device mesh). Either way `sample` returns
+the full per-graph list on every rank, and only rank 0 runs the callbacks.
 """
 
 from __future__ import annotations
@@ -19,6 +29,21 @@ import numpy as np
 import torch
 
 from jamun_tpu_torch.ops.graph import GraphBatch
+from jamun_tpu_torch.parallel.atom_sharded import (
+    denoiser_with_atom_sharding,
+    pad_atoms_to_multiple,
+    prepare_atom_sharded_batch,
+)
+from jamun_tpu_torch.parallel.distributed import rank
+from jamun_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    make_generator,
+    make_mesh,
+    pad_batch_to_multiple,
+    randn_graphs,
+    shard_batch,
+)
 from jamun_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Sampler", "unbatch_samples"]
@@ -52,6 +77,21 @@ def unbatch_samples(samples: Dict[str, Any], init_graphs: GraphBatch) -> List[Di
     return out
 
 
+def _gather_chains(out: Dict[str, Any], mesh: Mesh, device) -> Dict[str, Any]:
+    """Every rank's chains of a batch's outputs: [G, N, 3] arrays along
+    axis 0, trajectories [frames, G, N, 3] along axis 1 (host arrays of an
+    offloaded walk too); the rest stays."""
+    full = dict(out)
+    for key, value in out.items():
+        ndim = getattr(value, "ndim", 0)
+        if ndim in (3, 4):
+            on_host = not torch.is_tensor(value)
+            t = torch.as_tensor(value, device=device) if on_host else value
+            t = all_gather(t, mesh.group, ndim - 3)
+            full[key] = t.cpu().numpy() if on_host else t
+    return full
+
+
 @dataclasses.dataclass
 class Sampler:
     """Runs `num_batches` sampling rounds, optionally continuing the chain.
@@ -68,20 +108,17 @@ class Sampler:
 
     callbacks: Sequence[Any] = ()
     num_devices: Optional[int] = None
-    mesh: Any = None
+    mesh: Optional[Mesh] = None
     atom_sharded: bool = False
     device: Any = None
 
     def __post_init__(self):
-        if (self.num_devices or 1) > 1 or self.mesh is not None or self.atom_sharded:
-            raise NotImplementedError(
-                "sampling over several devices (num_devices > 1, mesh, atom_sharded) is "
-                "not ported (ROADMAP.md queue A, 'Parallel')"
-            )
         self.device = resolve_device(self.device)
         self.global_step = 0
 
     def _call(self, hook: str, **kwargs):
+        if rank() != 0:
+            return
         for cb in self.callbacks:
             fn = getattr(cb, hook, None)
             if fn is not None:
@@ -96,19 +133,30 @@ class Sampler:
         continue_chain: bool = False,
         seed: int = 0,
     ) -> List[List[Dict[str, Any]]]:
-        """Per batch, the list of per-graph dicts of `unbatch_samples`."""
-        init_graphs = init_graphs.to(self.device)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        """Per batch, the list of per-graph dicts of `unbatch_samples` (of
+        every rank's chains)."""
+        mesh, chains = self.mesh, None
+        if mesh is None and (self.atom_sharded or (self.num_devices or 1) > 1):
+            mesh = make_mesh(self.num_devices)
+        if self.atom_sharded:
+            denoiser = denoiser_with_atom_sharding(denoiser, mesh)
+            init_graphs = prepare_atom_sharded_batch(pad_atoms_to_multiple(init_graphs, mesh.size), mesh)
+        elif mesh is not None and mesh.distributed:
+            chains = mesh
+            init_graphs = pad_batch_to_multiple(init_graphs, mesh.size)
+        all_graphs = init_graphs.to(self.device)
+        init_graphs = all_graphs if chains is None else shard_batch(all_graphs, chains)
+        generator = make_generator(self.device, seed, chains)
         pos = init_graphs.pos
         mask = init_graphs.node_mask[..., None].to(pos.dtype)
 
         def fresh_start():
-            noise = torch.randn(pos.shape, generator=generator, dtype=pos.dtype, device=self.device)
+            noise = randn_graphs(pos.shape, generator, pos.dtype, self.device)
             return pos + batch_sampler.sigma * noise * mask
 
         y_init, v_init = fresh_start(), "gaussian"
         sparse = denoiser.sparse_neighbors_active(pos.shape[1], training=False)
-        graph_mask, sigma = init_graphs.graph_mask.cpu().numpy(), batch_sampler.sigma
+        graph_mask, sigma = all_graphs.graph_mask.cpu().numpy(), batch_sampler.sigma
         self._call("on_sample_start", sampler=self)
         all_samples: List[List[Dict[str, Any]]] = []
         for batch_idx in range(num_batches):
@@ -129,11 +177,13 @@ class Sampler:
             else:
                 y_init, v_init = fresh_start(), "gaussian"
 
+            if chains is not None:
+                out = _gather_chains(out, chains, self.device)
             overflow = None
-            if sparse:
+            if sparse and rank() == 0:
                 with torch.no_grad():
                     ov = denoiser.neighbor_overflow(
-                        init_graphs.replace_pos(out["y"]), sigma
+                        all_graphs.replace_pos(out["y"]), sigma
                     ).cpu().numpy()
                 ov = ov[graph_mask]
                 overflow = {
@@ -141,7 +191,7 @@ class Sampler:
                     "max": int(ov.max()) if ov.size else 0,
                 }
 
-            samples = unbatch_samples(out, init_graphs)
+            samples = unbatch_samples(out, all_graphs)
             all_samples.append(samples)
             self._call(
                 "on_after_sample_batch",

@@ -21,6 +21,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from jamun_tpu_torch.parallel.mesh import randn_graphs
 from jamun_tpu_torch.sampling.mcmc import (
     BAOAB,
     MCMCConfig,
@@ -62,7 +63,7 @@ class UnrolledBAOAB:
         for _ in range(max(cfg.steps - 1, 0) // self.chunk_steps):
             carry = (y, v, *processed(y))
             for _ in range(self.chunk_steps):
-                R = torch.randn(y.shape, generator=generator, dtype=y.dtype, device=y.device)
+                R = randn_graphs(y.shape, generator, y.dtype, y.device)
                 carry = baoab.step(carry, R * mask if mask is not None else R, processed)
                 frames.append(carry[0])
             y, v = carry[0], carry[1]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from jamun_tpu_torch.ops.graph import GraphBatch
+from jamun_tpu_torch.parallel.mesh import randn_graphs
 
 __all__ = ["VESDEReverseDiffusionSampler"]
 
@@ -92,6 +93,6 @@ class VESDEReverseDiffusionSampler:
         mask = init_graphs.node_mask[..., None].to(pos.dtype)
 
         def normal():
-            return torch.randn(pos.shape, generator=generator, dtype=pos.dtype, device=pos.device) * mask
+            return randn_graphs(pos.shape, generator, pos.dtype, pos.device) * mask
 
         return self.anneal(denoiser, init_graphs, self.sigma_max * normal(), normal)

@@ -19,7 +19,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from jamun_tpu_torch.models.denoiser import Denoiser
+from jamun_tpu_torch.models.denoiser import masked_graph_mean
+from jamun_tpu_torch.parallel.mesh import global_graph_mean, make_generator
+from jamun_tpu_torch.train.state import denoiser_on
 
 __all__ = ["SigmaDistributionDiagnostics", "visualize_denoise_metrics"]
 
@@ -84,21 +86,27 @@ def visualize_denoise_metrics(
     batch,
     sigmas: Sequence[float] = (0.01, 0.02, 0.04, 0.08, 0.16, 0.32),
     seed: int = 0,
+    mesh=None,
 ) -> Dict[float, Dict[str, float]]:
     """Noise `batch` at each sigma and denoise it with `module` (the EMA
-    weights, in `denoiser`'s configuration, aligned as in evaluation) ->
-    {sigma: {metric: its mean over the valid graphs}}. Sigma i draws its
-    noise from a generator on the batch's device seeded with seed + i (JAX
-    seeds a PRNG key the same way; the draws differ between the two)."""
-    den = Denoiser(module, denoiser.config)
-    gm = batch.graph_mask.to(torch.float32)
-    denom = torch.clamp(gm.sum(), min=1.0)
+    weights, in `denoiser`'s configuration, atom-sharded where it is,
+    aligned as in evaluation) -> {sigma: {metric: its mean over the valid
+    graphs}}. Sigma i draws its noise from a generator on the batch's device
+    seeded with seed + i (JAX seeds a PRNG key the same way; the draws
+    differ between the two). Over a data-parallel `mesh` the batch is this
+    rank's slice and the means run over every rank's valid graphs."""
+    den = denoiser_on(denoiser, module)
     out: Dict[float, Dict[str, float]] = {}
     for i, sigma in enumerate(sigmas):
-        generator = torch.Generator(device=batch.pos.device).manual_seed(seed + i)
+        generator = make_generator(batch.pos.device, seed + i, mesh)
         with torch.no_grad():
-            _, aux = den.noise_and_compute_loss(
+            per_graph, aux = den.noise_and_compute_loss(
                 batch, float(sigma), generator, denoiser.config.align_noisy_input_during_evaluation
             )
-        out[float(sigma)] = {k: float((v * gm).sum() / denom) for k, v in aux.items()}
+            if mesh is None:
+                _, aux = masked_graph_mean(per_graph, aux, batch.graph_mask)
+            else:
+                _, aux = global_graph_mean(per_graph, aux, batch.graph_mask, mesh)
+        aux.pop("loss")
+        out[float(sigma)] = {k: float(v) for k, v in aux.items()}
     return out

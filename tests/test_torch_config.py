@@ -232,7 +232,7 @@ def test_roadmap_titles_named_by_the_port_exist():
     assert seen == {
         "Dense messages beyond one CTA", "Edge features at sizes no configuration reaches",
         "Kernel shapes outside the configurations", "Offloaded walks with burn-in",
-        "Other config targets", "Parallel", "Position gradients through the kernels",
+        "Other config targets", "Position gradients through the kernels",
         "Sparse messages from 65536 atoms on", "The sample CLI",
     }, sorted(seen)
 

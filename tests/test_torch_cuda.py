@@ -740,3 +740,66 @@ def test_trainable_tiled_block_matches_cpu(cuda, n_atoms):
         outs.append([out.detach().cpu(), xt.grad.cpu()] + [p.grad.cpu() for p in m.parameters()])
     for got, want in zip(outs[1], outs[0]):
         assert _rel(got, want) <= TOL[torch.float32]
+
+
+OPTAX_RULES = {
+    "sgd_nesterov": ("sgd", dict(learning_rate=5e-2, momentum=0.9, nesterov=True)),
+    "rmsprop_centered": ("rmsprop", dict(learning_rate=1e-2, centered=True, momentum=0.8)),
+    "adamax": ("adamax", dict(learning_rate=1e-2)),
+    "nadam": ("nadam", dict(learning_rate=1e-2)),
+    "nadamw_mask": ("nadamw", dict(learning_rate=1e-2, weight_decay=0.1,
+                                   mask={"w": True, "b": False})),
+    "adam_mu_bf16": ("adam", dict(learning_rate=1e-2, mu_dtype="bfloat16")),
+    "lion": ("lion", dict(learning_rate=1e-3)),
+    "adam_warmup_cosine": ("adam", dict(learning_rate="warmup_cosine")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTAX_RULES))
+def test_optax_rules_on_the_card_match_the_cpu(cuda, case):
+    """Each rule of `train/optim.py` added with the rest of optax, ten steps
+    on the card against the same rule on the CPU on the same gradients
+    (1e-5 of each parameter's largest entry: the card's sqrt and rsqrt may
+    round otherwise)."""
+    from jamun_tpu_torch.train import optim
+
+    rule, kwargs = OPTAX_RULES[case]
+    if kwargs["learning_rate"] == "warmup_cosine":
+        kwargs = dict(kwargs, learning_rate=optim.warmup_cosine_decay_schedule(0.0, 2e-2, 3, 10))
+    gen = torch.Generator().manual_seed(0)
+    init = {"w": torch.randn(6, 5, generator=gen), "b": torch.randn(5, generator=gen)}
+    grads = [{k: torch.randn(v.shape, generator=gen) for k, v in init.items()} for _ in range(10)]
+    sides = {}
+    for dev in ("cpu", cuda):
+        params = {k: torch.nn.Parameter(v.clone().to(dev)) for k, v in init.items()}
+        opt = getattr(optim, rule)(**kwargs)(list(params.items()))
+        for g in grads:
+            for k, p in params.items():
+                p.grad = g[k].to(dev)
+            opt.step()
+        sides[str(dev)] = {k: p.detach().cpu() for k, p in params.items()}
+    for k in init:
+        assert _rel(sides[str(cuda)][k], sides["cpu"][k]) <= 1e-5, k
+        assert not torch.equal(sides["cpu"][k], init[k])
+
+
+def test_atom_sharded_forward_on_two_gloo_ranks_of_one_card(cuda, tmp_path):
+    """`atom_sharded_arch_apply` on two gloo ranks of the one card (CUDA
+    tensors; gloo sums each rank's rows into a zero tensor for the gathers)
+    against the single-process forward on the card (the kernel path; the
+    sharded forward runs the plain one), f32, 1e-4."""
+    from jamun_tpu_torch.parallel import launch
+
+    kw = dict(tensor_product="uvu", irreps_hidden="16x0e + 8x1e", n_layers=2)
+    model = E3Conv(**kw, device=cuda, seed=0)
+    model.output_gain.data.fill_(1.0)
+    model.requires_grad_(False)
+    batch = make_test_batch(num_graphs=2, max_nodes=24, nodes_per_graph=[21, 24], max_bonds=48,
+                            device=cuda)
+    c_noise = -0.8
+    want = model(batch, torch.tensor([c_noise], device=cuda), 1.2)
+    spec = dict(arch=kw, state={k: v.cpu() for k, v in model.state_dict().items()},
+                batch=launch.batch_spec(batch), c_noise=c_noise, cutoff=1.2, device="cuda:0")
+    for r in launch.spawn(launch.forward_worker, 2, (spec,), backend="gloo", workdir=str(tmp_path),
+                          timeout=300):
+        assert _rel(r["out"], want.cpu()) <= TOL[torch.float32]

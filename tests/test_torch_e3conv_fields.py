@@ -1,6 +1,7 @@
 """JAX's `E3Conv` fields in the port's `E3Conv` (CPU): every dataclass
-field is a constructor parameter with JAX's default, `atom_axis` other than
-None names the 'Parallel' item, and the repo's arch files build with each of
+field is a constructor parameter with JAX's default, `atom_axis` takes the
+default process group by JAX's axis name "data" (and refuses any other
+name), and the repo's arch files build with each of
 the last three fields spelled, through the port's config composition and
 resolver. The JAX module is read for its fields only; nothing of it runs.
 """
@@ -10,12 +11,14 @@ import inspect
 import os
 
 import pytest
+import torch
 
 from jamun_tpu.models.e3conv import E3Conv as JE3Conv
 from jamun_tpu_torch.cmdline.train import DEFAULT_CONFIG_DIR
 from jamun_tpu_torch.config.compose import compose
 from jamun_tpu_torch.config.instantiate import instantiate
 from jamun_tpu_torch.models.e3conv import E3Conv
+from jamun_tpu_torch.utils.testing import make_test_batch
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 EXP_DIR = os.path.join(REPO, "configs", "experiment")
@@ -47,8 +50,18 @@ def test_every_jax_field_is_a_parameter_with_its_default():
 
 @pytest.mark.parametrize("value", ["data", "atoms"])
 def test_atom_axis_names_parallel(value):
-    with pytest.raises(NotImplementedError, match="queue A, 'Parallel'"):
-        E3Conv(**SMALL, atom_axis=value)
+    """"data" is the default process group's name (the atom-sharded mode,
+    `parallel/atom_sharded.py`): kept, and a forward without a process group
+    raises; any other name raises at construction."""
+    if value != "data":
+        with pytest.raises(ValueError, match="a process group, or 'data'"):
+            E3Conv(**SMALL, atom_axis=value)
+        return
+    m = E3Conv(**SMALL, atom_axis=value)
+    assert m.atom_axis == "data"
+    batch = make_test_batch(num_graphs=1, max_nodes=6, device="cpu")
+    with pytest.raises(ValueError, match="default process group, which is not set up"):
+        m(batch, torch.zeros(1), 1.0)
 
 
 def test_fields_are_kept():
@@ -76,7 +89,8 @@ def test_arch_files_build_with_each_field_spelled(arch, override):
 
 
 def test_arch_file_with_atom_axis_set_names_parallel():
+    """An arch file's `atom_axis` other than JAX's "data" raises as it builds."""
     cfg = compose(os.path.normpath(DEFAULT_CONFIG_DIR), "train",
                   ["experiment=train_uncapped_4AA", "model.arch.atom_axis=atoms"], EXP_DIR)
-    with pytest.raises(NotImplementedError, match="queue A, 'Parallel'"):
+    with pytest.raises(ValueError, match="a process group, or 'data'"):
         instantiate(cfg["model"]["arch"], device="cpu", seed=0)

@@ -213,6 +213,23 @@ def test_sample_cli_needs_the_card_or_device_cpu(port_run, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample.main(["--experiment-dir", EXP_DIR, *SAMPLE])
-    for bad in (["parallel.atom_sharded=true"], ["parallel.num_devices=2"]):
-        with pytest.raises(NotImplementedError, match="'Parallel'"):
-            sample.main(["--experiment-dir", EXP_DIR, "device=cpu", *SAMPLE, *bad])
+    # several ranks need a process group (torchrun), which this process has not
+    with pytest.raises(ValueError, match="process group"):
+        sample.main(["--experiment-dir", EXP_DIR, "device=cpu", *SAMPLE, "parallel.num_devices=2"])
+
+
+def test_sample_cli_atom_sharded_in_one_process(port_run, monkeypatch):
+    """`parallel.atom_sharded=true` in one process walks each molecule
+    whole on the atom-sharded (plain) path, as JAX's CLI does over a
+    one-device mesh: the same files, and samples within 1e-4 of the largest
+    entry of the plain run's."""
+    _sample(port_run, monkeypatch, "output_dir=runs/test/sampler_plain")
+    _sample(port_run, monkeypatch, "output_dir=runs/test/sampler_atom", "parallel.atom_sharded=true")
+    root = port_run[0] / "runs" / "test"
+    layout = sampler_layout({"AG": [0], "SV": [1]}, 2)
+    assert tree(root / "sampler_atom") == tree(root / "sampler_plain") == layout
+    for label, g in zip(CODES, (0, 1)):
+        for k in range(2):
+            name = os.path.join(label, "predicted_samples", f"batch_{k}_graph_{g}.npy")
+            got, want = (np.load(root / d / name) for d in ("sampler_atom", "sampler_plain"))
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max(), err_msg=name)

@@ -292,12 +292,6 @@ def test_parameter_callbacks_match_jax():
 
 
 def test_unported_options_and_device_rule():
-    with pytest.raises(NotImplementedError, match="queue A, .Parallel."):
-        Sampler(num_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, .Parallel."):
-        Sampler(atom_sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, .Parallel."):
-        Sampler(mesh=object(), device="cpu")
     # the Verlet lists of the sparse path are ported: a skin is accepted, and
     # a model on the dense path builds no list to cache
     smp = SingleMeasurementSampler(BAOAB(MCMCConfig(steps=3)), SIGMA, neighbor_skin=0.1)
@@ -306,6 +300,19 @@ def test_unported_options_and_device_rule():
     den = Denoiser(E3Conv(
         tensor_product="uvu", irreps_hidden="4x0e + 2x1e", n_layers=1, device="cpu", seed=0),
                    DenoiserConfig(1.0, 0.5))
+    # chains over several ranks need a process group (torchrun;
+    # tests/test_torch_parallel.py starts one), which this process has not;
+    # atom sharding in one process walks the whole molecule on the plain
+    # path, as the plain Sampler's walk (tests/test_torch_parallel.py holds
+    # the forward to JAX's one-device mesh)
+    with pytest.raises(ValueError, match="process group"):
+        Sampler(num_devices=2, device="cpu").sample(den, smp, 1, tb)
+    (atom,), (plain,) = (Sampler(atom_sharded=a, device="cpu").sample(den, smp, 1, tb)
+                         for a in (True, False))
+    for g, w in zip(atom, plain):
+        for k, v in w.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_allclose(g[k], v, rtol=0, atol=1e-4 * np.abs(v).max(), err_msg=k)
     assert den.make_neighbor_cached_score(tb, SIGMA, 0.1) is None
     out = smp.walk(den, tb, tb.pos, torch.Generator().manual_seed(0))
     assert "neighbor_rebuilds" not in out and out["y_traj"].shape == (3, 1, 8, 3)

@@ -287,9 +287,9 @@ def test_no_public_name_of_a_ported_module_is_missing():
     JAX module (the Pallas kernels aside: `ops/cuda/` holds theirs) is
     defined in the port's module of the same path, except
     `denoiser_without_kernels` (JAX's kernel fallback, left out on purpose:
-    a failing kernel raises in the port); `parallel/` is the next slice
-    (ROADMAP.md, 'Parallel'), and `utils/jax_setup.py`'s `setup_jax` is
-    `utils/torch_setup.py`'s `setup_torch`."""
+    a failing kernel raises in the port), and `utils/jax_setup.py`'s
+    `setup_jax` is `utils/torch_setup.py`'s `setup_torch`. `parallel/` is
+    held too."""
     root_j, root_t = os.path.join(REPO, "jamun_tpu"), os.path.join(REPO, "jamun_tpu_torch")
     renamed = {os.path.join("utils", "jax_setup.py"): (os.path.join("utils", "torch_setup.py"),
                                                        {"setup_jax": "setup_torch"})}
@@ -298,9 +298,6 @@ def test_no_public_name_of_a_ported_module_is_missing():
         for f in sorted(fs):
             rel = os.path.relpath(os.path.join(d, f), root_j)
             if not f.endswith(".py") or rel.startswith(os.path.join("ops", "pallas")):
-                continue
-            if rel.startswith("parallel" + os.sep):
-                assert not os.path.exists(os.path.join(root_t, rel)), rel
                 continue
             port_rel, names = renamed.get(rel, (rel, {}))
             want = {names.get(n, n) for n in _public_defs(os.path.join(root_j, rel))}
