@@ -3,6 +3,7 @@
 Run from the repository root:
     python3 chip_smoke.py [--out FILE]
     python3 chip_smoke.py --phase8-repeat N [--out DIR]   (phase 8 alone, N times)
+    python3 chip_smoke.py --phase13-only [--out FILE]     (phase 13 alone)
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the hand-written kernels from jamun_tpu_torch/csrc/ (one nvcc per
@@ -264,6 +265,22 @@ Phases (any failure exits non-zero; nothing is caught):
      mask of the flax names and bf16 `mu_dtype`, adam with
      `warmup_cosine_decay_schedule` as its learning rate (finite losses, K1,
      K2 and K4 launching).
+ 13. after phase 12, in phase 6's work directory, the rest of optax's
+     rules and its two wrappers (`train/optim.py`): (a) 3 bf16
+     `Trainer.fit` steps of the flagship (G = 32, N = 48, output gain 1)
+     with each of the 19 rules, `MultiSteps(adam, 2)` and
+     `apply_if_finite(adam, 2)` with the output gain's gradient NaN at the
+     second step (that step rejected: the count 2, one non-finite step):
+     finite losses and parameters, K1 3, K2 18, K4 18 and Kabsch 3 a run;
+     sm3 refuses E3Conv's 0-d output gain, as optax's does; (b) in f32,
+     each rule's parameters after 3 steps on the card against the CPU from
+     the same weights, gradients (one backward on the card, scaled 1,
+     -0.5, 0.75) and noise: within 1e-3 of each leaf's max; (c) each rule's
+     step alone on the card: 3 steps under sync debug mode (no host wait),
+     the median of 20 synchronised steps, the device ops of a step; (d) the
+     train CLI (`train_uncapped_4AA`, separable) for 5 steps with
+     `model.optim._target_=optax.adafactor` and `optax.lamb`.
+`--phase13-only` runs the build and phase 13 alone.
 `--phase8-repeat N` runs phase 8 alone (after the build) in N fresh
 processes, one after the other, keeping each one's output and error in
 `--out DIR` (default `runs/phase8_repeat`), and prints how many
@@ -4319,6 +4336,281 @@ def phase12(dev, card: str, work: str) -> dict:
     return out
 
 
+# phase 13: the rest of optax's rules and its two wrappers (`train/optim.py`)
+P13_STEPS = 3
+P13_RULES = {
+    "adabelief": dict(learning_rate=2e-3), "adadelta": dict(learning_rate=1.0),
+    "adafactor": dict(learning_rate=2e-3), "adamaxw": dict(learning_rate=2e-3),
+    "adan": dict(learning_rate=2e-3), "amsgrad": dict(learning_rate=2e-3),
+    "fromage": dict(learning_rate=2e-3), "lamb": dict(learning_rate=2e-3),
+    "lars": dict(learning_rate=0.1), "noisy_sgd": dict(learning_rate=2e-3),
+    "novograd": dict(learning_rate=2e-3), "optimistic_adam": dict(learning_rate=2e-3),
+    "optimistic_adam_v2": dict(learning_rate=2e-3),
+    "optimistic_gradient_descent": dict(learning_rate=2e-3), "radam": dict(learning_rate=2e-3),
+    "rprop": dict(learning_rate=1e-3), "sign_sgd": dict(learning_rate=1e-4),
+    "sm3": dict(learning_rate=2e-3), "yogi": dict(learning_rate=2e-3),
+}
+P13_WRAPPED = ("MultiSteps", "apply_if_finite")
+P13_NAN_STEP = 2  # apply_if_finite's one non-finite gradient: the output gain's, second step
+P13_SCALES = (1.0, -0.5, 0.75)  # (b): the card's gradient times these, one a step
+P13_TIMED = 20
+
+
+def p13_factory(name: str):
+    """The rule `name` of phase 13 (`MultiSteps` and `apply_if_finite` around
+    Adam at lr 2e-3, k = 2 and two errors)."""
+    from jamun_tpu_torch.train import optim
+
+    if name == "MultiSteps":
+        return optim.MultiSteps(optim.adam(2e-3), 2)
+    if name == "apply_if_finite":
+        return optim.apply_if_finite(optim.adam(2e-3), 2)
+    return getattr(optim, name)(**P13_RULES[name])
+
+
+def p13_named(module, name: str, device) -> list:
+    """Fresh copies of `module`'s parameters on `device` by name; sm3 leaves
+    out the 0-d output gain, which optax's sm3 (and the port's) refuses."""
+    return [(n, torch.nn.Parameter(p.detach().to(device).clone()))
+            for n, p in module.named_parameters() if not (name == "sm3" and p.ndim == 0)]
+
+
+def p13_nan_hook(param, at: int):
+    """Makes `param`'s gradient NaN at its `at`-th backward (a host count)."""
+    calls = [0]
+
+    def hook(g):
+        calls[0] += 1
+        return g * float("nan") if calls[0] == at else g
+
+    return param.register_hook(hook)
+
+
+def p13_fit_runs(dev, card: str, counters: dict, kabsch_kernel, base, train) -> dict:
+    """(a) 3 bf16 `Trainer.fit` steps of the flagship with each rule."""
+    import copy
+
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+    from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger
+
+    want = {"edge_features": P13_STEPS, "conv_block": 6 * P13_STEPS,
+            "conv_block_bwd": 6 * P13_STEPS}
+    out = {}
+    for name in (*P13_RULES, *P13_WRAPPED):
+        model = copy.deepcopy(base)
+        den = Denoiser(model, DenoiserConfig(**P12_CONFIG))
+        hook = p13_nan_hook(model.output_gain, P13_NAN_STEP) if name == "apply_if_finite" else None
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        rec = RecordingLogger()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = TrainerConfig(max_steps=P13_STEPS, max_epochs=1, log_every_n_steps=1, seed=0,
+                                checkpoint_dir=os.path.join(tmp, "checkpoints"),
+                                collect_sigma_diagnostics=False)
+            try:
+                state = Trainer(cfg, rec, device=dev).fit(
+                    den, p13_factory(name), ConstantSigma(SIGMA), FixedBatches(train, []))
+            except ValueError as e:
+                # optax's sm3 fails on a 0-d leaf too: E3Conv's output gain
+                if name != "sm3" or "0-d leaf 'output_gain'" not in str(e):
+                    raise
+                out[name] = dict(refused=str(e))
+                log(f"phase 13a: sm3 refuses E3Conv's 0-d output gain, as optax's does "
+                    f"(IndexError in JAX's update)")
+                continue
+            finally:
+                if hook is not None:
+                    hook.remove()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: counters[k].launches for k in want}
+        losses = [m["train/loss"] for _, m in rec.metrics if "train/loss" in m]
+        group = state.optimizer.param_groups[0]
+        assert state.step == P13_STEPS and len(losses) == P13_STEPS, (name, losses)
+        assert all(math.isfinite(v) for v in losses), (name, losses)
+        assert launches == want and kabsch_kernel.launches == P13_STEPS, (name, launches)
+        assert all(bool(torch.isfinite(p).all()) for p in state.module.parameters()), name
+        moved = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(state.module.parameters(), base.parameters()))
+        assert moved > 0, name
+        row = dict(losses=losses, launches=launches, kabsch=kabsch_kernel.launches,
+                   largest_change=moved, seconds_with_setup=seconds)
+        if name == "apply_if_finite":
+            row.update(count=int(group["count"]), total_notfinite=int(group["total_notfinite"]))
+            assert row["count"] == P13_STEPS - 1 and row["total_notfinite"] == 1, row
+        if name == "MultiSteps":
+            row.update(count=group["count"], gradient_step=group["gradient_step"])
+            assert group["count"] == 1 and group["mini_step"] == 1, group
+        out[name] = row
+        log(f"phase 13a: {name}: {P13_STEPS} bf16 Trainer.fit steps at G=32 N=48, losses "
+            + " ".join(f"{v:.5f}" for v in losses)
+            + f", largest parameter change {moved:.3g}, launches {list(launches.values())} "
+            f"Kabsch {kabsch_kernel.launches}, {seconds:.2f} s with set-up on {card}")
+    return out
+
+
+def p13_optimizer_steps(dev, card: str, base32, batch) -> dict:
+    """(b) each rule's 3 steps on the card against the CPU from the same
+    weights, gradients and noise, f32: within 1e-3 of each leaf's max;
+    (c) each rule's step alone on the card: 3 steps under sync debug mode
+    (no host wait allowed), the median of 20 synchronised steps, and the
+    device ops of a step (torch.profiler over 3)."""
+    import copy
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+
+    den = Denoiser(copy.deepcopy(base32).to(dev), DenoiserConfig(**P12_CONFIG))
+    loss, _ = den.training_loss(batch.to_device(dev), SIGMA,
+                                torch.Generator(device=dev).manual_seed(0))
+    loss.backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+             for n, p in den.arch.named_parameters()}
+    del den
+    gen = torch.Generator().manual_seed(13)
+    noise = [{n: torch.randn(p.shape, generator=gen) for n, p in base32.named_parameters()}
+             for _ in P13_SCALES]
+    out = {}
+    for name in (*P13_RULES, *P13_WRAPPED):
+        sides = {}
+        for device in ("cpu", dev):
+            named = p13_named(base32, name, device)
+            opt = p13_factory(name)(named)
+            if name == "noisy_sgd":
+                draws = iter(noise)
+                # copies: the rule scales its noise in place
+                opt.steps[0].noise = lambda rule, updates, draws=draws, named=named: [
+                    d[n].to(updates[0].device, copy=True) for d in [next(draws)] for n, _ in named]
+            for k, scale in enumerate(P13_SCALES):
+                for n, p in named:
+                    p.grad = (grads[n] * scale).to(device)
+                    if name == "apply_if_finite" and k + 1 == P13_NAN_STEP and p.ndim == 0:
+                        p.grad = p.grad * float("nan")
+                opt.step()
+            sides[str(device)] = (named, opt)
+        (cpu_named, _), (card_named, opt) = sides["cpu"], sides[str(dev)]
+        err = max(float((q.detach().cpu() - p.detach()).abs().max()
+                        / p.detach().abs().max().clamp_min(1e-30))
+                  for (_, p), (_, q) in zip(cpu_named, card_named))
+        assert err <= 1e-3, (name, err)
+        # (c) the card's step alone: no host wait, then timed, then profiled
+        if name == "noisy_sgd":
+            del opt.steps[0].noise  # the rule's own draws again
+        for n, p in card_named:
+            p.grad = grads[n]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        times = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(P13_TIMED):
+            start.record()
+            opt.step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                opt.step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        ops = sum(e.count for e in events) / 3
+        busy = sum(e.self_device_time_total for e in events) / 3 / 1e3
+        assert all(bool(torch.isfinite(p).all()) for _, p in card_named), name
+        out[name] = dict(card_against_cpu=err, ms=statistics.median(times), device_ops=ops,
+                         device_busy_ms=busy, tensors=len(card_named))
+        log(f"phase 13b-c: {name}: card against CPU after {len(P13_SCALES)} f32 steps "
+            f"{err:.3g} of the leaf's max; the step alone {out[name]['ms']:.3f} ms (median of "
+            f"{P13_TIMED}, synchronised), {ops:.0f} device ops, device busy {busy:.3f} ms, "
+            f"{len(card_named)} tensors, no host wait (sync debug mode) on {card}")
+        del sides, opt
+    return out
+
+
+def p13_cli_runs(card: str) -> dict:
+    """(d) the train CLI (`train_uncapped_4AA`, separable) for 5 steps with
+    `model.optim._target_` set to optax.adafactor and to optax.lamb, in
+    phase 6's work directory."""
+    from jamun_tpu_torch.cmdline import train as train_cli
+
+    out = {}
+    for target in ("optax.adafactor", "optax.lamb"):
+        rule = target.split(".")[1]
+        run_key = f"train_p13_{rule}"
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--experiment-dir", EXP_DIR, "experiment=train_uncapped_4AA",
+            "model/arch=e3conv_separable", f"run_key={run_key}", f"model.optim._target_={target}",
+            "trainer.max_steps=5", "trainer.val_every_n_steps=5", "trainer.val_max_batches=1",
+            "trainer.log_every_n_steps=1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        train, val = read_metrics_csv(os.path.join("runs", run_key, "metrics.csv"))
+        losses = [r["train/loss"] for r in train]
+        assert state.step == 5 and state.optimizer.alias == rule, (rule, state.step)
+        assert len(losses) == 5 and all(math.isfinite(v) for v in losses), losses
+        assert val and all(math.isfinite(r["val/loss"]) for r in val), val
+        out[rule] = dict(losses=losses, val_loss=val[-1]["val/loss"], seconds=seconds)
+        log(f"phase 13d: train CLI with model.optim._target_={target}: 5 steps, losses "
+            + " ".join(f"{v:.5f}" for v in losses)
+            + f", val loss {val[-1]['val/loss']:.5f}, {seconds:.1f} s on {card}")
+    return out
+
+
+def phase13(dev, card: str, counters: dict, kabsch_kernel) -> dict:
+    """Phase 13 (module docstring), in phase 6's work directory."""
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    G, N = 32, 48
+    train = [make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=[44] * G, max_bonds=96,
+                             seed=s, device="cpu") for s in range(P13_STEPS)]
+    models = {}
+    for dtype in (torch.bfloat16, None):
+        models[dtype] = E3Conv(**P12_ARCH, dtype=dtype, device="cpu", seed=0)
+        models[dtype].output_gain.data.fill_(1.0)  # every parameter gets a gradient
+    out = dict(fit=p13_fit_runs(dev, card, counters, kabsch_kernel, models[torch.bfloat16], train))
+    out["optimizer_steps"] = p13_optimizer_steps(dev, card, models[None], train[0])
+    out["cli"] = p13_cli_runs(card)
+    out["seconds"] = time.perf_counter() - t13
+    log(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+def phase13_only(out_path) -> int:
+    """`--phase13-only`: build, then phase 13 alone in a 4AA work directory."""
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
+    from jamun_tpu_torch.ops.cuda.build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda"), card_line()
+    log(card)
+    build_all()
+    with cli_workdir():
+        out = phase13(dev, card, all_counters(), kb.KERNEL)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(dict(card=card, phase13=out), f, indent=1, default=str)
+    log("phase 13 alone: passed")
+    return 0
+
+
 def all_counters() -> dict:
     """Every kernel's launch counter by name (K8 and K9 share a source, as
     K2 and its layer mode do)."""
@@ -4346,6 +4638,8 @@ def main() -> int:
         return 2
     if "--phase8-only" in args:
         return phase8_only(out_path)
+    if "--phase13-only" in args:
+        return phase13_only(out_path)
     if "--phase8-repeat" in args:
         return phase8_repeat(int(args[args.index("--phase8-repeat") + 1]),
                              out_path or os.path.join("runs", "phase8_repeat"))
@@ -4713,6 +5007,8 @@ def main() -> int:
         log(f"phase 11: {phase11['seconds']:.1f} s")
         # ---- phase 12: data-parallel and atom-sharded training and sampling ----
         phase12_out = phase12(dev, card, work)
+        # ---- phase 13: the rest of optax's rules, MultiSteps, apply_if_finite ----
+        phase13_out = phase13(dev, card, counters, kb.KERNEL)
     torch.cuda.empty_cache()
 
     # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
@@ -4772,7 +5068,8 @@ def main() -> int:
                   kabsch=kabsch, hmma=hmma, tiled_launch_shapes=tiled_shapes,
                   k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
                   idrome=idrome, ophiuchus_train=oph_train, ophiuchus_vesde_sample=oph_sample,
-                  unrolled=unrolled, phase10=phase10, phase11=phase11, phase12=phase12_out)
+                  unrolled=unrolled, phase10=phase10, phase11=phase11, phase12=phase12_out,
+                  phase13=phase13_out)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

@@ -7,11 +7,11 @@ fixed table, held as strings, so that nothing here imports `jamun_tpu`,
 `jax`, `flax` or `optax`:
 
   - `jamun_tpu.<path>` -> `jamun_tpu_torch.<path>`;
-  - optax's `adam`, `adamw`, `nadam`, `nadamw`, `adagrad`, `adamax`,
-    `lion`, `sgd`, `rmsprop` and the schedules `constant_schedule`,
-    `linear_schedule`, `cosine_decay_schedule`,
-    `warmup_cosine_decay_schedule`, `exponential_decay` ->
-    `jamun_tpu_torch.train.optim.*`;
+  - optax's rules, schedules and its two wrappers that a config can build
+    (`train/optim.py`: `RULES`, `SCHEDULES`, `WRAPPERS`) ->
+    `jamun_tpu_torch.train.optim.*`; `optax.lbfgs` and `optax.polyak_sgd`,
+    which need the loss in their update and so run in no trainer (JAX's
+    raises TypeError), raise with their own title;
   - a `jamun_tpu_torch.<path>` target stands as it is (the port's own
     `config/defaults/`).
 
@@ -27,18 +27,25 @@ from typing import Any, Dict, List, Optional
 
 __all__ = ["port_path", "resolve_target", "locate", "instantiate", "instantiate_dict_cfg"]
 
-# optax's rules and schedules the port has (`train/optim.py`)
-_OPTAX = {
-    f"optax.{name}": f"jamun_tpu_torch.train.optim.{name}"
-    for name in (
-        "adam", "adamw", "adagrad", "nadam", "nadamw", "adamax", "lion", "sgd", "rmsprop",
-        "constant_schedule", "linear_schedule", "cosine_decay_schedule",
-        "warmup_cosine_decay_schedule", "exponential_decay",
-    )
+# optax's rules, schedules and wrappers the port has (`train/optim.py`)
+_OPTAX_NAMES = (
+    "adam", "adamw", "adagrad", "nadam", "nadamw", "adamax", "lion", "sgd", "rmsprop",
+    "adabelief", "adadelta", "adafactor", "adamaxw", "adan", "amsgrad", "fromage", "lamb",
+    "lars", "noisy_sgd", "novograd", "optimistic_adam", "optimistic_adam_v2",
+    "optimistic_gradient_descent", "radam", "rprop", "sign_sgd", "sm3", "yogi",
+    "constant_schedule", "linear_schedule", "cosine_decay_schedule",
+    "warmup_cosine_decay_schedule", "exponential_decay", "cosine_onecycle_schedule",
+    "join_schedules", "linear_onecycle_schedule", "piecewise_constant_schedule",
+    "piecewise_interpolate_schedule", "polynomial_schedule", "sgdr_schedule",
+    "warmup_constant_schedule", "warmup_exponential_decay_schedule",
+    "MultiSteps", "apply_if_finite", "lbfgs", "polyak_sgd",
+)
+_OPTAX = {f"optax.{name}": f"jamun_tpu_torch.train.optim.{name}" for name in _OPTAX_NAMES}
+# targets the port does not have, by the title of their item
+_UNPORTED = {
+    "jamun_tpu_torch.train.optim.lbfgs": "Rules that need the loss",
+    "jamun_tpu_torch.train.optim.polyak_sgd": "Rules that need the loss",
 }
-# targets of the JAX package that the port lacks, by the title of their
-# item (none since the port has every target of the repo's configs)
-_UNPORTED: dict = {}
 _OTHER = "Other config targets"
 
 

@@ -43,7 +43,10 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params", "load_jax_train_state", "init_parameters", "SCANNED"]
+__all__ = [
+    "from_jax_params", "to_jax_params", "load_jax_train_state", "init_parameters", "flax_names",
+    "SCANNED",
+]
 
 _OTHER = "ROADMAP.md queue A, 'Other config targets'"
 
@@ -124,75 +127,134 @@ def init_parameters(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
-def _chain(node, what: str) -> List:
-    """A tuple of optax states as flax stores it (a map keyed "0", "1", ...)
-    -> its entries."""
-    if not isinstance(node, Mapping) or sorted(node) != sorted(str(i) for i in range(len(node))):
-        raise ValueError(f"{what}: want a chain of optax states, got keys {sorted(node)!r}")
-    return [node[str(i)] for i in range(len(node))]
+def flax_names(names: List[str], scan_layers: bool) -> List[str]:
+    """Each parameter's flax leaf, by name: as it is, except that a scanned
+    model's `_HiddenLayer_k.<path>` is a slice of `Scan_HiddenLayer_0.<path>`
+    (the slices of one leaf share its name)."""
+    if not scan_layers:
+        return list(names)
+    out = []
+    for name in names:
+        head, _, rest = name.partition(".")
+        out.append(f"{SCANNED}.{rest}" if head.startswith(_LAYER) else name)
+    return out
 
 
-def _by_name(tree: Mapping, names: List[str], what: str) -> Dict[str, torch.Tensor]:
-    leaves = from_jax_params(tree)
-    if sorted(leaves) != sorted(names):
-        raise ValueError(f"{what}: leaves {sorted(set(leaves) ^ set(names))} differ from the parameters")
-    return leaves
+def _tensor(value) -> torch.Tensor:
+    """A leaf of a JAX tree (numpy, or a torch bf16 tensor from
+    `read_flax_msgpack`) as a tensor of its own dtype."""
+    return value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+
+
+class _Walk:
+    """`_load_jax_opt_state`'s walk: JAX's opt_state against the rule's
+    declared layout (`optim._OptaxRule.jax_state_layout`), placing each
+    value where its slot says."""
+
+    def __init__(self, optimizer, module: torch.nn.Module):
+        self.opt = optimizer
+        self.rule = getattr(optimizer, "inner", optimizer)
+        self.group = optimizer.param_groups[0]
+        self.params = dict(module.named_parameters())
+        self.counts: List[int] = []
+        self.outer: List[int] = []
+        self.initial: List[bool] = []
+
+    def place(self, layout, tree, path: str) -> None:
+        from jamun_tpu_torch.train import optim
+
+        if isinstance(layout, dict):
+            if not isinstance(tree, Mapping) or set(tree) != set(layout):
+                got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+                rule = getattr(self.rule, "alias", type(self.rule).__name__)
+                raise ValueError(f"{path}: JAX's state has {got}, {rule} keeps {sorted(layout)}")
+            for k in layout:
+                self.place(layout[k], tree[k], f"{path}/{k}")
+        elif isinstance(layout, optim._Count):
+            (self.outer if layout.outer else self.counts).append(int(np.asarray(tree)))
+        elif isinstance(layout, optim._Param):
+            leaves = {}
+            if set(tree.keys()) == {"params"}:
+                tree = tree["params"]
+            for name, v in _leaves(tree):
+                t = _tensor(v)
+                head, _, rest = name.partition(".")
+                if head == SCANNED:
+                    for k in range(t.shape[0]):
+                        leaves[f"{_LAYER}{k}.{rest}"] = t[k]
+                else:
+                    leaves[name] = t
+            if sorted(leaves) != sorted(self.params):
+                raise ValueError(f"{path}: leaves {sorted(set(leaves) ^ set(self.params))} differ "
+                                 "from the parameters")
+            for name, p in self.params.items():
+                self.opt.state[p][layout.key] = leaves[name].to(p.device).clone()
+        elif isinstance(layout, optim._Leaf):
+            if set(tree.keys()) == {"params"}:
+                tree = tree["params"]
+            for leaf, name in enumerate(self.rule.leaf_names()):
+                node = tree
+                for k in name.split("."):
+                    node = node[k]
+                value = ({k: _tensor(v) for k, v in node.items()} if isinstance(node, Mapping)
+                         else _tensor(node))
+                layout.place(self.rule, leaf, value)
+        elif isinstance(layout, optim._Group):
+            value = _tensor(tree)
+            dev = self.group["params"][0].device
+            self.group[layout.key] = value.to(dev) if layout.device else value.item()
+        elif isinstance(layout, optim._Initial):
+            self.initial.append(bool(np.asarray(tree)))
+        elif not isinstance(layout, optim._Unused):
+            raise TypeError(f"{path}: unknown slot {layout!r}")
+
+    def finish(self, step: int) -> None:
+        """The rule's count: every place optax keeps one must agree; with
+        none, a chained schedule's count, MultiSteps' gradient steps, or the
+        train state's step."""
+        from jamun_tpu_torch.train import optim
+
+        if len(set(self.counts)) > 1:
+            raise ValueError(f"opt_state: the rule's counts {self.counts} differ")
+        if self.counts:
+            count = self.counts[0]
+        elif isinstance(self.opt, optim._MultiSteps):
+            count = self.group["gradient_step"]
+        else:
+            count = self.outer[0] if self.outer else step
+        if self.outer and self.outer[0] != count:
+            raise NotImplementedError(
+                f"opt_state's scale_by_schedule count {self.outer[0]} differs from the rule's "
+                f"{count}; the port keeps one count for both ({_OTHER})")
+        if any(flag != (count == 0) for flag in self.initial):
+            raise ValueError(f"opt_state: is_initial_step {self.initial} at count {count}")
+        if isinstance(self.opt, optim._ApplyIfFinite):
+            count = torch.full((), count, dtype=torch.int32, device=self.group["params"][0].device)
+        self.group["count"] = count
 
 
 def _load_jax_opt_state(opt_state: Mapping, module: torch.nn.Module, optimizer, step: int) -> None:
-    """optax's state for the rules of `train/optim.py`, each leaf placed by
-    its parameter's name: adam {"0": {count, mu, nu}, "1": {}}, adamw the
-    same with a third empty entry, adagrad {"0": {sum_of_squares}, "1": {}},
-    and with `model.lr_scheduler` the chain {"0": <rule>, "1": {count}}
-    (`cmdline/common.build_optimizer`)."""
-    from jamun_tpu_torch.train.optim import Adagrad, Adam  # train/ imports this module
+    """optax's state for any rule of `train/optim.py` (alone, chained with
+    `model.lr_scheduler`'s `scale_by_schedule`, or inside `MultiSteps` /
+    `apply_if_finite`): one walk over the rule's declaration of optax's
+    tree (`jax_state_layout`), each value placed by its parameter's name or
+    its flax leaf."""
+    from jamun_tpu_torch.train import optim  # train/ imports this module
 
-    if not isinstance(optimizer, (Adam, Adagrad)):
+    if not isinstance(optimizer, (optim._OptaxRule, optim._Wrapper)):
         raise NotImplementedError(
             f"JAX's optimizer state into {type(optimizer).__name__} is not ported ({_OTHER})"
         )
     named = list(module.named_parameters())
-    names = [n for n, _ in named]
     if len(optimizer.param_groups) != 1 or [id(p) for p in optimizer.param_groups[0]["params"]] != [
         id(p) for _, p in named
     ]:
         raise ValueError("the optimizer must hold the module's parameters in one group")
-    group = optimizer.param_groups[0]
-    entries = _chain(opt_state, "opt_state")
-    schedule_count = None
-    if optimizer.schedule is not None:
-        if len(entries) != 2 or not isinstance(entries[1], Mapping) or set(entries[1]) != {"count"}:
-            raise NotImplementedError(
-                f"opt_state has no chained scale_by_schedule entry the port can place ({_OTHER})"
-            )
-        schedule_count = int(np.asarray(entries[1]["count"]))
-        entries = _chain(entries[0], "opt_state/0")
-    if any(e != {} for e in entries[1:]):
-        raise ValueError(f"opt_state: the entries after the rule's must be empty, got {entries[1:]!r}")
-
-    if isinstance(optimizer, Adam):
-        want = 3 if group["weight_decay"] else 2  # adamw chains add_decayed_weights
-        if len(entries) != want or set(entries[0]) != {"count", "mu", "nu"}:
-            raise ValueError(f"opt_state does not hold {'adamw' if want == 3 else 'adam'}'s state")
-        count = int(np.asarray(entries[0]["count"]))
-        mu = _by_name(entries[0]["mu"], names, "opt_state mu")
-        nu = _by_name(entries[0]["nu"], names, "opt_state nu")
-        for name, p in named:
-            optimizer.state[p] = {"mu": mu[name].to(p.device), "nu": nu[name].to(p.device)}
-    else:
-        if len(entries) != 2 or set(entries[0]) != {"sum_of_squares"}:
-            raise ValueError("opt_state does not hold adagrad's state")
-        acc = _by_name(entries[0]["sum_of_squares"], names, "opt_state sum_of_squares")
-        for name, p in named:
-            optimizer.state[p] = {"sum_of_squares": acc[name].to(p.device)}
-        # scale_by_rss keeps no count; the port's counts only the schedule's steps
-        count = step if schedule_count is None else schedule_count
-    if schedule_count is not None and schedule_count != count:
-        raise NotImplementedError(
-            f"opt_state's scale_by_schedule count {schedule_count} differs from the rule's "
-            f"{count}; the port keeps one count for both ({_OTHER})"
-        )
-    group["count"] = count
+    walk = _Walk(optimizer, module)
+    for p in optimizer.param_groups[0]["params"]:
+        optimizer.state[p] = {}
+    walk.place(optimizer.jax_state_layout(), opt_state, "opt_state")
+    walk.finish(step)
 
 
 def load_jax_train_state(tree: Mapping, state):
@@ -203,8 +265,10 @@ def load_jax_train_state(tree: Mapping, state):
     schedule it cannot place, raises rather than load a wrong state.
 
     A scanned E3Conv's trees (its layers stacked under
-    `Scan_HiddenLayer_0`) load the same way: `from_jax_params` slices
-    them, in the parameters, the EMA and Adam's mu and nu alike.
+    `Scan_HiddenLayer_0`) load the same way: the parameters, the EMA and
+    every elementwise state are sliced into the layers; a statistic of a
+    whole flax leaf (adafactor's factors, novograd's nu, sm3's
+    accumulators) stays whole on the leaf's first parameter.
 
     `rng` (a JAX PRNG key) is not carried: the port draws its noise from
     `torch.Generator`s, which a JAX key cannot seed to the same stream, so

@@ -752,6 +752,25 @@ OPTAX_RULES = {
     "adam_mu_bf16": ("adam", dict(learning_rate=1e-2, mu_dtype="bfloat16")),
     "lion": ("lion", dict(learning_rate=1e-3)),
     "adam_warmup_cosine": ("adam", dict(learning_rate="warmup_cosine")),
+    # the rules built from optax's scale_by_* steps (noisy_sgd's draws differ by device)
+    "adabelief": ("adabelief", dict(learning_rate=1e-2)),
+    "adadelta": ("adadelta", dict(learning_rate=1.0)),
+    "adafactor_factored": ("adafactor", dict(learning_rate=1e-2, min_dim_size_to_factor=2,
+                                             momentum=0.9)),
+    "adamaxw": ("adamaxw", dict(learning_rate=1e-2)),
+    "adan": ("adan", dict(learning_rate=1e-2)),
+    "amsgrad": ("amsgrad", dict(learning_rate=1e-2)),
+    "fromage": ("fromage", dict(learning_rate=1e-2)),
+    "lamb": ("lamb", dict(learning_rate=1e-2, weight_decay=1e-2)),
+    "lars": ("lars", dict(learning_rate=1.0, weight_decay=1e-2)),
+    "novograd": ("novograd", dict(learning_rate=1e-2)),
+    "optimistic_adam_v2": ("optimistic_adam_v2", dict(learning_rate=1e-2)),
+    "optimistic_gradient_descent": ("optimistic_gradient_descent", dict(learning_rate=1e-2)),
+    "radam": ("radam", dict(learning_rate=1e-2)),
+    "rprop": ("rprop", dict(learning_rate=1e-2)),
+    "sign_sgd": ("sign_sgd", dict(learning_rate=1e-2)),
+    "sm3": ("sm3", dict(learning_rate=1e-2)),
+    "yogi": ("yogi", dict(learning_rate=1e-2)),
 }
 
 

@@ -8,11 +8,14 @@ jitted step waits nowhere. These tests record the operators that one
 wrappers (whose plain twins run here; on the card they launch a kernel and
 make no host op), and allow only the reads of host tensors that wait for
 nothing: the sigma draw from the host generator. (The optimizers of
-`train/optim.py` keep their step count as a Python int.)
+`train/optim.py` keep their step count as a Python int; under
+`apply_if_finite` as a device tensor. Every rule's step is recorded alone
+below, and a train step with each kind of rule.)
 """
 
 import dataclasses
 
+import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -22,7 +25,7 @@ from jamun_tpu_torch.models.e3conv import E3Conv
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.train import distributions as dist
-from jamun_tpu_torch.train import loop
+from jamun_tpu_torch.train import loop, optim
 from jamun_tpu_torch.train.optim import adam
 from jamun_tpu_torch.train.state import create_train_state, make_train_step
 from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger, make_test_batch
@@ -186,3 +189,64 @@ def test_fixed_noise_is_made_once():
     want = tb.pos + SIGMA * fixed[None] * tb.node_mask[..., None].float()
     torch.testing.assert_close(a, want, rtol=0, atol=0)
     torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+# every optimizer of `train/optim.py`, on E3Conv's parameters
+_RULE_ARGS = {"adadelta": {}, "adafactor": {}, "rprop": {"learning_rate": 1e-3}}
+_WRAPPED = {
+    "MultiSteps": lambda: optim.MultiSteps(optim.adam(1e-3), 2),
+    "apply_if_finite": lambda: optim.apply_if_finite(
+        optim.adam(optim.warmup_cosine_decay_schedule(0.0, 1e-3, 2, 10)), 2),
+}
+
+
+def _factory(name: str):
+    if name in _WRAPPED:
+        return _WRAPPED[name]()
+    return getattr(optim, name)(**_RULE_ARGS.get(name, {"learning_rate": 1e-3}))
+
+
+@pytest.mark.parametrize("name", [*optim.RULES, *_WRAPPED])
+def test_optimizer_steps_make_no_host_wait(name):
+    """Each rule's step (and MultiSteps' and apply_if_finite's) after two
+    warm-up steps reads no device value on the host and copies no host
+    tensor: counts are Python ints, or device tensors under
+    apply_if_finite, and every data-dependent choice (adafactor's
+    clipping, rprop's signs, the trust ratios' zero-norm guards, a
+    non-finite step) is `torch.where` on the device. sm3 refuses E3Conv's
+    0-d output gain (as optax does), so it steps the other parameters."""
+    den, _ = _model_and_batch()
+    named = [(n, p) for n, p in den.arch.named_parameters()
+             if not (name == "sm3" and p.ndim == 0)]
+    opt = _factory(name)(named)
+    g = torch.Generator().manual_seed(0)
+    grads = [[torch.randn(p.shape, generator=g) for _, p in named] for _ in range(3)]
+    for step in range(3):
+        for (_, p), grad in zip(named, grads[step]):
+            p.grad = grad
+        if step < 2:
+            opt.step()
+            continue
+        rec = HostOps(lambda t: False)
+        with rec:
+            opt.step()
+    assert rec.reads == [], f"host reads of device values: {rec.reads}"
+    assert rec.copies == [], f"host tensors copied to the device: {rec.copies}"
+    assert all(torch.isfinite(p).all() for _, p in named)
+
+
+@pytest.mark.parametrize("name", ["adafactor", "lamb", "apply_if_finite", "MultiSteps"])
+def test_train_step_with_each_kind_of_rule_makes_no_host_wait(monkeypatch, name):
+    """A whole `train_step` with a leaf-wise rule and with each wrapper."""
+    den, tb = _model_and_batch()
+    sigma = RecordedSigma(dist.ConstantSigma(SIGMA))
+    state = create_train_state(den, _factory(name), device="cpu")
+    step = make_train_step(den, sigma)
+    step(state, tb)
+    step(state, tb)
+    rec = HostOps(_allowed(sigma))
+    _mute_kernels(monkeypatch, rec)
+    with rec:
+        _, aux = step(state, tb)
+    assert torch.isfinite(aux["loss"])
+    assert rec.reads == [] and rec.copies == [] and rec.draws == []
