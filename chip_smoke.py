@@ -280,7 +280,26 @@ Phases (any failure exits non-zero; nothing is caught):
      the median of 20 synchronised steps, the device ops of a step; (d) the
      train CLI (`train_uncapped_4AA`, separable) for 5 steps with
      `model.optim._target_=optax.adafactor` and `optax.lamb`.
-`--phase13-only` runs the build and phase 13 alone.
+ 14. after phase 13, in phase 6's work directory, optax.contrib's 13 rules
+     and 4 wrappers, the combinators (`masked`, `multi_transform`,
+     `freeze`, `selective_transform`, `flatten`, `apply_every`,
+     `inject_hyperparams`), MultiSteps with `skip_not_finite` and
+     `skip_large_updates`, and wrappers inside wrappers
+     (`train/optim_contrib.py`, `train/optim_transforms.py`): (a) 3 bf16
+     `Trainer.fit` steps of the flagship with each (the output gain's
+     gradient NaN at the second step for the skipping and nested ones:
+     skipped, one emitted step of two; rejected, two counted of three, or
+     one where MultiSteps' accumulator keeps the NaN, as optax's does),
+     finite losses and parameters, K1 3, K2 18, K4 18 and Kabsch 3 a run; (b) in f32, each one's parameters after 3
+     steps on the card against the CPU, within 1e-3 of each leaf's max; (c)
+     muon, prodigy, dadapt_adamw, schedule_free_adamw, mechanize(adam),
+     multi_transform and MultiSteps with `skip_not_finite` alone on the
+     card: 3 steps under sync debug mode, the median of 20 synchronised
+     steps, the device ops of a step; (d) the train CLI for 5 steps with
+     `model.optim._target_=optax.contrib.schedule_free_adamw`, and with
+     `model.optim` a multi_transform (adamw on the kernels, sgd on the
+     rest) whose label tree names the model's flax leaves.
+`--phase13-only` runs the build and phase 13 alone; `--phase14-only` phase 14.
 `--phase8-repeat N` runs phase 8 alone (after the build) in N fresh
 processes, one after the other, keeping each one's output and error in
 `--out DIR` (default `runs/phase8_repeat`), and prints how many
@@ -4443,8 +4462,9 @@ def p13_fit_runs(dev, card: str, counters: dict, kabsch_kernel, base, train) -> 
             row.update(count=int(group["count"]), total_notfinite=int(group["total_notfinite"]))
             assert row["count"] == P13_STEPS - 1 and row["total_notfinite"] == 1, row
         if name == "MultiSteps":
-            row.update(count=group["count"], gradient_step=group["gradient_step"])
-            assert group["count"] == 1 and group["mini_step"] == 1, group
+            # device counts since MultiSteps runs its rule every micro-step
+            row.update(count=int(group["count"]), gradient_step=int(group["gradient_step"]))
+            assert row["count"] == 1 and int(group["mini_step"]) == 1, group
         out[name] = row
         log(f"phase 13a: {name}: {P13_STEPS} bf16 Trainer.fit steps at G=32 N=48, losses "
             + " ".join(f"{v:.5f}" for v in losses)
@@ -4611,6 +4631,328 @@ def phase13_only(out_path) -> int:
     return 0
 
 
+# phase 14: optax.contrib, the combinators, wrappers inside wrappers and
+# MultiSteps' skips (`train/optim_contrib.py`, `train/optim_transforms.py`)
+# (a), (b): the output gain's gradient NaN at step P13_NAN_STEP for these
+P14_NAN = ("MultiSteps_skip_not_finite", "MultiSteps_of_apply_if_finite",
+           "apply_if_finite_of_multi_transform")
+P14_TIMED = ("muon", "prodigy", "dadapt_adamw", "schedule_free_adamw", "mechanize",
+             "multi_transform", "MultiSteps_skip_not_finite")
+
+
+def p14_two_axes(tree):
+    """A callable mask of the port's flax tree: the leaves of two axes."""
+    return {k: p14_two_axes(v) if isinstance(v, dict) else v.ndim == 2 for k, v in tree.items()}
+
+
+def p14_labels(tree):
+    """Labels of the port's flax tree: "a" for the leaves of two axes."""
+    return {k: p14_labels(v) if isinstance(v, dict) else ("a" if v.ndim == 2 else "s")
+            for k, v in tree.items()}
+
+
+def p14_factories() -> dict:
+    """Phase 14's rules by name: optax.contrib's 13 rules and 4 wrappers,
+    the combinators, wrappers inside wrappers and MultiSteps' skips."""
+    from jamun_tpu_torch.train import optim
+    from jamun_tpu_torch.train import optim_contrib as c
+    from jamun_tpu_torch.train import optim_transforms as t
+
+    lr = 2e-3
+
+    def split():
+        return t.multi_transform({"a": optim.adamw(lr), "s": optim.sgd(0.05, momentum=0.9)},
+                                 p14_labels)
+
+    return {
+        "acprop": lambda: c.acprop(lr), "ademamix": lambda: c.ademamix(lr),
+        "simplified_ademamix": lambda: c.simplified_ademamix(lr / 10),
+        "adopt": lambda: c.adopt(lr), "cocob": lambda: c.cocob(0.1),
+        "dadapt_adamw": lambda: c.dadapt_adamw(estim_lr0=1e-4), "dog": c.dog, "dowg": c.dowg,
+        "muon": lambda: c.muon(lr), "prodigy": lambda: c.prodigy(estim_lr0=1e-4),
+        "schedule_free_adamw": lambda: c.schedule_free_adamw(lr, warmup_steps=2),
+        "schedule_free_sgd": lambda: c.schedule_free_sgd(0.05, weight_decay=1e-4),
+        "normalize": c.normalize,
+        "mechanize": lambda: c.mechanize(optim.adam(lr)),
+        "schedule_free": lambda: c.schedule_free(optim.sgd(0.05), 0.05),
+        "sam": lambda: c.sam(optim.sgd(0.05), optim.sgd(0.02)),
+        "split_real_and_imaginary": lambda: c.split_real_and_imaginary(optim.adam(lr)),
+        "masked": lambda: t.masked(optim.adamw(lr), p14_two_axes),
+        "multi_transform": split,
+        "freeze": lambda: t.freeze(p14_two_axes),
+        "selective_transform": lambda: t.selective_transform(optim.adam(lr), freeze_mask=False),
+        "flatten": lambda: t.flatten(optim.adam(lr)),
+        "apply_every": lambda: t.apply_every(2),
+        "inject_hyperparams": lambda: t.inject_hyperparams(optim.adam)(
+            learning_rate=optim.linear_schedule(lr, lr / 10, 10)),
+        "MultiSteps_skip_not_finite": lambda: optim.MultiSteps(
+            optim.adam(lr), 2, should_skip_update_fn=optim.skip_not_finite),
+        "MultiSteps_skip_large_updates": lambda: optim.MultiSteps(
+            optim.adam(lr), 2, should_skip_update_fn=lambda u, s, p: optim.skip_large_updates(
+                u, s, p, max_squared_norm=1e12)),
+        "MultiSteps_of_apply_if_finite": lambda: optim.MultiSteps(
+            optim.apply_if_finite(optim.adam(lr), 2), 1),
+        "apply_if_finite_of_multi_transform": lambda: optim.apply_if_finite(split(), 2),
+    }
+
+
+def p14_fit_runs(dev, card: str, counters: dict, kabsch_kernel, base, train) -> dict:
+    """(a) 3 bf16 `Trainer.fit` steps of the flagship with each rule."""
+    import copy
+
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.train.distributions import ConstantSigma
+    from jamun_tpu_torch.train.loop import Trainer, TrainerConfig
+    from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger
+
+    want = {"edge_features": P13_STEPS, "conv_block": 6 * P13_STEPS,
+            "conv_block_bwd": 6 * P13_STEPS}
+    out = {}
+    for name, factory in p14_factories().items():
+        model = copy.deepcopy(base)
+        den = Denoiser(model, DenoiserConfig(**P12_CONFIG))
+        hook = p13_nan_hook(model.output_gain, P13_NAN_STEP) if name in P14_NAN else None
+        for k in (*counters.values(), kabsch_kernel):
+            k.launches = 0
+        rec = RecordingLogger()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = TrainerConfig(max_steps=P13_STEPS, max_epochs=1, log_every_n_steps=1, seed=0,
+                                checkpoint_dir=os.path.join(tmp, "checkpoints"),
+                                collect_sigma_diagnostics=False)
+            try:
+                state = Trainer(cfg, rec, device=dev).fit(
+                    den, factory(), ConstantSigma(SIGMA), FixedBatches(train, []))
+            finally:
+                if hook is not None:
+                    hook.remove()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: counters[k].launches for k in want}
+        losses = [m["train/loss"] for _, m in rec.metrics if "train/loss" in m]
+        group = state.optimizer.param_groups[0]
+        assert state.step == P13_STEPS and len(losses) == P13_STEPS, (name, losses)
+        assert all(math.isfinite(v) for v in losses), (name, losses)
+        assert launches == want and kabsch_kernel.launches == P13_STEPS, (name, launches)
+        assert all(bool(torch.isfinite(p).all()) for p in state.module.parameters()), name
+        moved = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(state.module.parameters(), base.parameters()))
+        assert moved > 0, name
+        row = dict(losses=losses, launches=launches, kabsch=kabsch_kernel.launches,
+                   largest_change=moved, seconds_with_setup=seconds)
+        if name == "MultiSteps_skip_not_finite":  # steps 1 and 3 emit once; the NaN step skipped
+            row.update(count=int(group["count"]), mini_step=int(group["mini_step"]))
+            assert row["count"] == 1 and row["mini_step"] == 0, row
+        if name == "MultiSteps_of_apply_if_finite":
+            # the inner rule rejects the NaN step, and the next: optax resets the
+            # accumulator by 0 * acc, which keeps the NaN
+            row.update(count=int(group["inner/count"]),
+                       total_notfinite=int(group["inner/total_notfinite"]))
+            assert row["count"] == 1 and row["total_notfinite"] == 2, row
+        if name == "apply_if_finite_of_multi_transform":
+            row.update(count=int(group["inner/a/count"]),
+                       total_notfinite=int(group["total_notfinite"]))
+            assert row["count"] == P13_STEPS - 1 and row["total_notfinite"] == 1, row
+        out[name] = row
+        log(f"phase 14a: {name}: {P13_STEPS} bf16 Trainer.fit steps at G=32 N=48, losses "
+            + " ".join(f"{v:.5f}" for v in losses)
+            + f", largest parameter change {moved:.3g}, launches {list(launches.values())} "
+            f"Kabsch {kabsch_kernel.launches}, {seconds:.2f} s with set-up on {card}")
+    return out
+
+
+def p14_optimizer_steps(dev, card: str, base32, batch) -> dict:
+    """(b) each rule's 3 f32 steps on the card against the CPU from the same
+    weights and gradients: within 1e-3 of each leaf's max; (c) the rules of
+    P14_TIMED alone on the card: 3 steps under sync debug mode (no host
+    wait allowed), the median of 20 synchronised steps, the device ops of a
+    step (torch.profiler over 3)."""
+    import copy
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.train.optim import bind
+
+    den = Denoiser(copy.deepcopy(base32).to(dev), DenoiserConfig(**P12_CONFIG))
+    loss, _ = den.training_loss(batch.to_device(dev), SIGMA,
+                                torch.Generator(device=dev).manual_seed(0))
+    loss.backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+             for n, p in den.arch.named_parameters()}
+    del den
+    out = {}
+    for name, factory in p14_factories().items():
+        sides = {}
+        for device in ("cpu", dev):
+            module = copy.deepcopy(base32).to(device)
+            opt = bind(factory(), module)
+            for k, scale in enumerate(P13_SCALES):
+                for n, p in module.named_parameters():
+                    p.grad = (grads[n] * scale).to(device)
+                    if name in P14_NAN and k + 1 == P13_NAN_STEP and p.ndim == 0:
+                        p.grad = p.grad * float("nan")
+                opt.step()
+            sides[str(device)] = (module, opt)
+        (cpu_mod, _), (card_mod, opt) = sides["cpu"], sides[str(dev)]
+        err = max(float((q.detach().cpu() - p.detach()).abs().max()
+                        / p.detach().abs().max().clamp_min(1e-30))
+                  for p, q in zip(cpu_mod.parameters(), card_mod.parameters()))
+        assert err <= 1e-3, (name, err)
+        row = dict(card_against_cpu=err)
+        if name in P14_TIMED:  # (c) the card's step alone
+            for n, p in card_mod.named_parameters():
+                p.grad = grads[n]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(3):
+                    opt.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            times = []
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            for _ in range(P13_TIMED):
+                start.record()
+                opt.step()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    opt.step()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CPU and not e.is_user_annotation
+                      and e.self_device_time_total > 0]
+            row.update(ms=statistics.median(times), device_ops=sum(e.count for e in events) / 3,
+                       device_busy_ms=sum(e.self_device_time_total for e in events) / 3 / 1e3,
+                       tensors=len(list(card_mod.parameters())))
+            assert all(bool(torch.isfinite(p).all()) for p in card_mod.parameters()), name
+        out[name] = row
+        timed = ("" if "ms" not in row else
+                 f"; the step alone {row['ms']:.3f} ms (median of {P13_TIMED}, synchronised), "
+                 f"{row['device_ops']:.0f} device ops, device busy {row['device_busy_ms']:.3f} ms, "
+                 f"{row['tensors']} tensors, no host wait (sync debug mode)")
+        log(f"phase 14b-c: {name}: card against CPU after {len(P13_SCALES)} f32 steps "
+            f"{err:.3g} of the leaf's max{timed} on {card}")
+        del sides, opt
+    return out
+
+
+def p14_labels_override(overrides: list) -> str:
+    """`model.optim=` a multi_transform of adamw on the kernels and sgd on
+    the rest, its label tree keyed by the flax names of the model those
+    overrides build (a YAML flow mapping, as a config file would hold)."""
+    import yaml
+
+    from jamun_tpu_torch.cmdline import train as train_cli
+    from jamun_tpu_torch.config.compose import compose
+    from jamun_tpu_torch.config.instantiate import instantiate
+    from jamun_tpu_torch.params import flax_names
+
+    cfg = compose(train_cli.DEFAULT_CONFIG_DIR, "train", overrides, EXP_DIR)
+    arch = instantiate(cfg["model"]["arch"], device="cpu", seed=0)
+    labels: dict = {}
+    for name in flax_names([n for n, _ in arch.named_parameters()], getattr(arch, "scan_layers",
+                                                                           False)):
+        *path, leaf = name.split(".")
+        node = labels
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = "adamw" if leaf == "kernel" else "sgd"
+    optim_cfg = {"_target_": "optax.multi_transform", "_partial_": True,
+                 "transforms": {"adamw": {"_target_": "optax.adamw", "learning_rate": 2e-3},
+                                "sgd": {"_target_": "optax.sgd", "learning_rate": 1e-2,
+                                        "momentum": 0.9}},
+                 "param_labels": {"params": labels}}
+    return "model.optim=" + yaml.safe_dump(optim_cfg, default_flow_style=True, width=1 << 30).strip()
+
+
+def p14_cli_runs(card: str) -> dict:
+    """(d) the train CLI (`train_uncapped_4AA`, separable) for 5 steps with
+    `model.optim._target_` set to optax.contrib.schedule_free_adamw, and
+    with `model.optim` a multi_transform (adamw on the kernels, sgd on the
+    rest), in phase 6's work directory."""
+    from jamun_tpu_torch.cmdline import train as train_cli
+    from jamun_tpu_torch.train import optim_contrib, optim_transforms
+
+    base = ["experiment=train_uncapped_4AA", "model/arch=e3conv_separable"]
+    runs = {"schedule_free_adamw": ["model.optim._target_=optax.contrib.schedule_free_adamw"],
+            "multi_transform": [p14_labels_override(base)]}
+    out = {}
+    for label, extra in runs.items():
+        run_key = f"train_p14_{label}"
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--experiment-dir", EXP_DIR, *base, f"run_key={run_key}", *extra,
+            "trainer.max_steps=5", "trainer.val_every_n_steps=5", "trainer.val_max_batches=1",
+            "trainer.log_every_n_steps=1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        train, val = read_metrics_csv(os.path.join("runs", run_key, "metrics.csv"))
+        losses = [r["train/loss"] for r in train]
+        opt = state.optimizer
+        if label == "multi_transform":
+            assert isinstance(opt, optim_transforms._Partition), type(opt)
+            assert sorted(opt.parts) == ["adamw", "sgd"], sorted(opt.parts)
+        else:
+            assert isinstance(opt, optim_contrib._ScheduleFree), type(opt)
+        assert state.step == 5 and len(losses) == 5, (label, state.step, losses)
+        assert all(math.isfinite(v) for v in losses), losses
+        assert val and all(math.isfinite(r["val/loss"]) for r in val), val
+        out[label] = dict(losses=losses, val_loss=val[-1]["val/loss"], seconds=seconds)
+        log(f"phase 14d: train CLI with model.optim {label}: 5 steps, losses "
+            + " ".join(f"{v:.5f}" for v in losses)
+            + f", val loss {val[-1]['val/loss']:.5f}, {seconds:.1f} s on {card}")
+    return out
+
+
+def phase14(dev, card: str, counters: dict, kabsch_kernel) -> dict:
+    """Phase 14 (module docstring), in phase 6's work directory."""
+    from jamun_tpu_torch.models.e3conv import E3Conv
+    from jamun_tpu_torch.utils.testing import make_test_batch
+
+    t14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False  # muon's Newton-Schulz products in f32
+    G, N = 32, 48
+    train = [make_test_batch(num_graphs=G, max_nodes=N, nodes_per_graph=[44] * G, max_bonds=96,
+                             seed=s, device="cpu") for s in range(P13_STEPS)]
+    models = {}
+    for dtype in (torch.bfloat16, None):
+        models[dtype] = E3Conv(**P12_ARCH, dtype=dtype, device="cpu", seed=0)
+        models[dtype].output_gain.data.fill_(1.0)  # every parameter gets a gradient
+    out = dict(fit=p14_fit_runs(dev, card, counters, kabsch_kernel, models[torch.bfloat16], train))
+    out["optimizer_steps"] = p14_optimizer_steps(dev, card, models[None], train[0])
+    out["cli"] = p14_cli_runs(card)
+    out["seconds"] = time.perf_counter() - t14
+    log(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+def phase14_only(out_path) -> int:
+    """`--phase14-only`: build, then phase 14 alone in a 4AA work directory."""
+    from jamun_tpu_torch.ops.cuda import kabsch as kb
+    from jamun_tpu_torch.ops.cuda.build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda"), card_line()
+    log(card)
+    build_all()
+    with cli_workdir():
+        out = phase14(dev, card, all_counters(), kb.KERNEL)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(dict(card=card, phase14=out), f, indent=1, default=str)
+    log("phase 14 alone: passed")
+    return 0
+
+
 def all_counters() -> dict:
     """Every kernel's launch counter by name (K8 and K9 share a source, as
     K2 and its layer mode do)."""
@@ -4640,6 +4982,8 @@ def main() -> int:
         return phase8_only(out_path)
     if "--phase13-only" in args:
         return phase13_only(out_path)
+    if "--phase14-only" in args:
+        return phase14_only(out_path)
     if "--phase8-repeat" in args:
         return phase8_repeat(int(args[args.index("--phase8-repeat") + 1]),
                              out_path or os.path.join("runs", "phase8_repeat"))
@@ -5009,6 +5353,8 @@ def main() -> int:
         phase12_out = phase12(dev, card, work)
         # ---- phase 13: the rest of optax's rules, MultiSteps, apply_if_finite ----
         phase13_out = phase13(dev, card, counters, kb.KERNEL)
+        # ---- phase 14: optax.contrib, the combinators, nested wrappers, skips ----
+        phase14_out = phase14(dev, card, counters, kb.KERNEL)
     torch.cuda.empty_cache()
 
     # ---- phase 8: the IDRome regime through the CLIs (train, sample, analyse) ----
@@ -5069,7 +5415,7 @@ def main() -> int:
                   k7_against_k1=k7_against_k1, train_cli=train_cli, sample_cli=sample_cli,
                   idrome=idrome, ophiuchus_train=oph_train, ophiuchus_vesde_sample=oph_sample,
                   unrolled=unrolled, phase10=phase10, phase11=phase11, phase12=phase12_out,
-                  phase13=phase13_out)
+                  phase13=phase13_out, phase14=phase14_out)
     if out_path:
         with open(out_path, "w") as f:
             json.dump(report, f, indent=1)

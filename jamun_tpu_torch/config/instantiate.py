@@ -7,11 +7,19 @@ fixed table, held as strings, so that nothing here imports `jamun_tpu`,
 `jax`, `flax` or `optax`:
 
   - `jamun_tpu.<path>` -> `jamun_tpu_torch.<path>`;
-  - optax's rules, schedules and its two wrappers that a config can build
+  - optax's rules, schedules, `MultiSteps` and `apply_if_finite`
     (`train/optim.py`: `RULES`, `SCHEDULES`, `WRAPPERS`) ->
-    `jamun_tpu_torch.train.optim.*`; `optax.lbfgs` and `optax.polyak_sgd`,
-    which need the loss in their update and so run in no trainer (JAX's
-    raises TypeError), raise with their own title;
+    `jamun_tpu_torch.train.optim.*`; its transforms given alone, its
+    combinators and the functions a config hands them
+    (`train/optim_transforms.py`) -> `jamun_tpu_torch.train.optim_transforms.*`;
+    `optax.contrib.<name>` (`train/optim_contrib.py`) ->
+    `jamun_tpu_torch.train.optim_contrib.*`;
+  - optax's targets that JAX's trainer cannot run either (rules that need
+    the loss or per-example gradients, `lookahead`, `chain` and
+    `named_chain`, which take their rules by position where `instantiate`
+    passes keywords, and fail empty, and `contrib.scale_by_muon` alone,
+    whose update without dimension numbers fails) raise with the title
+    their item shares with the reference (`_REFUSED`);
   - a `jamun_tpu_torch.<path>` target stands as it is (the port's own
     `config/defaults/`).
 
@@ -38,14 +46,67 @@ _OPTAX_NAMES = (
     "join_schedules", "linear_onecycle_schedule", "piecewise_constant_schedule",
     "piecewise_interpolate_schedule", "polynomial_schedule", "sgdr_schedule",
     "warmup_constant_schedule", "warmup_exponential_decay_schedule",
-    "MultiSteps", "apply_if_finite", "lbfgs", "polyak_sgd",
+    "MultiSteps", "apply_if_finite",
 )
-_OPTAX = {f"optax.{name}": f"jamun_tpu_torch.train.optim.{name}" for name in _OPTAX_NAMES}
-# targets the port does not have, by the title of their item
-_UNPORTED = {
-    "jamun_tpu_torch.train.optim.lbfgs": "Rules that need the loss",
-    "jamun_tpu_torch.train.optim.polyak_sgd": "Rules that need the loss",
+# optax's transforms given alone, its combinators, and the functions a config
+# passes to them (`train/optim_transforms.py`)
+_TRANSFORM_NAMES = (
+    "scale", "scale_by_adam", "scale_by_adadelta", "scale_by_adamax", "scale_by_adan",
+    "scale_by_amsgrad", "scale_by_belief", "scale_by_distance_over_gradients",
+    "scale_by_factored_rms", "scale_by_lbfgs", "scale_by_learning_rate", "scale_by_lion",
+    "scale_by_novograd", "scale_by_optimistic_gradient", "scale_by_param_block_norm",
+    "scale_by_param_block_rms", "scale_by_radam", "scale_by_rms", "scale_by_rprop",
+    "scale_by_rss", "scale_by_schedule", "scale_by_sign", "scale_by_sm3", "scale_by_stddev",
+    "scale_by_trust_ratio", "scale_by_yogi", "add_decayed_weights", "add_noise",
+    "adaptive_grad_clip", "centralize", "clip", "clip_by_block_rms", "clip_by_global_norm",
+    "ema", "identity", "keep_params_nonnegative", "normalize_by_update_norm", "set_to_zero",
+    "trace", "zero_nans", "apply_every", "snapshot", "stateless", "stateless_with_tree_map",
+    "masked", "multi_transform", "partition", "freeze", "selective_transform", "flatten",
+    "conditionally_transform", "conditionally_mask", "with_extra_args_support",
+    "inject_hyperparams", "inject_stateful_hyperparams",
+    "skip_not_finite", "skip_large_updates", "global_norm",
+)
+# optax.contrib's rules, wrappers and transforms (`train/optim_contrib.py`)
+_CONTRIB_NAMES = (
+    "acprop", "ademamix", "simplified_ademamix", "adopt", "cocob", "dadapt_adamw", "dog", "dowg",
+    "muon", "prodigy", "schedule_free_adamw", "schedule_free_sgd", "normalize",
+    "mechanize", "schedule_free", "sam", "split_real_and_imaginary",
+    "scale_by_acprop", "scale_by_ademamix", "scale_by_adopt", "scale_by_cocob",
+    "scale_by_simplified_ademamix",
+)
+# optax's targets that JAX's trainer cannot run either, by the title of their
+# item (ROADMAP.md section C): its train step calls `update(grads, state,
+# params)` on the parameter tree and nothing more
+_LOSS = "Rules that need the loss"
+_PER_EXAMPLE = "Rules that need per-example gradients"
+_CANNOT_RUN = "Targets JAX's trainer cannot run"
+_REFUSED = {
+    **{f"optax.{n}": _LOSS for n in (
+        "lbfgs", "polyak_sgd", "scale_by_polyak", "scale_by_backtracking_linesearch",
+        "scale_by_zoom_linesearch")},
+    **{f"optax.contrib.{n}": _LOSS for n in (
+        "momo", "momo_adam", "reduce_on_plateau", "sophia", "hutchinson_estimator_diag_hessian")},
+    **{f"optax.contrib.{n}": _PER_EXAMPLE for n in ("dpsgd", "differentially_private_aggregate")},
+    **{f"optax.{n}": _CANNOT_RUN for n in ("lookahead", "chain", "named_chain")},
+    "optax.contrib.scale_by_muon": _CANNOT_RUN,
 }
+
+
+def _module_of(path: str) -> str:
+    """The port's module for an optax target: optax.contrib's, optax's
+    transforms, or its rules, schedules and wrappers."""
+    name = path.rpartition(".")[2]
+    if path.startswith("optax.contrib."):
+        return "jamun_tpu_torch.train.optim_contrib"
+    return ("jamun_tpu_torch.train.optim_transforms" if name in _TRANSFORM_NAMES
+            else "jamun_tpu_torch.train.optim")
+
+
+_OPTAX = {path: f"{_module_of(path)}.{path.rpartition('.')[2]}" for path in (
+    *(f"optax.{n}" for n in (*_OPTAX_NAMES, *_TRANSFORM_NAMES)),
+    *(f"optax.contrib.{n}" for n in _CONTRIB_NAMES), *_REFUSED)}
+# the port's paths of the refused targets (no module of the port has them)
+_UNPORTED = {_OPTAX[path]: title for path, title in _REFUSED.items()}
 _OTHER = "Other config targets"
 
 

@@ -148,100 +148,138 @@ def _tensor(value) -> torch.Tensor:
 
 class _Walk:
     """`_load_jax_opt_state`'s walk: JAX's opt_state against the rule's
-    declared layout (`optim._OptaxRule.jax_state_layout`), placing each
-    value where its slot says."""
+    declared layout (`optim._Node.jax_state_layout`), placing each value
+    where its slot says, into the node whose tree it is (`optim._Scope`
+    marks the tree of a rule inside a wrapper or combinator)."""
 
     def __init__(self, optimizer, module: torch.nn.Module):
-        self.opt = optimizer
-        self.rule = getattr(optimizer, "inner", optimizer)
-        self.group = optimizer.param_groups[0]
+        self.opt = self.node = optimizer
         self.params = dict(module.named_parameters())
-        self.counts: List[int] = []
+        self.torch_names = {id(p): n for n, p in self.params.items()}
+        self.counts: Dict[int, List[int]] = {}
+        self.modded: Dict[int, list] = {}  # counts optax keeps modulo a period
+        self.initial: Dict[int, List[bool]] = {}
         self.outer: List[int] = []
-        self.initial: List[bool] = []
 
     def place(self, layout, tree, path: str) -> None:
         from jamun_tpu_torch.train import optim
 
+        node = self.node
         if isinstance(layout, dict):
             if not isinstance(tree, Mapping) or set(tree) != set(layout):
                 got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
-                rule = getattr(self.rule, "alias", type(self.rule).__name__)
+                rule = getattr(node, "alias", type(node).__name__)
                 raise ValueError(f"{path}: JAX's state has {got}, {rule} keeps {sorted(layout)}")
             for k in layout:
                 self.place(layout[k], tree[k], f"{path}/{k}")
+        elif isinstance(layout, optim._Scope):
+            self.node = layout.node
+            try:
+                self.place(layout.layout, tree, path)
+            finally:
+                self.node = node
         elif isinstance(layout, optim._Count):
-            (self.outer if layout.outer else self.counts).append(int(np.asarray(tree)))
+            if layout.outer:
+                self.outer.append(int(np.asarray(tree)))
+            elif layout.mod is not None:
+                self.modded.setdefault(id(node), []).append((int(np.asarray(tree)), layout.mod))
+            else:
+                self.counts.setdefault(id(node), []).append(int(np.asarray(tree)))
         elif isinstance(layout, optim._Param):
-            leaves = {}
-            if set(tree.keys()) == {"params"}:
-                tree = tree["params"]
-            for name, v in _leaves(tree):
-                t = _tensor(v)
-                head, _, rest = name.partition(".")
-                if head == SCANNED:
-                    for k in range(t.shape[0]):
-                        leaves[f"{_LAYER}{k}.{rest}"] = t[k]
-                else:
-                    leaves[name] = t
-            if sorted(leaves) != sorted(self.params):
-                raise ValueError(f"{path}: leaves {sorted(set(leaves) ^ set(self.params))} differ "
-                                 "from the parameters")
-            for name, p in self.params.items():
-                self.opt.state[p][layout.key] = leaves[name].to(p.device).clone()
+            self.place_params(node, layout.key, tree, path)
         elif isinstance(layout, optim._Leaf):
-            if set(tree.keys()) == {"params"}:
+            if isinstance(tree, Mapping) and set(tree.keys()) == {"params"}:
                 tree = tree["params"]
-            for leaf, name in enumerate(self.rule.leaf_names()):
-                node = tree
+            for leaf, name in enumerate(node.leaf_names()):
+                sub = tree
                 for k in name.split("."):
-                    node = node[k]
-                value = ({k: _tensor(v) for k, v in node.items()} if isinstance(node, Mapping)
-                         else _tensor(node))
-                layout.place(self.rule, leaf, value)
+                    sub = sub[k]
+                value = ({k: _tensor(v) for k, v in sub.items()} if isinstance(sub, Mapping)
+                         else _tensor(sub))
+                layout.place(node, leaf, value)
+        elif isinstance(layout, optim._Custom):
+            layout.place(node, _tensor(tree))
         elif isinstance(layout, optim._Group):
             value = _tensor(tree)
-            dev = self.group["params"][0].device
-            self.group[layout.key] = value.to(dev) if layout.device else value.item()
+            dev = node.param_groups[0]["params"][0].device
+            node.param_groups[0][layout.key] = value.to(dev) if layout.device else value.item()
         elif isinstance(layout, optim._Initial):
-            self.initial.append(bool(np.asarray(tree)))
+            self.initial.setdefault(id(node), []).append(bool(np.asarray(tree)))
         elif not isinstance(layout, optim._Unused):
             raise TypeError(f"{path}: unknown slot {layout!r}")
 
+    def place_params(self, node, key: str, tree, path: str) -> None:
+        """A tree of the parameters' shapes (left-out leaves empty, as flax
+        writes optax's MaskedNode): each of `node`'s parameters its slice;
+        a node over `flatten`'s one vector takes the array itself."""
+        params = node.param_groups[0]["params"]
+        if not any(id(p) in self.torch_names for p in params):
+            if isinstance(tree, Mapping) or len(params) != 1:
+                raise ValueError(f"{path}: want one flat array for {len(params)} parameters")
+            node.state[params[0]][key] = _tensor(tree).to(params[0].device).clone()
+            return
+        leaves = {}
+        if set(tree.keys()) == {"params"}:
+            tree = tree["params"]
+        for name, v in _leaves(tree):
+            t = _tensor(v)
+            head, _, rest = name.partition(".")
+            if head == SCANNED:
+                for k in range(t.shape[0]):
+                    leaves[f"{_LAYER}{k}.{rest}"] = t[k]
+            else:
+                leaves[name] = t
+        want = {self.torch_names[id(p)]: p for p in params}
+        if sorted(leaves) != sorted(want):
+            raise ValueError(f"{path}: leaves {sorted(set(leaves) ^ set(want))} differ from the "
+                             "parameters")
+        for name, p in want.items():
+            node.state[p][key] = leaves[name].to(p.device).clone()
+
     def finish(self, step: int) -> None:
-        """The rule's count: every place optax keeps one must agree; with
-        none, a chained schedule's count, MultiSteps' gradient steps, or the
+        """Each rule's count: every place optax keeps one must agree; with
+        none, a chained schedule's count (the outermost rule), MultiSteps'
+        gradient steps (its rule), the count of the node around it, or the
         train state's step."""
         from jamun_tpu_torch.train import optim
 
-        if len(set(self.counts)) > 1:
-            raise ValueError(f"opt_state: the rule's counts {self.counts} differ")
-        if self.counts:
-            count = self.counts[0]
-        elif isinstance(self.opt, optim._MultiSteps):
-            count = self.group["gradient_step"]
-        else:
-            count = self.outer[0] if self.outer else step
-        if self.outer and self.outer[0] != count:
+        def resolve(node, default: int) -> None:
+            counts = self.counts.get(id(node), [])
+            if len(set(counts)) > 1:
+                raise ValueError(f"opt_state: the rule's counts {counts} differ")
+            count = counts[0] if counts else default
+            for value, mod in self.modded.get(id(node), []):
+                if count % mod != value:
+                    raise ValueError(f"opt_state: a count {value} modulo {mod} at count {count}")
+            group = node.param_groups[0]
+            if any(flag != (count == 0) for flag in self.initial.get(id(node), [])):
+                raise ValueError(f"opt_state: is_initial_step {self.initial[id(node)]} at "
+                                 f"count {count}")
+            if isinstance(node, optim._OptaxRule) or counts:
+                group["count"] = count
+            for kid in node._kids():
+                resolve(kid, group["gradient_step"] if isinstance(node, optim._MultiSteps)
+                        else count)
+
+        root = self.opt
+        counts = self.counts.get(id(root), [])
+        top = counts[0] if counts else (self.outer[0] if self.outer else step)
+        if self.outer and isinstance(root, optim._OptaxRule) and self.outer[0] != top:
             raise NotImplementedError(
                 f"opt_state's scale_by_schedule count {self.outer[0]} differs from the rule's "
-                f"{count}; the port keeps one count for both ({_OTHER})")
-        if any(flag != (count == 0) for flag in self.initial):
-            raise ValueError(f"opt_state: is_initial_step {self.initial} at count {count}")
-        if isinstance(self.opt, optim._ApplyIfFinite):
-            count = torch.full((), count, dtype=torch.int32, device=self.group["params"][0].device)
-        self.group["count"] = count
+                f"{top}; the port keeps one count for both ({_OTHER})")
+        resolve(root, top)
 
 
 def _load_jax_opt_state(opt_state: Mapping, module: torch.nn.Module, optimizer, step: int) -> None:
     """optax's state for any rule of `train/optim.py` (alone, chained with
-    `model.lr_scheduler`'s `scale_by_schedule`, or inside `MultiSteps` /
-    `apply_if_finite`): one walk over the rule's declaration of optax's
-    tree (`jax_state_layout`), each value placed by its parameter's name or
-    its flax leaf."""
+    `model.lr_scheduler`'s `scale_by_schedule`, or inside wrappers and
+    combinators): one walk over the rule's declaration of optax's tree
+    (`jax_state_layout`), each value placed by its parameter's name or its
+    flax leaf."""
     from jamun_tpu_torch.train import optim  # train/ imports this module
 
-    if not isinstance(optimizer, (optim._OptaxRule, optim._Wrapper)):
+    if not isinstance(optimizer, optim._Node):
         raise NotImplementedError(
             f"JAX's optimizer state into {type(optimizer).__name__} is not ported ({_OTHER})"
         )

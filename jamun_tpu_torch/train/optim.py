@@ -48,8 +48,14 @@ leaf (trust ratios, novograd's second moment, adafactor's factoring and
 block RMS, sm3's per-axis accumulators) see flax's leaves: `bind` names a
 scanned E3Conv's `_HiddenLayer_k` slices by their flax leaf
 (`Scan_HiddenLayer_0.<path>`, `params.flax_names`), and a leaf of several
-slices is reduced, or stacked, as one. `MultiSteps` and `apply_if_finite`
-wrap a rule and share its parameter group and state.
+slices is reduced, or stacked, as one.
+
+Every optimizer here is a `_Node`: `update(updates)` is optax's update (the
+new updates, no apply), `step()` applies it. `MultiSteps` and
+`apply_if_finite` wrap any node; the combinators of
+`train/optim_transforms.py` and the wrappers of `train/optim_contrib.py`
+compose them. A node inside another keeps its state in the outermost one's
+group and state under a prefix (`_attach`), so one state dict holds all.
 
 Every rule declares optax's state tree (`jax_state_layout`): the entries of
 the chain, each field and the port's state key it goes to, and where the
@@ -58,9 +64,9 @@ count lives (`params.load_jax_train_state` walks it).
 A parameter without a gradient gets the update of a zero gradient, as every
 leaf does in optax. Step counts are Python ints in the parameter group, so
 a step makes no host wait and the state dict loads with `weights_only`.
-Under `apply_if_finite` the inner rule's count is a device tensor (whether
-a step counts is device data): the bias corrections and schedules read it
-on the device.
+Under `apply_if_finite` and `MultiSteps` the counts are device tensors
+(whether a step counts is device data, `_guarded`): the bias corrections
+and schedules read them on the device.
 """
 
 from __future__ import annotations
@@ -110,36 +116,48 @@ def _grads(params: List[torch.Tensor]) -> List[torch.Tensor]:
     return [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
 
 
-def _mask_of(mask, names: Optional[List[str]], params: List[torch.Tensor]) -> Optional[List[bool]]:
-    """optax's `mask` (a tree of bools keyed by the flax names, a prefix of
-    it, or a callable of the parameter tree that returns one) as one bool
-    per parameter. The tree is JAX's parameter tree, {"params": {...}}; a
-    tree without the "params" level is read from the level below it."""
-    if mask is None:
-        return None
+def _tree_values(tree, names: Optional[List[str]], params: List[torch.Tensor], what: str = "a mask"
+                 ) -> list:
+    """An optax tree of one value per leaf (a tree keyed by the flax names,
+    a prefix of it, or a callable of the parameter tree that returns one)
+    as one value per parameter. The tree is JAX's parameter tree,
+    {"params": {...}}; a tree without the "params" level is read from the
+    level below it."""
     if names is None:
         raise ValueError(
-            "a mask is keyed by the parameters' names: bind the optimizer to "
+            f"{what} is keyed by the parameters' names: bind the optimizer to "
             "module.named_parameters()"
         )
-    if callable(mask):
-        tree: dict = {}
+    if callable(tree):  # called on the flax tree: a scanned leaf's slices stacked
+        by_name: dict = {}
         for name, p in zip(names, params):
-            node = tree.setdefault("params", {})
+            by_name.setdefault(name, []).append(p)
+        built: dict = {}
+        for name, ps in by_name.items():
+            node = built.setdefault("params", {})
             *path, leaf = name.split(".")
             for key in path:
                 node = node.setdefault(key, {})
-            node[leaf] = p
-        mask = mask(tree)
+            node[leaf] = ps[0] if len(ps) == 1 else torch.stack([p.detach() for p in ps])
+        tree = tree(built)
     out = []
     for name in names:
-        node = mask.get("params", mask) if isinstance(mask, dict) else mask
+        node = tree.get("params", tree) if isinstance(tree, dict) else tree
         for key in name.split("."):
             if not isinstance(node, dict):
                 break
             node = node[key]
-        out.append(bool(node))
+        out.append(node)
     return out
+
+
+def _mask_of(mask, names: Optional[List[str]], params: List[torch.Tensor]) -> Optional[List[bool]]:
+    """optax's `mask` (a tree of bools keyed by the flax names, a prefix of
+    it, or a callable of the parameter tree that returns one) as one bool
+    per parameter (`_tree_values`)."""
+    if mask is None:
+        return None
+    return [bool(v) for v in _tree_values(mask, names, params)]
 
 
 # ---- the places of optax's state tree (`jax_state_layout`) ----
@@ -152,10 +170,12 @@ class _Slot:
 
 class _Count(_Slot):
     """An int32 step count: the rule's (every such place must agree), or
-    with `outer` the chained `scale_by_schedule`'s."""
+    with `outer` the chained `scale_by_schedule`'s; with `mod`, optax keeps
+    the count modulo `mod` (apply_every) and the rule's count is found
+    elsewhere."""
 
-    def __init__(self, outer: bool = False):
-        self.outer = outer
+    def __init__(self, outer: bool = False, mod: Optional[int] = None):
+        self.outer, self.mod = outer, mod
 
 
 class _Param(_Slot):
@@ -181,6 +201,13 @@ class _Group(_Slot):
 
     def __init__(self, key: str, device: bool = False):
         self.key, self.device = key, device
+
+
+class _Custom(_Slot):
+    """A value placed as it is: `place(node, tensor)`."""
+
+    def __init__(self, place: Callable):
+        self.place = place
 
 
 class _Initial(_Slot):
@@ -210,59 +237,203 @@ def _decay_layout(weight_decay, mask) -> dict:
     return inner if mask is None else {"inner_state": inner}
 
 
-class _OptaxRule(torch.optim.Optimizer):
-    """`learning_rate` a float or a schedule (step -> value); `schedule` a
-    multiplier chained after the rule; `mask` for the decoupled decay."""
+def _named(params) -> tuple:
+    """(names or None, tensors) of a parameter list: tensors, or the (name,
+    tensor) pairs of `named_parameters()`."""
+    params = list(params)
+    if params and isinstance(params[0], tuple):
+        return [n for n, _ in params], [p for _, p in params]
+    return None, params
 
-    def __init__(self, params, defaults: dict, schedule: Optional[Callable[[int], float]],
-                 mask=None):
-        params = list(params)
-        names = None
-        if params and isinstance(params[0], tuple):
-            names, params = [n for n, _ in params], [p for _, p in params]
-        lr = defaults.pop("lr")
-        self.lr_schedule = lr if callable(lr) else None
-        super().__init__(params, dict(defaults, lr=None if callable(lr) or lr is None else float(lr),
-                                      count=0))
-        self.schedule = schedule
+
+# ---- one storage for a rule and the rules inside it ----
+#
+# A wrapper or combinator builds the rules inside it as optimizers of their
+# own over their parameters, then moves their storage into its own under a
+# prefix (`_attach`): their group entries go to the outer group as
+# `<prefix><key>`, their state to `state[p]["<prefix><key>"]`, so that the
+# outermost optimizer's `state_dict()` holds every rule's state and counts.
+# The views below look the outermost optimizer up at every access, so they
+# stay right after its `load_state_dict`.
+
+
+class _GroupView:
+    """A nested rule's parameter group: its keys under its prefix in the
+    outermost group, "params" its own parameters."""
+
+    def __init__(self, node):
+        self.node = node
+
+    def _key(self, key: str) -> str:
+        return self.node._prefix + key
+
+    def __getitem__(self, key: str):
+        if key == "params":
+            return self.node._params
+        return self.node._root.param_groups[0][self._key(key)]
+
+    def __setitem__(self, key: str, value) -> None:
+        self.node._root.param_groups[0][self._key(key)] = value
+
+    def __contains__(self, key: str) -> bool:
+        return key == "params" or self._key(key) in self.node._root.param_groups[0]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+
+class _PrefixedDict:
+    """A nested rule's state of one parameter: its keys under its prefix."""
+
+    def __init__(self, store: dict, prefix: str):
+        self.store, self.prefix = store, prefix
+
+    def __getitem__(self, key: str):
+        return self.store[self.prefix + key]
+
+    def __setitem__(self, key: str, value) -> None:
+        self.store[self.prefix + key] = value
+
+    def __contains__(self, key: str) -> bool:
+        return self.prefix + key in self.store
+
+
+class _StateView:
+    """A nested rule's `state`: per parameter a `_PrefixedDict` into the
+    outermost optimizer's state (a parameter that only `flatten` makes is
+    kept on a real one: the outermost node's `_alias`)."""
+
+    def __init__(self, node):
+        self.node = node
+
+    def where(self, p) -> tuple:
+        """(the outermost optimizer's parameter, the full key prefix)."""
+        return self.node._root._alias.get(id(p), p), self.node._prefix
+
+    def __getitem__(self, p):
+        if isinstance(p, str):  # a rule's own entry (noisy_sgd's generator)
+            return self.node._root.state[self.node._prefix + p]
+        real, prefix = self.where(p)
+        return _PrefixedDict(self.node._root.state[real], prefix)
+
+    def __setitem__(self, key: str, value) -> None:
+        self.node._root.state[self.node._prefix + key] = value
+
+    def __contains__(self, p) -> bool:
+        return self.node._prefix + p in self.node._root.state if isinstance(p, str) else True
+
+
+# apply_if_finite and MultiSteps' skips: each state entry a guarded update
+# makes, by (id of its parameter's state dict, full key), with its first value
+_FRESH: Optional[dict] = None
+
+# the group keys that count steps: Python ints, or int32 device tensors where a
+# guarded update decides on the device whether a step counts
+_COUNTERS = ("count", "mini_step", "gradient_step", "steps_since_sync", "step")
+
+
+class _Node(torch.optim.Optimizer):
+    """An optimizer of this module: one of optax's rules, wrappers or
+    combinators. `update(updates)` is optax's update on the node's
+    parameters as they stand (it advances the node's counts and returns the
+    new updates); `step()` applies it, scaled by a chained `schedule`.
+    `_layout()` is optax's state tree of the node; `_kids()` the nodes
+    inside it, each with its prefix (module comment above)."""
+
+    _OWN: tuple = ()  # a wrapper's own group and state keys, beside its rule's
+
+    def _init_node(self, params, names) -> None:
         self.names = names
-        self.decay_mask = _mask_of(mask, names, params)
-        self.wrapped = False  # inside MultiSteps / apply_if_finite: the wrapper chains `schedule`
-        self._fresh = None  # apply_if_finite: the first value of each state made in a step
+        self._params = params
+        self._root, self._prefix, self._alias = self, "", {}
+        self._reserved: frozenset = frozenset()
         self._leaf_index = None
 
-    def _lr(self, group: dict):
-        if self.lr_schedule is not None:
-            return _value(self.lr_schedule(group["count"]))
-        return group["lr"]
+    # ---- the update protocol ----
 
-    def _decay(self, group: dict, params, updates) -> None:
-        """u += weight_decay * p where the mask allows (optax's
-        `add_decayed_weights`, masked)."""
-        wd = group.get("weight_decay", 0.0)
-        if not wd:
-            return
-        for i, (u, p) in enumerate(zip(updates, params)):
-            if self.decay_mask is None or self.decay_mask[i]:
-                u.add_(p, alpha=wd)
+    def _update(self, group, params, updates) -> List[torch.Tensor]:
+        raise NotImplementedError(f"{type(self).__name__} has no update ({_OTHER})")
 
-    def _scale_by_lr(self, group: dict, updates) -> None:
-        torch._foreach_mul_(updates, -self._lr(group))
+    def update(self, updates: List[torch.Tensor]) -> List[torch.Tensor]:
+        group = self.param_groups[0]
+        out = self._update(group, group["params"], updates)
+        self._advance(group)
+        return out
 
-    def _apply(self, group: dict, params: List[torch.Tensor], updates: List[torch.Tensor]) -> None:
-        """p = p + schedule(count) * u (u already scaled by -lr), count += 1."""
+    def _advance(self, group) -> None:
+        group["count"] = group["count"] + 1
+
+    def _schedule_count(self, group):
+        return group["count"]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """p = p + schedule(c) * update(g), c the count before the step."""
+        group = self.param_groups[0]
+        params = group["params"]
+        at = self._schedule_count(group)
+        updates = self.update(_grads(params))
         if self.schedule is not None:
-            torch._foreach_mul_(updates, float(self.schedule(group["count"])))
+            torch._foreach_mul_(updates, float(self.schedule(at)))
         torch._foreach_add_(params, updates)
-        group["count"] += 1
+
+    def _kids(self) -> list:
+        """The nodes inside this one."""
+        return []
+
+    def _child(self, factory: Callable, named: list, prefix: str):
+        """`factory` bound to `named` (a sub-list of this node's (name,
+        parameter) pairs), its storage moved into this node's under
+        `prefix`."""
+        kid = factory(named)
+        if not isinstance(kid, _Node):
+            raise NotImplementedError(
+                f"{type(self).__name__} around {type(kid).__name__}: the port composes optax's "
+                f"rules of this module ({_OTHER})")
+        _attach(kid, self, prefix)
+        return kid
+
+    def _prepare(self, device) -> None:
+        """Every count of this node and the nodes inside it as an int32
+        tensor on `device`, before an update that the device guards."""
+        group = self.param_groups[0]
+        for key in _COUNTERS:
+            if key in group and key not in self._reserved:
+                v = group[key]
+                if not torch.is_tensor(v):
+                    group[key] = torch.full((), v, dtype=torch.int32, device=device)
+                elif v.device != device:
+                    group[key] = v.to(device)
+        for kid in self._kids():
+            kid._prepare(device)
+
+    # ---- state ----
 
     def _state(self, params, name: str, make) -> List[torch.Tensor]:
         for p in params:
             if name not in self.state[p]:
                 self.state[p][name] = make(p)
-                if self._fresh is not None:
-                    self._fresh[(p, name)] = self.state[p][name].clone()
+                if _FRESH is not None:
+                    real, prefix = (self.state.where(p) if isinstance(self.state, _StateView)
+                                    else (p, ""))
+                    _FRESH[(id(self._root.state[real]), prefix + name)] = (
+                        self.state[p][name].clone())
         return [self.state[p][name] for p in params]
+
+    def _scalar(self, key: str, device, start: Optional[float] = None) -> torch.Tensor:
+        """A tree-wide f32 scalar kept in the group (`start` before the first
+        step), as a tensor on `device` (made by a fill where it is still the
+        Python number of its start)."""
+        group = self.param_groups[0]
+        if key not in group:
+            group[key] = start
+        v = group[key]
+        if not torch.is_tensor(v):
+            v = torch.full((), v, dtype=torch.float32, device=device)
+        elif v.device != device:
+            v = v.to(device)
+        group[key] = v
+        return v
 
     # ---- flax's leaves (module docstring) ----
 
@@ -295,14 +466,86 @@ class _OptaxRule(torch.optim.Optimizer):
     def _layout(self) -> dict:
         raise NotImplementedError(f"{type(self).__name__} declares no optax state ({_OTHER})")
 
+    def _schedule_slot(self) -> _Slot:
+        return _Count(outer=True)
+
     def jax_state_layout(self) -> dict:
         """optax's state tree of this rule as JAX's trainer builds it, each
         place marked with where it goes (`_Slot`); with a chained schedule
         the chain {"0": rule, "1": scale_by_schedule}."""
         own = self._layout()
-        if self.schedule is not None and not self.wrapped:
-            return {"0": own, "1": {"count": _Count(outer=True)}}
+        if self.schedule is not None:
+            return {"0": own, "1": {"count": self._schedule_slot()}}
         return own
+
+
+class _Scope(_Slot):
+    """The state tree of a node inside another: its slots place into that
+    node's parameters and group."""
+
+    def __init__(self, node: _Node):
+        self.node, self.layout = node, node._layout()
+
+
+def _attach(kid: _Node, parent: _Node, prefix: str, reserved=()) -> None:
+    """`kid`'s group entries and state into `parent`'s storage under
+    `prefix` (relative to `parent`'s), and `kid` and the nodes inside it
+    reading them there from now on."""
+    root, full = parent._root, parent._prefix + prefix
+    group = kid.param_groups[0]
+    if not isinstance(group, _GroupView):  # a fresh node: its own storage
+        for key, value in group.items():
+            if key != "params":
+                root.param_groups[0][full + key] = value
+        for p, entries in kid.state.items():
+            for key, value in entries.items():
+                root.state[p][full + key] = value
+    root._alias.update(kid._alias)
+    _repoint(kid, root, full)
+    kid._reserved = frozenset(reserved)
+    kid.param_groups, kid.state = [_GroupView(kid)], _StateView(kid)
+    kid.schedule = None
+
+
+def _repoint(node: _Node, root: _Node, prefix: str) -> None:
+    old = node._prefix
+    node._root, node._prefix = root, prefix
+    for kid in node._kids():
+        _repoint(kid, root, prefix + kid._prefix[len(old):])
+
+
+class _OptaxRule(_Node):
+    """`learning_rate` a float or a schedule (step -> value); `schedule` a
+    multiplier chained after the rule; `mask` for the decoupled decay."""
+
+    def __init__(self, params, defaults: dict, schedule: Optional[Callable[[int], float]],
+                 mask=None):
+        names, params = _named(params)
+        lr = defaults.pop("lr")
+        self.lr_schedule = lr if callable(lr) else None
+        super().__init__(params, dict(defaults, lr=None if callable(lr) or lr is None else float(lr),
+                                      count=0))
+        self._init_node(params, names)
+        self.schedule = schedule
+        self.decay_mask = _mask_of(mask, names, params)
+
+    def _lr(self, group: dict):
+        if self.lr_schedule is not None:
+            return _value(self.lr_schedule(group["count"]))
+        return group["lr"]
+
+    def _decay(self, group: dict, params, updates) -> None:
+        """u += weight_decay * p where the mask allows (optax's
+        `add_decayed_weights`, masked)."""
+        wd = group.get("weight_decay", 0.0)
+        if not wd:
+            return
+        for i, (u, p) in enumerate(zip(updates, params)):
+            if self.decay_mask is None or self.decay_mask[i]:
+                u.add_(p, alpha=wd)
+
+    def _scale_by_lr(self, group: dict, updates) -> None:
+        torch._foreach_mul_(updates, -self._lr(group))
 
 
 def _value(v):
@@ -352,42 +595,34 @@ class Adam(_OptaxRule):
         return _chain([{"count": _Count(), "mu": _Param("mu"), "nu": _Param("nu")}, *decay,
                        _lr_layout(self.lr_schedule)])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = group["params"]
-            grads = _grads(params)
-            mu = self._state(params, "mu", lambda p: torch.zeros_like(p, dtype=self.mu_dtype))
-            nu = self._state(params, "nu", torch.zeros_like)
-            b1, b2 = group["b1"], group["b2"]
-            t = group["count"] + 1
-            if self.mu_dtype is None:
-                torch._foreach_mul_(mu, b1)
-                torch._foreach_add_(mu, grads, alpha=1 - b1)
-                new_mu = mu
-            else:
-                new_mu = _moment(grads, mu, b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
-            if group["nesterov"]:
-                updates = torch._foreach_div(new_mu, 1 - b1 ** (t + 1))
-                torch._foreach_mul_(updates, b1)
-                torch._foreach_add_(
-                    updates, torch._foreach_mul(torch._foreach_div(grads, 1 - b1**t), 1 - b1)
-                )
-            else:
-                updates = torch._foreach_div(new_mu, 1 - b1**t)
-            denom = torch._foreach_div(nu, 1 - b2**t)
-            torch._foreach_add_(denom, group["eps_root"])
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, group["eps"])
-            torch._foreach_div_(updates, denom)
-            if self.mu_dtype is not None:
-                for p, m in zip(params, new_mu):
-                    self.state[p]["mu"] = m.to(self.mu_dtype)
-            self._decay(group, params, updates)
-            self._scale_by_lr(group, updates)
-            self._apply(group, params, updates)
+    def _update(self, group, params, grads):
+        mu = self._state(params, "mu", lambda p: torch.zeros_like(p, dtype=self.mu_dtype))
+        nu = self._state(params, "nu", torch.zeros_like)
+        b1, b2 = group["b1"], group["b2"]
+        t = group["count"] + 1
+        if self.mu_dtype is None:
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            new_mu = mu
+        else:
+            new_mu = _moment(grads, mu, b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        if group["nesterov"]:
+            updates = _nesterov_hat(new_mu, grads, b1, t)
+        else:
+            updates = torch._foreach_div(new_mu, _bias(b1, t))
+        denom = torch._foreach_div(nu, _bias(b2, t))
+        torch._foreach_add_(denom, group["eps_root"])
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        torch._foreach_div_(updates, denom)
+        if self.mu_dtype is not None:
+            for p, m in zip(params, new_mu):
+                self.state[p]["mu"] = m.to(self.mu_dtype)
+        self._decay(group, params, updates)
+        self._scale_by_lr(group, updates)
+        return updates
 
 
 class Adagrad(_OptaxRule):
@@ -405,21 +640,17 @@ class Adagrad(_OptaxRule):
     def _layout(self) -> dict:
         return _chain([{"sum_of_squares": _Param("sum_of_squares")}, _lr_layout(self.lr_schedule)])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = group["params"]
-            grads = _grads(params)
-            acc = self._state(
-                params, "sum_of_squares",
-                lambda p: torch.full_like(p, group["initial_accumulator_value"]),
-            )
-            torch._foreach_addcmul_(acc, grads, grads)
-            inv = torch._foreach_add(acc, group["eps"])
-            torch._foreach_rsqrt_(inv)
-            updates = [torch.where(a > 0, r, 0.0) * g for a, r, g in zip(acc, inv, grads)]
-            self._scale_by_lr(group, updates)
-            self._apply(group, params, updates)
+    def _update(self, group, params, grads):
+        acc = self._state(
+            params, "sum_of_squares",
+            lambda p: torch.full_like(p, group["initial_accumulator_value"]),
+        )
+        torch._foreach_addcmul_(acc, grads, grads)
+        inv = torch._foreach_add(acc, group["eps"])
+        torch._foreach_rsqrt_(inv)
+        updates = [torch.where(a > 0, r, 0.0) * g for a, r, g in zip(acc, inv, grads)]
+        self._scale_by_lr(group, updates)
+        return updates
 
 
 class Adamax(_OptaxRule):
@@ -433,22 +664,18 @@ class Adamax(_OptaxRule):
         return _chain([{"count": _Count(), "mu": _Param("mu"), "nu": _Param("nu")},
                        _lr_layout(self.lr_schedule)])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = group["params"]
-            grads = _grads(params)
-            mu = self._state(params, "mu", torch.zeros_like)
-            nu = self._state(params, "nu", torch.zeros_like)
-            b1, b2, t = group["b1"], group["b2"], group["count"] + 1
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, grads, alpha=1 - b1)
-            for n, g in zip(nu, grads):
-                torch.maximum(g.abs() + group["eps"], b2 * n, out=n)
-            updates = torch._foreach_div(mu, 1 - b1**t)
-            torch._foreach_div_(updates, nu)
-            self._scale_by_lr(group, updates)
-            self._apply(group, params, updates)
+    def _update(self, group, params, grads):
+        mu = self._state(params, "mu", torch.zeros_like)
+        nu = self._state(params, "nu", torch.zeros_like)
+        b1, b2, t = group["b1"], group["b2"], group["count"] + 1
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        for n, g in zip(nu, grads):
+            torch.maximum(g.abs() + group["eps"], b2 * n, out=n)
+        updates = torch._foreach_div(mu, _bias(b1, t))
+        torch._foreach_div_(updates, nu)
+        self._scale_by_lr(group, updates)
+        return updates
 
 
 class Lion(_OptaxRule):
@@ -466,28 +693,23 @@ class Lion(_OptaxRule):
                        _decay_layout(self.param_groups[0]["weight_decay"], self.decay_mask),
                        _lr_layout(self.lr_schedule)])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = group["params"]
-            grads = _grads(params)
-            mu = self._state(params, "mu", lambda p: torch.zeros_like(p, dtype=self.mu_dtype))
-            b1, b2 = group["b1"], group["b2"]
-            updates = [torch.sign(v) for v in _moment(grads, mu, b1)]
-            for p, m in zip(params, _moment(grads, mu, b2)):
-                self.state[p]["mu"] = m.to(self.mu_dtype or m.dtype)
-            self._decay(group, params, updates)
-            self._scale_by_lr(group, updates)
-            self._apply(group, params, updates)
+    def _update(self, group, params, grads):
+        mu = self._state(params, "mu", lambda p: torch.zeros_like(p, dtype=self.mu_dtype))
+        b1, b2 = group["b1"], group["b2"]
+        updates = [torch.sign(v) for v in _moment(grads, mu, b1)]
+        for p, m in zip(params, _moment(grads, mu, b2)):
+            self.state[p]["mu"] = m.to(self.mu_dtype or m.dtype)
+        self._decay(group, params, updates)
+        self._scale_by_lr(group, updates)
+        return updates
 
 
-def _trace(rule: _OptaxRule, group: dict, params, updates, dtype) -> List[torch.Tensor]:
-    """optax's `trace`: tr = u + momentum tr (kept in `dtype`); returns tr,
-    or u + momentum tr with nesterov."""
-    m = group["momentum"]
+def _trace(rule: _Node, params, updates, m: float, nesterov: bool, dtype) -> List[torch.Tensor]:
+    """optax's `trace`: tr = u + m tr (kept in `dtype`); returns tr, or
+    u + m tr with nesterov."""
     tr = rule._state(params, "trace", lambda p: torch.zeros_like(p, dtype=dtype))
     new = [u + _weak(m, t) * t for u, t in zip(updates, tr)]
-    out = [u + m * t for u, t in zip(updates, new)] if group["nesterov"] else new
+    out = [u + m * t for u, t in zip(updates, new)] if nesterov else new
     for p, t in zip(params, new):
         rule.state[p]["trace"] = t.to(dtype or t.dtype, copy=True)  # `out` is scaled in place
     return out
@@ -506,15 +728,13 @@ class SGD(_OptaxRule):
         trace = {} if self.param_groups[0]["momentum"] is None else {"trace": _Param("trace")}
         return _chain([trace, _lr_layout(self.lr_schedule)])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = group["params"]
-            updates = [g.clone() for g in _grads(params)]
-            if group["momentum"] is not None:
-                updates = _trace(self, group, params, updates, self.accumulator_dtype)
-            self._scale_by_lr(group, updates)
-            self._apply(group, params, updates)
+    def _update(self, group, params, grads):
+        updates = [g.clone() for g in grads]
+        if group["momentum"] is not None:
+            updates = _trace(self, params, updates, group["momentum"], group["nesterov"],
+                             self.accumulator_dtype)
+        self._scale_by_lr(group, updates)
+        return updates
 
 
 class RMSProp(_OptaxRule):
@@ -540,35 +760,31 @@ class RMSProp(_OptaxRule):
         trace = {} if g["momentum"] is None else {"trace": _Param("trace")}
         return _chain([rms, _lr_layout(self.lr_schedule), trace])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = group["params"]
-            grads = _grads(params)
-            d, t = group["decay"], group["count"] + 1
-            nu = self._state(params, "nu", lambda p: torch.full_like(p, group["initial_scale"]))
-            torch._foreach_mul_(nu, d)
-            torch._foreach_addcmul_(nu, grads, grads, value=1 - d)
-            corr = 1 - d**t if group["bias_correction"] else 1.0
-            var = torch._foreach_div(nu, corr)
-            if group["centered"]:
-                mu = self._state(params, "mu", torch.zeros_like)
-                torch._foreach_mul_(mu, d)
-                torch._foreach_add_(mu, grads, alpha=1 - d)
-                mu_hat = torch._foreach_div(mu, corr)
-                torch._foreach_sub_(var, torch._foreach_mul(mu_hat, mu_hat))
-            if group["eps_in_sqrt"]:
-                torch._foreach_add_(var, group["eps"])
-                torch._foreach_rsqrt_(var)
-            else:
-                torch._foreach_sqrt_(var)
-                torch._foreach_add_(var, group["eps"])
-                torch._foreach_reciprocal_(var)
-            updates = torch._foreach_mul(var, grads)
-            self._scale_by_lr(group, updates)
-            if group["momentum"] is not None:
-                updates = _trace(self, group, params, updates, None)
-            self._apply(group, params, updates)
+    def _update(self, group, params, grads):
+        d, t = group["decay"], group["count"] + 1
+        nu = self._state(params, "nu", lambda p: torch.full_like(p, group["initial_scale"]))
+        torch._foreach_mul_(nu, d)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - d)
+        corr = _bias(d, t) if group["bias_correction"] else 1.0
+        var = torch._foreach_div(nu, corr)
+        if group["centered"]:
+            mu = self._state(params, "mu", torch.zeros_like)
+            torch._foreach_mul_(mu, d)
+            torch._foreach_add_(mu, grads, alpha=1 - d)
+            mu_hat = torch._foreach_div(mu, corr)
+            torch._foreach_sub_(var, torch._foreach_mul(mu_hat, mu_hat))
+        if group["eps_in_sqrt"]:
+            torch._foreach_add_(var, group["eps"])
+            torch._foreach_rsqrt_(var)
+        else:
+            torch._foreach_sqrt_(var)
+            torch._foreach_add_(var, group["eps"])
+            torch._foreach_reciprocal_(var)
+        updates = torch._foreach_mul(var, grads)
+        self._scale_by_lr(group, updates)
+        if group["momentum"] is not None:
+            updates = _trace(self, params, updates, group["momentum"], group["nesterov"], None)
+        return updates
 
 
 # ---- the transform layer: optax's `scale_by_*` steps on flat lists ----
@@ -583,6 +799,33 @@ class RMSProp(_OptaxRule):
 
 def _copy(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     return torch._foreach_mul(tensors, 1.0)
+
+
+# tree-wide sums (optax.tree's norms and dot products): a few device ops over
+# every tensor at once, 0-d tensors on the tensors' device, in a fixed order
+
+
+def _sq_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The squared L2 norm of every entry of `tensors` (optax's global
+    norm, squared)."""
+    return torch.stack(torch._foreach_norm(tensors)).square().sum()
+
+
+def _l1(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of the absolute values of every entry."""
+    return torch.stack(torch._foreach_norm(tensors, ord=1)).sum()
+
+
+def _vdot(a: List[torch.Tensor], b: List[torch.Tensor]) -> torch.Tensor:
+    """optax.tree.vdot: the sum over the tensors of their dot products."""
+    return torch.cat([t.reshape(-1) for t in torch._foreach_mul(a, b)]).sum()
+
+
+def _axpy(x: List[torch.Tensor], a, y: List[torch.Tensor], b) -> List[torch.Tensor]:
+    """a x + b y, a new list (a and b floats or 0-d tensors)."""
+    out = torch._foreach_mul(x, a)
+    torch._foreach_add_(out, torch._foreach_mul(y, b))
+    return out
 
 
 def _ema_(moments, updates, decay: float) -> None:
@@ -725,15 +968,18 @@ class _AddDecayedWeights(_Step):
 
 
 class _Trace(_Step):
-    """optax.trace: tr = u + decay tr; u = tr, or u + decay tr (nesterov)."""
+    """optax.trace: tr = u + decay tr; u = tr, or u + decay tr (nesterov);
+    the trace kept in `accumulator_dtype`."""
 
-    def __init__(self, decay: float, nesterov: bool = False):
-        self.decay, self.nesterov = decay, nesterov
+    def __init__(self, decay: float, nesterov: bool = False, accumulator_dtype=None):
+        self.decay, self.nesterov, self.dtype = decay, nesterov, _dtype(accumulator_dtype)
 
     def layout(self, rule) -> dict:
         return {"trace": _Param("trace")}
 
     def __call__(self, rule, group, params, updates):
+        if self.dtype is not None:
+            return _trace(rule, params, updates, self.decay, self.nesterov, self.dtype)
         tr = rule._state(params, "trace", torch.zeros_like)
         torch._foreach_mul_(tr, self.decay)
         torch._foreach_add_(tr, updates)
@@ -1279,10 +1525,11 @@ class _ParamBlockRMS(_Step):
 
 
 class _EMA(_Step):
-    """optax.ema without debiasing (adafactor's momentum), kept in `dtype`."""
+    """optax.ema (adafactor's momentum: without debiasing), kept in
+    `dtype`; with `debias` divided by 1 - decay^t."""
 
-    def __init__(self, decay: float, dtype):
-        self.decay, self.dtype = decay, _dtype(dtype)
+    def __init__(self, decay: float, dtype, debias: bool = False):
+        self.decay, self.dtype, self.debias = decay, _dtype(dtype), debias
 
     def layout(self, rule) -> dict:
         return {"count": _Count(), "ema": _Param("ema")}
@@ -1292,6 +1539,8 @@ class _EMA(_Step):
         new = _moment(updates, ema, self.decay)
         for p, m in zip(params, new):
             rule.state[p]["ema"] = m.to(self.dtype or m.dtype, copy=True)  # `new` is scaled in place
+        if self.debias:
+            return torch._foreach_div(new, _bias(self.decay, group["count"] + 1))
         return new
 
 
@@ -1353,99 +1602,234 @@ class _ScaleBySM3(_Step):
 
 class _Chain(_OptaxRule):
     """A rule of optax's as its chain of steps (`make_steps()`, built per
-    optimizer so that a step's generator is its own)."""
+    optimizer so that a step's generator is its own); with `bare`, one
+    transform alone, whose state is its step's (not a chain's)."""
 
     def __init__(self, params, make_steps: Callable, lr=None, alias: str = "chain",
-                 schedule: Optional[Callable[[int], float]] = None):
+                 schedule: Optional[Callable[[int], float]] = None, bare: bool = False):
         super().__init__(params, dict(lr=lr), schedule)
-        self.alias = alias
+        self.alias, self.bare = alias, bare
         self.steps = make_steps()
 
     def _layout(self) -> dict:
+        if self.bare:
+            return self.steps[0].layout(self)
         return _chain([s.layout(self) for s in self.steps])
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        group = self.param_groups[0]
-        params = group["params"]
-        updates = _copy(_grads(params))
+    def _update(self, group, params, updates):
+        updates = _copy(updates)
         for s in self.steps:
             updates = s(self, group, params, updates)
-        self._apply(group, params, updates)
+        return updates
 
 
-# ---- optax's wrappers that a config can build: MultiSteps, apply_if_finite ----
+# ---- updates the device decides on: apply_if_finite, MultiSteps' skips ----
 
 
-class _Wrapper(torch.optim.Optimizer):
-    """An optax wrapper around one rule of this module. The two share one
-    parameter group and one state, so a state dict holds both. The wrapper
-    chains `schedule` (`model.lr_scheduler`) at its own count,
-    `schedule_count`, which advances every step as optax's chained
-    `scale_by_schedule` does."""
+def _tracked(node: _Node, run: Callable):
+    """run(), an update of `node`, with what it changes: (its output, the
+    group entries and state entries of `node` (and the nodes inside it)
+    before it, each state entry it made with the value it was made with)."""
+    global _FRESH
+    group = node._root.param_groups[0]
+    before = {key: (v.clone() if torch.is_tensor(v) else v) for key, v in group.items()
+              if key != "params" and _owned(node, key)}
+    entries = _state_entries(node)
+    saved = dict(zip([(id(d), k) for d, k in entries],
+                     _copy([d[k] for d, k in entries]) if entries else []))
+    outer, _FRESH = _FRESH, {}
+    try:
+        out = run()
+        fresh = _FRESH
+    finally:
+        _FRESH = outer
+    if outer is not None:  # made inside an inner guard: made for the outer one too
+        outer.update(fresh)
+    return out, before, saved, fresh
+
+
+def _guarded(node: _Node, cond, run: Callable):
+    """run(), an update of `node`, whose effect on `node`'s state and counts
+    (those of the nodes inside it too) stands where the device bool `cond`
+    holds; elsewhere each keeps its value, and an entry the update made the
+    value it was made with. Both are `torch.where`s on the device: nothing
+    is read on the host. A host bool runs the update or not."""
+    if not torch.is_tensor(cond):
+        return run() if cond else None
+    node._prepare(cond.device)
+    out, before, saved, fresh = _tracked(node, run)
+    group = node._root.param_groups[0]
+    for key, v in _group_entries(node):
+        old = before.get(key)
+        if torch.is_tensor(v) and old is not None:
+            group[key] = torch.where(cond, v, old if torch.is_tensor(old)
+                                     else torch.full_like(v, old))
+    for d, k in _state_entries(node):
+        old = saved.get((id(d), k), fresh.get((id(d), k)))
+        if old is not None:
+            d[k] = torch.where(cond, d[k], old)
+    return out
+
+
+def _discarded(node: _Node, run: Callable):
+    """run(), an update of `node`, with its state and counts put back as
+    they were (an entry it made: the value it was made with) and its output
+    returned (MultiSteps' micro-steps that do not emit)."""
+    out, before, saved, fresh = _tracked(node, run)
+    group = node._root.param_groups[0]
+    for key in [k for k in group if k != "params" and _owned(node, k)]:
+        if key in before:
+            group[key] = before[key]
+        else:
+            del group[key]
+    for d, k in _state_entries(node):
+        old = saved.get((id(d), k), fresh.get((id(d), k)))
+        if old is None:
+            del d[k]
+        else:
+            d[k] = old
+    return out
+
+
+def _owned(node: _Node, key: str) -> bool:
+    return key.startswith(node._prefix) and key[len(node._prefix):] not in node._reserved
+
+
+def _group_entries(node: _Node) -> list:
+    """(key, value) of the numbers and tensors `node` keeps in the group."""
+    return [(k, v) for k, v in node._root.param_groups[0].items()
+            if k != "params" and _owned(node, k)
+            and (torch.is_tensor(v) or (isinstance(v, (int, float)) and not isinstance(v, bool)))]
+
+
+def _state_entries(node: _Node) -> list:
+    """(dict, key) of the tensors `node` keeps in its parameters' state."""
+    out, seen = [], set()
+    for p in node._params:
+        real = node._root._alias.get(id(p), p)
+        if id(real) in seen:
+            continue
+        seen.add(id(real))
+        d = node._root.state[real]
+        out += [(d, k) for k, v in d.items() if torch.is_tensor(v) and _owned(node, k)]
+    return out
+
+
+# ---- optax's wrappers: MultiSteps, apply_if_finite ----
+
+
+class _Combinator(_Node):
+    """A node around other nodes (`_kids()`). It chains `schedule`
+    (`model.lr_scheduler`) at its own count, `schedule_count`, which
+    advances every step as optax's chained `scale_by_schedule` does."""
+
+    def __init__(self, params, defaults: dict, schedule: Optional[Callable[[int], float]]):
+        names, tensors = _named(params)
+        super().__init__(tensors, dict(defaults, schedule_count=0))
+        self._init_node(tensors, names)
+        self.schedule = schedule
+
+    def _pairs(self, keep: Optional[List[bool]] = None) -> list:
+        """This node's (name, parameter) pairs (bare tensors without names),
+        those that `keep` marks."""
+        items = (list(zip(self.names, self._params)) if self.names is not None
+                 else list(self._params))
+        return items if keep is None else [x for x, k in zip(items, keep) if k]
+
+    def _advance(self, group) -> None:
+        group["schedule_count"] += 1
+
+    def _schedule_count(self, group):
+        return group["schedule_count"]
+
+    def _schedule_slot(self) -> _Slot:
+        return _Group("schedule_count")
+
+
+class _Wrapper(_Combinator):
+    """An optax wrapper around one rule, wrapper or combinator of this
+    module. A rule inside shares the wrapper's storage (the wrapper's own
+    keys, `_OWN`, beside the rule's, so that a state dict holds both); any
+    other node sits under "inner/"."""
 
     def __init__(self, params, inner: Callable, defaults: dict,
                  schedule: Optional[Callable[[int], float]]):
-        params = list(params)
-        tensors = [p for _, p in params] if params and isinstance(params[0], tuple) else params
-        super().__init__(tensors, dict(defaults, schedule_count=0))
-        rule = inner(params)
-        if not isinstance(rule, _OptaxRule):
+        super().__init__(params, defaults, schedule)
+        rule = inner(self._pairs())
+        if not isinstance(rule, _Node):
             raise NotImplementedError(
-                f"{type(self).__name__[1:]} around {type(rule).__name__}: the port wraps one of "
-                f"optax's rules, not a wrapper ({_OTHER})")
-        group = self.param_groups[0]
-        for k, v in rule.param_groups[0].items():
-            if k != "params":
-                group[k] = v
+                f"{type(self).__name__[1:]} around {type(rule).__name__}: the port wraps optax's "
+                f"rules of this module ({_OTHER})")
+        if isinstance(rule, _OptaxRule):
+            _attach(rule, self, "", reserved=self._OWN)
+        else:
+            _attach(rule, self, "inner/")
         self.inner = rule
-        self.schedule = schedule
-        self._link()
 
-    def _link(self) -> None:
-        rule = self.inner
-        rule.param_groups, rule.state, rule.wrapped = self.param_groups, self.state, True
-        if self.schedule is not None:
-            rule.schedule = lambda _count: self.schedule(self.param_groups[0]["schedule_count"])
-
-    def load_state_dict(self, state_dict) -> None:
-        super().load_state_dict(state_dict)
-        self._link()  # torch replaces the group and the state
-
-    def jax_state_layout(self) -> dict:
-        own = self._layout()
-        if self.schedule is not None:
-            return {"0": own, "1": {"count": _Group("schedule_count")}}
-        return own
+    def _kids(self) -> list:
+        return [self.inner]
 
 
 class _MultiSteps(_Wrapper):
     """optax.MultiSteps: the gradients of `every_k_schedule(gradient_step)`
     micro-steps accumulate (their mean with `use_grad_mean`, else their
-    sum), and the rule steps on them at the last one; the other micro-steps
-    leave the parameters as they are. Whether a micro-step emits depends on
-    the counts alone (Python ints). optax runs the rule on every micro-step
-    and keeps its result on the last; the port runs it there alone, which is
-    the same for finite updates."""
+    sum), and the rule's update on them counts at the last one. As optax,
+    the rule runs on every micro-step: its state stands where the micro-step
+    emits (`_guarded`), and the update it gives is multiplied by whether it
+    does (so a non-finite one reaches the parameters as optax's does). With
+    `should_skip_update_fn` (optax's `skip_not_finite` or
+    `skip_large_updates`) a skipped micro-step gives zeros and leaves
+    `mini_step`, `gradient_step`, the accumulated gradients and the rule's
+    state as they were: a skip is device data, so the counts are device
+    tensors and `torch.where` decides (`_guarded`); nothing is read on the
+    host. Without one the counts are Python ints (`_update_on_host`)."""
+
+    _OWN = ("mini_step", "gradient_step", "schedule_count", "acc_grads")
 
     def __init__(self, params, opt: Callable, every_k_schedule, use_grad_mean: bool = True,
-                 schedule: Optional[Callable[[int], float]] = None):
+                 should_skip_update_fn=None, schedule: Optional[Callable[[int], float]] = None):
         super().__init__(params, opt, dict(mini_step=0, gradient_step=0), schedule)
         self.every_k = every_k_schedule if callable(every_k_schedule) else (
             lambda step: every_k_schedule)
         self.use_grad_mean = use_grad_mean
+        self.should_skip = should_skip_update_fn
 
     def _layout(self) -> dict:
         return {"mini_step": _Group("mini_step"), "gradient_step": _Group("gradient_step"),
-                "inner_opt_state": self.inner._layout(), "acc_grads": _Param("acc_grads"),
-                "skip_state": {}}
+                "inner_opt_state": _Scope(self.inner), "acc_grads": _Param("acc_grads"),
+                "skip_state": {} if self.should_skip is None else _Unused()}
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        group = self.param_groups[0]
-        params = group["params"]
-        acc = self.inner._state(params, "acc_grads", torch.zeros_like)
-        grads = _grads(params)
+    def _update(self, group, params, grads):
+        acc = self._state(params, "acc_grads", torch.zeros_like)
+        if self.should_skip is None and not torch.is_tensor(group["mini_step"]):
+            return self._update_on_host(group, grads, acc)
+        self._prepare(params[0].device)
+        m, gs = group["mini_step"], group["gradient_step"]
+        k = self.every_k(gs)
+        if self.should_skip is None:
+            skip = torch.zeros((), dtype=torch.bool, device=m.device)
+        else:
+            skip, _ = self.should_skip(grads, gs, params)
+        if self.use_grad_mean:  # Welford's mean, as optax
+            new = torch._foreach_sub(grads, acc)
+            torch._foreach_div_(new, (m + 1).to(torch.float32))
+            torch._foreach_add_(new, acc)
+        else:
+            new = torch._foreach_add(grads, acc)
+        emit = m == k - 1
+        out = _guarded(self.inner, emit & ~skip, lambda: self.inner.update(_copy(new)))
+        kept = torch._foreach_mul(new, (~emit).to(grads[0].dtype))
+        for p, a, n in zip(params, acc, kept):
+            self.state[p]["acc_grads"] = torch.where(skip, a, n)
+        group["mini_step"] = torch.where(skip, m, (m + 1) % k)
+        group["gradient_step"] = torch.where(skip, gs, gs + emit.to(gs.dtype))
+        return [torch.where(skip, 0.0, u) for u in torch._foreach_mul(out, emit.to(out[0].dtype))]
+
+    def _update_on_host(self, group, grads, acc):
+        """Without a skip function, and with host counts: whether the
+        micro-step emits is known on the host, so a micro-step that does not
+        emit puts the rule's state back by reassignment (`_discarded`) rather
+        than a `torch.where` of each state tensor."""
         m = group["mini_step"]
         if self.use_grad_mean:  # Welford's mean, as optax
             d = torch._foreach_sub(grads, acc)
@@ -1454,30 +1838,33 @@ class _MultiSteps(_Wrapper):
         else:
             torch._foreach_add_(acc, grads)
         k = int(self.every_k(group["gradient_step"]))
-        if m == k - 1:
-            held = [p.grad for p in params]
-            for p, a in zip(params, acc):
-                p.grad = a
-            self.inner.step()
-            for p, g in zip(params, held):
-                p.grad = g
-            torch._foreach_mul_(acc, 0.0)
+        emit = m == k - 1
+        if emit:
+            out = self.inner.update(_copy(acc))
+            torch._foreach_mul_(acc, 0.0)  # optax's (1 - emit) acc: a NaN stays
             group["gradient_step"] += 1
+        else:
+            out = _discarded(self.inner, lambda: self.inner.update(_copy(acc)))
+            torch._foreach_mul_(out, 0.0)  # optax's emit u: a non-finite update stays
         group["mini_step"] = (m + 1) % k
-        group["schedule_count"] += 1
+        return out
 
 
-_ON_DEVICE = (("count", torch.int32), ("notfinite_count", torch.int32),
-              ("total_notfinite", torch.int32), ("last_finite", torch.bool))
+_ON_DEVICE = (("notfinite_count", torch.int32), ("total_notfinite", torch.int32),
+              ("last_finite", torch.bool))
 
 
 class _ApplyIfFinite(_Wrapper):
     """optax.apply_if_finite: a step whose gradients are not all finite
-    leaves the parameters, the rule's state and its count as they were,
-    until more than `max_consecutive_errors` such steps come in a row. The
-    choice is device data, so the rule steps every time and `torch.where`
-    keeps the old values where the step does not count: the counts are
-    device tensors and nothing is read on the host."""
+    gives a zero update and leaves the rule's state and counts as they
+    were, until more than `max_consecutive_errors` such steps come in a
+    row. The choice is device data, so the rule steps every time and
+    `torch.where` keeps the old values where the step does not count
+    (`_guarded`): the counts are device tensors and nothing is read on the
+    host."""
+
+    _OWN = ("notfinite_count", "last_finite", "total_notfinite", "max_consecutive_errors",
+            "schedule_count")
 
     def __init__(self, params, inner: Callable, max_consecutive_errors: int,
                  schedule: Optional[Callable[[int], float]] = None):
@@ -1490,12 +1877,9 @@ class _ApplyIfFinite(_Wrapper):
         return {"notfinite_count": _Group("notfinite_count", device=True),
                 "last_finite": _Group("last_finite", device=True),
                 "total_notfinite": _Group("total_notfinite", device=True),
-                "inner_state": self.inner._layout()}
+                "inner_state": _Scope(self.inner)}
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        group = self.param_groups[0]
-        params = group["params"]
+    def _update(self, group, params, grads):
         dev = params[0].device
         for key, dtype in _ON_DEVICE:
             v = group[key]
@@ -1503,36 +1887,23 @@ class _ApplyIfFinite(_Wrapper):
                 group[key] = torch.full((), v, dtype=dtype, device=dev)
             elif v.device != dev:  # a state dict loaded onto the CPU
                 group[key] = v.to(dev)
-        finite = torch.stack(torch._foreach_norm(_grads(params), ord=math.inf)).isfinite().all()
+        finite = torch.stack(torch._foreach_norm(grads, ord=math.inf)).isfinite().all()
         notfinite = torch.where(finite, 0, group["notfinite_count"] + 1)
         ok = finite | (notfinite > group["max_consecutive_errors"])
-        held = [(p, k) for p in params for k in self.state[p]]
-        before = dict(zip(held, _copy([self.state[p][k] for p, k in held]))) if held else {}
-        old_params, count = _copy(params), group["count"].clone()
-        self.inner._fresh = {}
-        self.inner.step()
-        fresh, self.inner._fresh = self.inner._fresh, None
-        for p, old in zip(params, old_params):
-            p.copy_(torch.where(ok, p, old))
-        for p in params:
-            for k, v in self.state[p].items():
-                self.state[p][k] = torch.where(ok, v, before[(p, k)] if (p, k) in before
-                                               else fresh[(p, k)])
-        group["count"] = torch.where(ok, group["count"], count)
+        out = _guarded(self.inner, ok, lambda: self.inner.update(grads))
         group["total_notfinite"] = torch.where(finite, group["total_notfinite"],
                                                group["total_notfinite"] + 1)
         group["notfinite_count"], group["last_finite"] = notfinite, finite
-        group["schedule_count"] += 1
+        return [torch.where(ok, u, 0.0) for u in out]
 
 
 def MultiSteps(opt, every_k_schedule, use_grad_mean: bool = True, should_skip_update_fn=None):
-    """optax.MultiSteps(opt, every_k_schedule, use_grad_mean) -> `params ->
-    _MultiSteps` around `opt` (a factory of this module, as a config's
-    nested `_target_` builds it)."""
-    if should_skip_update_fn is not None:
-        raise NotImplementedError(f"MultiSteps' should_skip_update_fn is not ported ({_OTHER})")
+    """optax.MultiSteps(opt, every_k_schedule, use_grad_mean,
+    should_skip_update_fn) -> `params -> _MultiSteps` around `opt` (a
+    factory of this module, as a config's nested `_target_` builds it)."""
     return functools.partial(_MultiSteps, opt=opt, every_k_schedule=every_k_schedule,
-                             use_grad_mean=use_grad_mean)
+                             use_grad_mean=use_grad_mean,
+                             should_skip_update_fn=should_skip_update_fn)
 
 
 def apply_if_finite(inner, max_consecutive_errors: int):
@@ -1540,6 +1911,23 @@ def apply_if_finite(inner, max_consecutive_errors: int):
     _ApplyIfFinite` around `inner`."""
     return functools.partial(_ApplyIfFinite, inner=inner,
                              max_consecutive_errors=max_consecutive_errors)
+
+
+def skip_not_finite(updates: List[torch.Tensor], gradient_step, params):
+    """optax.skip_not_finite: skip where any update is not finite (a device
+    bool; the largest magnitude of each tensor is then not finite). optax's
+    count of such entries, which only its skip state keeps, is not made."""
+    skip = ~torch.stack(torch._foreach_norm(updates, ord=math.inf)).isfinite().all()
+    return skip, {"should_skip": skip}
+
+
+def skip_large_updates(updates: List[torch.Tensor], gradient_step, params,
+                       max_squared_norm: float):
+    """optax.skip_large_updates: skip where the squared norm of the updates
+    is not below `max_squared_norm` (a NaN norm too)."""
+    norm_sq = _sq_norm(updates)
+    skip = ~(norm_sq < max_squared_norm)
+    return skip, {"should_skip": skip, "norm_squared": norm_sq}
 
 
 def bind(optimizer: Callable, module: torch.nn.Module) -> torch.optim.Optimizer:
@@ -1551,7 +1939,7 @@ def bind(optimizer: Callable, module: torch.nn.Module) -> torch.optim.Optimizer:
 
     named = list(module.named_parameters())
     func = optimizer.func if isinstance(optimizer, functools.partial) else optimizer
-    if isinstance(func, type) and issubclass(func, (_OptaxRule, _Wrapper)):
+    if isinstance(func, type) and issubclass(func, _Node):
         names = flax_names([n for n, _ in named], getattr(module, "scan_layers", False))
         return optimizer(list(zip(names, [p for _, p in named])))
     return optimizer([p for _, p in named])

@@ -9,11 +9,13 @@ wrappers (whose plain twins run here; on the card they launch a kernel and
 make no host op), and allow only the reads of host tensors that wait for
 nothing: the sigma draw from the host generator. (The optimizers of
 `train/optim.py` keep their step count as a Python int; under
-`apply_if_finite` as a device tensor. Every rule's step is recorded alone
-below, and a train step with each kind of rule.)
+`apply_if_finite` and `MultiSteps` as a device tensor, and the tree-wide
+scalars of optax.contrib's rules stay device tensors. Every rule's step is
+recorded alone below, and a train step with each kind of rule.)
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -26,6 +28,8 @@ from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.train import distributions as dist
 from jamun_tpu_torch.train import loop, optim
+from jamun_tpu_torch.train import optim_contrib as contrib
+from jamun_tpu_torch.train import optim_transforms as transforms
 from jamun_tpu_torch.train.optim import adam
 from jamun_tpu_torch.train.state import create_train_state, make_train_step
 from jamun_tpu_torch.utils.testing import FixedBatches, RecordingLogger, make_test_batch
@@ -193,10 +197,61 @@ def test_fixed_noise_is_made_once():
 
 # every optimizer of `train/optim.py`, on E3Conv's parameters
 _RULE_ARGS = {"adadelta": {}, "adafactor": {}, "rprop": {"learning_rate": 1e-3}}
+
+
+def _kernels(tree):
+    """A callable mask of the port's parameter tree: the leaves of 2 axes."""
+    return {k: _kernels(v) if isinstance(v, dict) else v.ndim == 2 for k, v in tree.items()}
+
+
+def _labels(tree):
+    return {k: _labels(v) if isinstance(v, dict) else ("a" if v.ndim == 2 else "s")
+            for k, v in tree.items()}
+
+
+# the wrappers, combinators, optax.contrib's rules (the tree-wide scalars:
+# prodigy, dadapt_adamw, cocob, dog, dowg, mechanize, schedule_free) and a
+# few transforms alone
 _WRAPPED = {
     "MultiSteps": lambda: optim.MultiSteps(optim.adam(1e-3), 2),
     "apply_if_finite": lambda: optim.apply_if_finite(
         optim.adam(optim.warmup_cosine_decay_schedule(0.0, 1e-3, 2, 10)), 2),
+    "MultiSteps_skip_not_finite": lambda: optim.MultiSteps(
+        optim.adam(1e-3), 2, should_skip_update_fn=optim.skip_not_finite),
+    "MultiSteps_skip_large_updates": lambda: optim.MultiSteps(
+        optim.adam(1e-3), 2, should_skip_update_fn=functools.partial(
+            optim.skip_large_updates, max_squared_norm=1e6)),
+    "MultiSteps_of_apply_if_finite": lambda: optim.MultiSteps(
+        optim.apply_if_finite(optim.adam(1e-3), 2), 2),
+    "apply_if_finite_of_prodigy": lambda: optim.apply_if_finite(contrib.prodigy(), 2),
+    "masked": lambda: transforms.masked(optim.adamw(1e-3), _kernels),
+    "multi_transform": lambda: transforms.multi_transform(
+        {"a": optim.adamw(1e-3), "s": optim.sgd(1e-3, momentum=0.9)}, _labels),
+    "flatten": lambda: transforms.flatten(optim.adam(1e-3)),
+    "apply_every": lambda: transforms.apply_every(2),
+    "clip_by_global_norm": lambda: transforms.clip_by_global_norm(1.0),
+    "adaptive_grad_clip": lambda: transforms.adaptive_grad_clip(0.1),
+    "scale_by_lbfgs": lambda: transforms.scale_by_lbfgs(4),
+    "inject_hyperparams": lambda: transforms.inject_hyperparams(optim.adam)(
+        learning_rate=optim.linear_schedule(1e-3, 1e-4, 10)),
+    "acprop": lambda: contrib.acprop(1e-3),
+    "ademamix": lambda: contrib.ademamix(1e-3),
+    "simplified_ademamix": lambda: contrib.simplified_ademamix(1e-3),
+    "adopt": lambda: contrib.adopt(1e-3),
+    "cocob": contrib.cocob,
+    "dadapt_adamw": contrib.dadapt_adamw,
+    "dog": contrib.dog,
+    "dog_learning_rate": lambda: contrib.dog(init_step=("learning_rate", 1e-3)),
+    "dowg": contrib.dowg,
+    "muon": lambda: contrib.muon(1e-3),
+    "prodigy": contrib.prodigy,
+    "schedule_free_adamw": lambda: contrib.schedule_free_adamw(1e-3, warmup_steps=4),
+    "schedule_free_sgd": lambda: contrib.schedule_free_sgd(1e-3, weight_decay=1e-4),
+    "normalize": contrib.normalize,
+    "mechanize": lambda: contrib.mechanize(optim.adam(1e-3)),
+    "schedule_free": lambda: contrib.schedule_free(optim.sgd(1e-3), 1e-3),
+    "sam": lambda: contrib.sam(optim.sgd(1e-3), optim.sgd(1e-3)),
+    "split_real_and_imaginary": lambda: contrib.split_real_and_imaginary(optim.adam(1e-3)),
 }
 
 
@@ -235,7 +290,9 @@ def test_optimizer_steps_make_no_host_wait(name):
     assert all(torch.isfinite(p).all() for _, p in named)
 
 
-@pytest.mark.parametrize("name", ["adafactor", "lamb", "apply_if_finite", "MultiSteps"])
+@pytest.mark.parametrize("name", ["adafactor", "lamb", "apply_if_finite", "MultiSteps",
+                                  "MultiSteps_skip_not_finite", "prodigy", "muon",
+                                  "multi_transform"])
 def test_train_step_with_each_kind_of_rule_makes_no_host_wait(monkeypatch, name):
     """A whole `train_step` with a leaf-wise rule and with each wrapper."""
     den, tb = _model_and_batch()

@@ -10,10 +10,13 @@ each leaf's max (so the counts are placed where the bias correction and the
 schedule read them). Also: a bf16 leaf, chunked arrays, unknown bytes,
 optimizer states the port cannot place, and `config.pkl`'s unpickler. Then
 every rule of the port (the nine of optax's first slice, with their
-options, the rest of optax's rules, MultiSteps and apply_if_finite), each
-with a chained schedule, resumes from JAX's state after seven steps; the
-leaf-wise rules step a scanned E3Conv as JAX's; and lbfgs / polyak_sgd fail
-in JAX's train step and raise in the port."""
+options, the rest of optax's rules, MultiSteps and apply_if_finite, and a
+sample of optax.contrib's rules and the combinators built from configs),
+each with a chained schedule, resumes from JAX's state after seven steps;
+the leaf-wise rules, muon and the combinators step a scanned E3Conv as
+JAX's; and lbfgs / polyak_sgd fail in JAX's train step and raise in the
+port. (Every target of optax.contrib and the combinators resumes on a
+small tree in tests/test_torch_optim_targets.py.)"""
 
 import collections
 import functools
@@ -24,9 +27,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import optax.contrib
 import pytest
 import torch
 
+from jamun_tpu.config.instantiate import instantiate as j_instantiate
 from jamun_tpu.models.denoiser import Denoiser as JDenoiser, DenoiserConfig as JConfig
 from jamun_tpu.models.e3conv import E3Conv as JE3Conv
 from jamun_tpu.train import lr_schedules as jlr
@@ -35,10 +40,11 @@ from jamun_tpu.train.state import TrainState as JTrainState
 from jamun_tpu.train.state import create_train_state as j_create_train_state
 from jamun_tpu.utils.testing import make_test_batch as j_make_test_batch
 from jamun_tpu_torch.cmdline.sample import load_config_pickle
+from jamun_tpu_torch.config.instantiate import instantiate
 from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from jamun_tpu_torch.models.e3conv import E3Conv
 from jamun_tpu_torch.params import from_jax_params, load_jax_train_state
-from jamun_tpu_torch.train import lr_schedules, optim
+from jamun_tpu_torch.train import lr_schedules, optim, optim_contrib, optim_transforms
 from jamun_tpu_torch.train.checkpoints import (
     checkpoint_format,
     read_flax_msgpack,
@@ -337,7 +343,50 @@ def _cases() -> dict:
     out["apply_if_finite_lamb_2"] = (
         lambda params=None: optax.apply_if_finite(optax.lamb(LR), 2),
         lambda params=None: optim.apply_if_finite(optim.lamb(LR), 2), 3)
+
+    # optax.contrib and the combinators, each built by both resolvers from one
+    # config (masks and labels: trees of JAX's parameter names, as a YAML gives
+    # them); muon resumes in tests/test_torch_optim_targets.py (its Newton-Schulz
+    # takes JAX over a minute here, op by op) and steps a scanned E3Conv below
+    def config(make):
+        return (lambda params=None: j_instantiate(make(params))(),
+                lambda params=None: instantiate(make(params))(), None)
+
+    def labels(params):
+        return jax.tree_util.tree_map_with_path(
+            lambda path, x: "a" if x.ndim == 2 else "s", params)
+
+    adamw = {"_target_": "optax.adamw", "learning_rate": LR, "weight_decay": 1e-2}
+    sgd = {"_target_": "optax.sgd", "learning_rate": LR, "momentum": 0.9}
+    for name, make in {
+        "contrib_prodigy": lambda p: _opt("optax.contrib.prodigy", estim_lr0=1e-3),
+        "contrib_dadapt_adamw": lambda p: _opt("optax.contrib.dadapt_adamw", estim_lr0=1e-3),
+        "contrib_schedule_free_adamw": lambda p: _opt("optax.contrib.schedule_free_adamw",
+                                                      learning_rate=LR, warmup_steps=3),
+        "contrib_mechanize": lambda p: _opt("optax.contrib.mechanize",
+                                            base_optimizer={"_target_": "optax.adam",
+                                                            "learning_rate": LR}),
+        "contrib_dog": lambda p: _opt("optax.contrib.dog"),
+        "contrib_cocob": lambda p: _opt("optax.contrib.cocob", learning_rate=0.1),
+        "contrib_sam": lambda p: _opt("optax.contrib.sam", optimizer=sgd, adv_optimizer=sgd,
+                                      sync_period=3),
+        "masked": lambda p: _opt("optax.masked", inner=adamw, mask=_mask_tree(p)),
+        "multi_transform": lambda p: _opt("optax.multi_transform",
+                                          transforms={"a": adamw, "s": sgd},
+                                          param_labels=labels(p)),
+        "flatten": lambda p: _opt("optax.flatten", inner={"_target_": "optax.adam",
+                                                          "learning_rate": LR}),
+        "inject_hyperparams": lambda p: {"_target_": "optax.inject_hyperparams", "inner_factory": {
+            "_target_": "optax.adam", "_partial_": True, "learning_rate": LR}},
+        "scale_by_rms": lambda p: _opt("optax.scale_by_rms", bias_correction=True),
+    }.items():
+        out[name] = config(make)
     return out
+
+
+def _opt(target: str, **kwargs) -> dict:
+    """`model.optim` as a config names it: `_partial_: true`."""
+    return {"_target_": target, "_partial_": True, **kwargs}
 
 
 CASES = _cases()
@@ -396,7 +445,8 @@ def test_every_rule_resumes_from_a_jax_state_after_seven_steps(name, tmp_path, m
     assert state.step == 7
     group = state.optimizer.param_groups[0]
     want_count = {"MultiSteps_adam_3": 2, "apply_if_finite_lamb_2": 6}.get(name, 7)
-    assert int(group["count"]) == want_count, (group["count"], want_count)
+    if "count" in group:  # a rule's own (a combinator's rules keep theirs under a prefix)
+        assert int(group["count"]) == want_count, (group["count"], want_count)
 
     updates, _ = tx.update(grads[7], opt_state, params)
     want = _flat(optax.apply_updates(params, updates))
@@ -456,7 +506,35 @@ SCANNED_RULES = {
                  lambda: optim.novograd(LR, weight_decay=1e-3)),
     "lars": (lambda: optax.lars(LR, weight_decay=1e-3), lambda: optim.lars(LR, weight_decay=1e-3)),
     "fromage": (lambda: optax.fromage(LR), lambda: optim.fromage(LR)),
+    # flax's leaves decide muon's labels (a stacked kernel has 3 axes: Adam; a
+    # stacked bias 2: Newton-Schulz on the stack), the masks and flatten's order
+    "contrib_muon": (lambda: optax.contrib.muon(LR), lambda: optim_contrib.muon(LR)),
+    "selective_transform": (
+        lambda: optax.selective_transform(optax.adamw(LR), freeze_mask=_stacked_kernels()),
+        lambda: optim_transforms.selective_transform(optim.adamw(LR),
+                                                     freeze_mask=_stacked_kernels())),
+    "multi_transform": (
+        lambda: optax.multi_transform(
+            {"a": optax.lamb(LR), "s": optax.sgd(LR, momentum=0.9)},
+            lambda p: jax.tree.map(lambda x: "a" if x.ndim == 3 else "s", p)),
+        lambda: optim_transforms.multi_transform(
+            {"a": optim.lamb(LR), "s": optim.sgd(LR, momentum=0.9)}, _three_axes_label)),
+    "flatten": (lambda: optax.flatten(optax.adam(LR)),
+                lambda: optim_transforms.flatten(optim.adam(LR))),
+    "contrib_prodigy": (lambda: optax.contrib.prodigy(estim_lr0=1e-3),
+                        lambda: optim_contrib.prodigy(estim_lr0=1e-3)),
 }
+
+
+def _stacked_kernels() -> dict:
+    """A freeze mask (a tree of bools, as a config gives it): the scanned
+    layers' stacked kernels (3 axes)."""
+    return jax.tree.map(lambda x: bool(x.ndim == 3), _scanned_jax()[0])
+
+
+def _three_axes_label(tree):
+    return {k: _three_axes_label(v) if isinstance(v, dict) else ("a" if v.ndim == 3 else "s")
+            for k, v in tree.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -80,7 +80,7 @@ def test_defaults_and_missing_gradients():
                                              mu_dtype=None, nesterov=False)
     assert optim.adagrad(1e-3).keywords == dict(lr=1e-3, initial_accumulator_value=0.1, eps=1e-7)
     with pytest.raises(NotImplementedError, match="queue A, 'Other config targets'"):
-        instantiate({"_target_": "optax.masked", "_partial_": True, "learning_rate": 1e-3})
+        instantiate({"_target_": "optax.contrib.schedule_free_eval_params", "_partial_": True})
 
     init = np.linspace(-1, 1, 6, dtype=np.float32)
     tx = optax.adamw(1e-2)
@@ -514,9 +514,12 @@ def test_sm3_refuses_a_scalar_leaf():
 def test_resolver_maps_every_listed_optax_target():
     """Every optax target of the port's table resolves to its counterpart in
     `train/optim.py` (by `_partial_` factory, as a config names it): the 28
-    rules, the 14 schedules and the two wrappers. An unlisted one names
-    'Other config targets'; lbfgs and polyak_sgd, which need the loss in
-    their update, name their own item."""
+    rules, the 14 schedules and the two wrappers. `chain`, `named_chain`
+    and `lookahead`, which JAX's trainer cannot run either, name their
+    shared item; a name outside the table (a utility) names 'Other config
+    targets'; lbfgs and polyak_sgd, which need the loss in their update,
+    name their own item. (The transforms, combinators and optax.contrib:
+    `tests/test_torch_optim_targets.py`.)"""
     from jamun_tpu_torch.config.instantiate import locate
 
     rules = optim.RULES
@@ -543,8 +546,10 @@ def test_resolver_maps_every_listed_optax_target():
     pc = instantiate({"_target_": "optax.piecewise_constant_schedule", "init_value": 1.0,
                       "boundaries_and_scales": {3: 0.5, 5: 0.5}})  # YAML's integer keys
     assert [pc(s) for s in (2, 3, 5)] == [1.0, 0.5, 0.25]
-    for name in ("optax.chain", "optax.masked", "optax.multi_transform", "optax.scale_by_adam",
-                 "optax.contrib.muon"):
+    for name in ("optax.chain", "optax.lookahead", "optax.named_chain"):
+        with pytest.raises(NotImplementedError, match="queue A, 'Targets JAX's trainer cannot run'"):
+            instantiate({"_target_": name, "_partial_": True, "learning_rate": 1e-3})
+    for name in ("optax.tree_map_params", "optax.contrib.schedule_free_eval_params"):
         with pytest.raises(NotImplementedError, match="queue A, 'Other config targets'"):
             instantiate({"_target_": name, "_partial_": True, "learning_rate": 1e-3})
     for name in ("optax.lbfgs", "optax.polyak_sgd"):
