@@ -41,6 +41,7 @@ from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.ops.neighbors import capped_neighbor_lists
 from jamun_tpu_torch.parallel.mesh import all_reduce_max, all_reduce_sum, global_graph_mean, randn_graphs
 from jamun_tpu_torch.sampling.mcmc import NeighborCachedScore
+from jamun_tpu_torch.utils.trace import span
 
 __all__ = ["DenoiserConfig", "Denoiser", "normalization_factors", "loss_weight", "masked_graph_mean"]
 
@@ -125,20 +126,22 @@ class Denoiser:
         return (xhat, tel) if with_telemetry else xhat
 
     def xhat(self, y: GraphBatch, sigma: float, with_telemetry: bool = False, nbr_cache=None):
-        pos = y.pos
-        if self.config.mean_center:
-            pos = mean_center(pos, y.node_mask)
-        xhat_pos = self.xhat_normalized(y.replace_pos(pos), sigma, with_telemetry, nbr_cache)
-        tel = {}
-        if with_telemetry:
-            xhat_pos, tel = xhat_pos
-        if self.config.mean_center:
-            xhat_pos = mean_center(xhat_pos, y.node_mask)
-        return (xhat_pos, tel) if with_telemetry else xhat_pos
+        with span("jamun.denoiser.xhat"):
+            pos = y.pos
+            if self.config.mean_center:
+                pos = mean_center(pos, y.node_mask)
+            xhat_pos = self.xhat_normalized(y.replace_pos(pos), sigma, with_telemetry, nbr_cache)
+            tel = {}
+            if with_telemetry:
+                xhat_pos, tel = xhat_pos
+            if self.config.mean_center:
+                xhat_pos = mean_center(xhat_pos, y.node_mask)
+            return (xhat_pos, tel) if with_telemetry else xhat_pos
 
     def score(self, y: GraphBatch, sigma: float) -> torch.Tensor:
         """score(y, sigma) = (xhat(y) - y) / sigma^2."""
-        return (self.xhat(y, sigma) - y.pos) / float(sigma) ** 2
+        with span("jamun.denoiser.score"):
+            return (self.xhat(y, sigma) - y.pos) / float(sigma) ** 2
 
     # ---- the sparse path's telemetry and Verlet lists (sampling side) ----
 

@@ -119,12 +119,18 @@ from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
 from jamun_tpu_torch.ops.sh import SH_IRREPS, spherical_harmonics
 from jamun_tpu_torch.parallel.mesh import all_gather, check_axis_name, gather_halo, resolve_group
 from jamun_tpu_torch.utils.device import resolve_device
+from jamun_tpu_torch.utils.trace import span
 
 __all__ = [
     "E3Conv", "irreps_to_vector", "vector_to_irreps", "neighbor_mode_auto", "compute_dtype",
     "kernel_structure", "EDGE_FEATURE_ATOMS",
 ]
 
+# the profiler's name of each way through `forward` (module docstring)
+_FORWARD_SPAN = {
+    r: "jamun.e3conv.forward:" + r
+    for r in ("stack", "layerwise", "tiled", "plain", "plane", "sparse", "sharded")
+}
 # "auto" neighbour mode: from these atom counts on JAX takes the sparse
 # capped-neighbour path (`jamun_tpu/models/e3conv.py:38-44`)
 _NBR_AUTO_TRAIN_N = 256
@@ -441,16 +447,21 @@ class E3Conv(nn.Module):
         if self.neighbor_mode == "nbr" or (
             self.neighbor_mode == "auto" and neighbor_mode_auto(N, wants_grad)
         ):
-            kernel = self.kernels and not wants_grad
-            edges, overflow = self._sparse_edges(batch, radial_cutoff, nbr_cache, kernel)
-            out = self._standard_forward(batch, c_noise, edges, kernel)
+            with span(_FORWARD_SPAN["sparse"]):
+                kernel = self.kernels and not wants_grad
+                edges, overflow = self._sparse_edges(batch, radial_cutoff, nbr_cache, kernel)
+                out = self._standard_forward(batch, c_noise, edges, kernel)
             if overflow is not None:
                 tel["neighbor_overflow"] = overflow
         elif self.pallas_variant == "plane":
-            kernel = self.kernels and not wants_grad
-            out = self._standard_forward(batch, c_noise, self._plain_edges(batch, radial_cutoff), kernel)
+            with span(_FORWARD_SPAN["plane"]):
+                kernel = self.kernels and not wants_grad
+                out = self._standard_forward(
+                    batch, c_noise, self._plain_edges(batch, radial_cutoff), kernel)
         else:
-            out = self._dense_forward(batch, c_noise, radial_cutoff, wants_grad)
+            regime = self._dense_regime(batch, c_noise, wants_grad)
+            with span(_FORWARD_SPAN[regime]):
+                out = self._dense_forward(batch, c_noise, radial_cutoff, regime)
         return (out, tel) if with_telemetry else out
 
     def sharded_forward(self, batch: GraphBatch, c_noise, radial_cutoff, group):
@@ -470,20 +481,21 @@ class E3Conv(nn.Module):
         )
         n_total = n_loc * world
         tel = {}
-        if self.neighbor_mode == "nbr" or (
-            self.neighbor_mode == "auto" and neighbor_mode_auto(n_total, self._wants_grad(batch))
-        ):
-            edges, overflow = neighbor_edge_data(
-                batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
-                radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh),
-                self._attr_fn(radial_cutoff), cap=self.neighbor_cap,
-                bond0_embed=self.embed_bondedness[0], **sharded,
-            )
-            tel["neighbor_overflow"] = overflow
-        else:
-            edges = self._plain_edges(batch, radial_cutoff, **sharded)
-        edges = dataclasses.replace(edges, atom_axis=group)
-        return self._standard_forward(batch, c_noise, edges, False), tel
+        with span(_FORWARD_SPAN["sharded"]):
+            if self.neighbor_mode == "nbr" or (
+                self.neighbor_mode == "auto" and neighbor_mode_auto(n_total, self._wants_grad(batch))
+            ):
+                edges, overflow = neighbor_edge_data(
+                    batch.pos, batch.node_mask, batch.bond_src, batch.bond_dst, batch.bond_mask,
+                    radial_cutoff, functools.partial(spherical_harmonics, self.irreps_sh),
+                    self._attr_fn(radial_cutoff), cap=self.neighbor_cap,
+                    bond0_embed=self.embed_bondedness[0], **sharded,
+                )
+                tel["neighbor_overflow"] = overflow
+            else:
+                edges = self._plain_edges(batch, radial_cutoff, **sharded)
+            edges = dataclasses.replace(edges, atom_axis=group)
+            return self._standard_forward(batch, c_noise, edges, False), tel
 
     def _embed(self, batch: GraphBatch, c_noise: torch.Tensor) -> torch.Tensor:
         return self.NoiseConditionalScaling_0(self.embedder(batch), c_noise)
@@ -527,29 +539,34 @@ class E3Conv(nn.Module):
             cap=self.neighbor_cap, bond0_embed=bond0, cache=nbr_cache,
         )
 
-    def _dense_forward(self, batch, c_noise, radial_cutoff, wants_grad):
+    def _dense_regime(self, batch, c_noise, wants_grad) -> str:
+        """The dense path this call takes: "stack" (K3), "layerwise" (K1 and
+        K2, up to 128 atoms), "tiled" (K5, above) or "plain"."""
         N = batch.pos.shape[1]
-        on_card = batch.pos.device.type == "cuda"
-        stack = self._stack_ok(batch, c_noise)
         supported = self.kernels and self.kernel_path_supported(N)
-        # the training dispatch (JAX's `e3conv.py:333-338`): a call that wants
-        # a gradient above 128 atoms takes the plain path wholesale, unless
-        # `tiled_kernel_training` lets it take K5 with its recomputed backward
-        kernels = self.kernels and supported and not (
-            wants_grad and N > EDGE_FEATURE_ATOMS and not self.tiled_kernel_training
-        )
-        if on_card and self.kernels and not supported:
+        if batch.pos.device.type == "cuda" and self.kernels and not supported:
             raise NotImplementedError(
                 f"N={N}, edge_attr_dim={self.edge_attr_dim}, hidden {self.irreps_hidden}, "
                 f"output {self.irreps_out}: outside the layerwise kernels (edge_attr_dim 64, "
                 f"radial width <= {k2.MAX_WIDTH}); see "
                 "ROADMAP.md queue A, 'Kernel shapes outside the configurations'"
             )
+        if self._stack_ok(batch, c_noise):
+            return "stack"
+        # the training dispatch (JAX's `e3conv.py:333-338`): a call that wants
+        # a gradient above 128 atoms takes the plain path wholesale, unless
+        # `tiled_kernel_training` lets it take K5 with its recomputed backward
+        if not supported or (wants_grad and N > EDGE_FEATURE_ATOMS and not self.tiled_kernel_training):
+            return "plain"
+        return "layerwise" if N <= EDGE_FEATURE_ATOMS else "tiled"
+
+    def _dense_forward(self, batch, c_noise, radial_cutoff, regime: str):
         x = self._embed(batch, c_noise)
         mask = batch.node_mask[..., None].to(torch.float32)
-        if stack:
+        if regime == "stack":
             x = k3.e3conv_stack(*self._stack_args(batch, x, c_noise, float(radial_cutoff)))
             return x * self.output_gain * mask
+        kernels = regime != "plain"
         if kernels:
             block = self._kernel_block(batch, float(radial_cutoff))
         else:

@@ -18,6 +18,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from jamun_tpu_torch.utils.trace import span
+
 __all__ = ["CudaKernel", "build_all", "library_path", "BUILD_DIR", "CSRC", "SOURCES"]
 
 PKG = Path(__file__).resolve().parents[2]
@@ -101,6 +103,7 @@ class CudaKernel:
         self.entries = entries
         self.launches = 0
         self._lib = None
+        self._span = "jamun.kernel:" + name
 
     def fn(self, entry: str):
         if self._lib is None:
@@ -115,8 +118,10 @@ class CudaKernel:
 
     def launch(self, entry: str, *args) -> None:
         """Call a C entry point (which launches the kernel on the given stream)
-        and count the launch; raises on a CUDA error code."""
-        err = self.fn(entry)(*args)
+        and count the launch; raises on a CUDA error code. Under a profiler
+        the call is the span `jamun.kernel:<name>`."""
+        with span(self._span):
+            err = self.fn(entry)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{entry} failed with CUDA error {err}")
         self.launches += 1

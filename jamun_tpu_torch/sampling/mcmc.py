@@ -30,6 +30,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from jamun_tpu_torch.parallel.mesh import randn_graphs
+from jamun_tpu_torch.utils.trace import span
 
 __all__ = [
     "MCMCConfig", "BAOAB", "ABOBA", "NeighborCachedScore", "VerletListScore",
@@ -160,21 +161,25 @@ class _SplittingSampler:
         if cached_score is not None:
             score_fn = VerletListScore(cached_score, y)
         processed = make_processed_score_fn(score_fn, cfg.inverse_temperature, cfg.score_fn_clip)
-        v = initialize_velocity(v_init, y, cfg.u, generator)
-        if mask is not None:
-            v = v * mask
-        carry = self._init_carry(y, v, processed)
-
         total = max(cfg.steps - 1, 0)
         first, every = cfg.first_save_step, cfg.save_every_n_steps
+        saved = lambda i: i >= first and (i - first) % every == 0  # noqa: E731
         ys, scores = [], []
-        for i in range(total + 1):
-            if i > 0:
+        with span("jamun.walk.start"):
+            v = initialize_velocity(v_init, y, cfg.u, generator)
+            if mask is not None:
+                v = v * mask
+            carry = self._init_carry(y, v, processed)
+            if saved(0):
+                ys.append(carry[0])
+                scores.append(self._initial_score(carry, processed))
+        for i in range(1, total + 1):
+            with span("jamun.walk.step"):
                 R = randn_graphs(y.shape, generator, y.dtype, y.device)
                 carry = self.step(carry, R * mask if mask is not None else R, processed)
-            if i >= first and (i - first) % every == 0:
-                ys.append(carry[0])
-                scores.append(carry[3] if i > 0 else self._initial_score(carry, processed))
+                if saved(i):
+                    ys.append(carry[0])
+                    scores.append(carry[3])
         if ys:
             y_traj, score_traj = torch.stack(ys), torch.stack(scores)
         else:

@@ -45,6 +45,7 @@ from jamun_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from jamun_tpu_torch.utils.device import resolve_device
+from jamun_tpu_torch.utils.trace import span
 
 __all__ = ["Sampler", "unbatch_samples"]
 
@@ -59,8 +60,9 @@ def unbatch_samples(samples: Dict[str, Any], init_graphs: GraphBatch) -> List[Di
     Trajectory arrays [frames, G, N, 3] become per-graph [atoms, frames, 3];
     final-state arrays [G, N, 3] become [atoms, 3]. Padding atoms are
     stripped, graphs with `graph_mask` false left out."""
-    node_mask, graph_mask = _host(init_graphs.node_mask), _host(init_graphs.graph_mask)
-    host = {k: _host(v) for k, v in samples.items() if hasattr(v, "shape")}
+    with span("jamun.host.wait:unbatch_copy"):
+        node_mask, graph_mask = _host(init_graphs.node_mask), _host(init_graphs.graph_mask)
+        host = {k: _host(v) for k, v in samples.items() if hasattr(v, "shape")}
     G = node_mask.shape[0]
     out: List[Dict[str, Any]] = []
     for g in range(G):
@@ -156,7 +158,9 @@ class Sampler:
 
         y_init, v_init = fresh_start(), "gaussian"
         sparse = denoiser.sparse_neighbors_active(pos.shape[1], training=False)
-        graph_mask, sigma = all_graphs.graph_mask.cpu().numpy(), batch_sampler.sigma
+        with span("jamun.host.wait:graph_mask"):
+            graph_mask = all_graphs.graph_mask.cpu().numpy()
+        sigma = batch_sampler.sigma
         self._call("on_sample_start", sampler=self)
         all_samples: List[List[Dict[str, Any]]] = []
         for batch_idx in range(num_batches):
@@ -164,35 +168,37 @@ class Sampler:
             for cb in self.callbacks:  # parameter callbacks change the MCMC settings per batch
                 if hasattr(cb, "update_sampler"):
                     batch_sampler = cb.update_sampler(batch_sampler, batch_idx)
-            chunked = getattr(batch_sampler, "offload_chunk_steps", 0) > 0
-            run = batch_sampler.sample_chunked if chunked else batch_sampler.sample
-            t0 = time.perf_counter()
-            out = run(denoiser, init_graphs, y_init, generator, v_init)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            elapsed = time.perf_counter() - t0
+            with span("jamun.sample.batch"):
+                chunked = getattr(batch_sampler, "offload_chunk_steps", 0) > 0
+                run = batch_sampler.sample_chunked if chunked else batch_sampler.sample
+                t0 = time.perf_counter()
+                out = run(denoiser, init_graphs, y_init, generator, v_init)
+                if self.device.type == "cuda":
+                    with span("jamun.host.wait:batch_sync"):
+                        torch.cuda.synchronize(self.device)
+                elapsed = time.perf_counter() - t0
 
-            if continue_chain:
-                y_init, v_init = out["y"], out["v"]
-            else:
-                y_init, v_init = fresh_start(), "gaussian"
+                if continue_chain:
+                    y_init, v_init = out["y"], out["v"]
+                else:
+                    y_init, v_init = fresh_start(), "gaussian"
 
-            if chains is not None:
-                out = _gather_chains(out, chains, self.device)
-            overflow = None
-            if sparse and rank() == 0:
-                with torch.no_grad():
-                    ov = denoiser.neighbor_overflow(
-                        all_graphs.replace_pos(out["y"]), sigma
-                    ).cpu().numpy()
-                ov = ov[graph_mask]
-                overflow = {
-                    "mean": float(ov.mean()) if ov.size else 0.0,
-                    "max": int(ov.max()) if ov.size else 0,
-                }
+                if chains is not None:
+                    out = _gather_chains(out, chains, self.device)
+                overflow = None
+                if sparse and rank() == 0:
+                    with torch.no_grad():
+                        ov = denoiser.neighbor_overflow(all_graphs.replace_pos(out["y"]), sigma)
+                    with span("jamun.host.wait:neighbor_overflow"):
+                        ov = ov.cpu().numpy()[graph_mask]
+                    overflow = {
+                        "mean": float(ov.mean()) if ov.size else 0.0,
+                        "max": int(ov.max()) if ov.size else 0,
+                    }
 
-            samples = unbatch_samples(out, all_graphs)
-            all_samples.append(samples)
+                with span("jamun.sample.unbatch"):
+                    samples = unbatch_samples(out, all_graphs)
+                all_samples.append(samples)
             self._call(
                 "on_after_sample_batch",
                 sample=samples,

@@ -26,6 +26,7 @@ import torch
 
 from jamun_tpu_torch.ops.graph import GraphBatch
 from jamun_tpu_torch.sampling.mcmc import BAOAB, _SplittingSampler
+from jamun_tpu_torch.utils.trace import span
 
 __all__ = ["SingleMeasurementSampler"]
 
@@ -62,7 +63,8 @@ class _HostFrames:
 
     def arrays(self) -> dict:
         if self.in_flight:
-            torch.cuda.synchronize()
+            with span("jamun.host.wait:chunk_drain"):
+                torch.cuda.synchronize()
         return {k: np.concatenate([p.numpy() for p in parts]) for k, parts in self.chunks.items()}
 
 
@@ -110,19 +112,20 @@ class SingleMeasurementSampler:
     def walk_jump(self, denoiser, init_graphs: GraphBatch, y_init: torch.Tensor,
                   generator: torch.Generator, v_init="gaussian"):
         out = self.walk(denoiser, init_graphs, y_init, generator, v_init)
-        xhat = denoiser.xhat(init_graphs.replace_pos(out["y"]), self.sigma)
-        y_traj = out["y_traj"]  # [F, G, N, 3]
-        if y_traj.shape[0] == 0:
-            xhat_traj = torch.zeros_like(y_traj)
-        elif self.fused_jump and isinstance(self.mcmc, BAOAB):
-            xhat_traj = y_traj + (self.sigma**2) * out["score_traj"]
-        else:
-            chunk = self.jump_chunk_size or y_traj.shape[0]
-            parts: List[torch.Tensor] = []
-            for frames in y_traj.split(chunk):
-                jumped = denoiser.xhat(_fold_frames(init_graphs, frames), self.sigma)
-                parts.append(jumped.reshape(frames.shape))
-            xhat_traj = torch.cat(parts)
+        with span("jamun.walk.jump"):
+            xhat = denoiser.xhat(init_graphs.replace_pos(out["y"]), self.sigma)
+            y_traj = out["y_traj"]  # [F, G, N, 3]
+            if y_traj.shape[0] == 0:
+                xhat_traj = torch.zeros_like(y_traj)
+            elif self.fused_jump and isinstance(self.mcmc, BAOAB):
+                xhat_traj = y_traj + (self.sigma**2) * out["score_traj"]
+            else:
+                chunk = self.jump_chunk_size or y_traj.shape[0]
+                parts: List[torch.Tensor] = []
+                for frames in y_traj.split(chunk):
+                    jumped = denoiser.xhat(_fold_frames(init_graphs, frames), self.sigma)
+                    parts.append(jumped.reshape(frames.shape))
+                xhat_traj = torch.cat(parts)
         return {**out, "xhat": xhat, "xhat_traj": xhat_traj}
 
     def sample(self, denoiser, init_graphs: GraphBatch, y_init: torch.Tensor,

@@ -61,6 +61,7 @@ from jamun_tpu_torch.train.state import (
     make_train_step,
 )
 from jamun_tpu_torch.utils.device import resolve_device
+from jamun_tpu_torch.utils.trace import span
 
 log = logging.getLogger("jamun_tpu_torch")
 
@@ -146,20 +147,15 @@ class Trainer:
             if stop:
                 break
             for batch in datamodule.train_batches(epoch):
-                batch = self._prep(batch)
-                state, aux = train_step(state, batch)
-                step = state.step
-                samples_seen += batch.pos.shape[0] * (self._dp_mesh.size if self._dp_mesh else 1)
-                if step % cfg.log_every_n_steps == 0 and self.writer:
-                    host_aux = {k: float(v) for k, v in aux.items()}
-                    if self.diagnostics:
-                        self.diagnostics.update(host_aux, step)
-                    metrics = {f"train/{k}": v for k, v in host_aux.items()}
-                    elapsed = time.perf_counter() - t_start
-                    metrics["train/samples_per_sec"] = samples_seen / elapsed
-                    metrics["train/steps_per_sec"] = step / elapsed
-                    metrics["epoch"] = epoch
-                    self.logger.log_metrics(metrics, step)
+                with span("jamun.train.step"):
+                    with span("jamun.train.to_device"):
+                        batch = self._prep(batch)
+                    state, aux = train_step(state, batch)
+                    step = state.step
+                    samples_seen += batch.pos.shape[0] * (self._dp_mesh.size if self._dp_mesh else 1)
+                    if step % cfg.log_every_n_steps == 0 and self.writer:
+                        with span("jamun.train.log"):
+                            self._log(aux, step, epoch, samples_seen, t_start)
                 if cfg.val_every_n_steps and step % cfg.val_every_n_steps == 0:
                     stop = self._validate(state, eval_step, datamodule, denoiser) or stop
                 if cfg.max_steps and step >= cfg.max_steps:
@@ -173,6 +169,20 @@ class Trainer:
         if self.writer:
             self.logger.finalize()
         return state
+
+    def _log(self, aux, step: int, epoch: int, samples_seen: int, t_start: float) -> None:
+        """The log step's metrics: the step's aux read on the host, the
+        throughput since `fit` started."""
+        with span("jamun.host.wait:log_read"):
+            host_aux = {k: float(v) for k, v in aux.items()}
+        if self.diagnostics:
+            self.diagnostics.update(host_aux, step)
+        metrics = {f"train/{k}": v for k, v in host_aux.items()}
+        elapsed = time.perf_counter() - t_start
+        metrics["train/samples_per_sec"] = samples_seen / elapsed
+        metrics["train/steps_per_sec"] = step / elapsed
+        metrics["epoch"] = epoch
+        self.logger.log_metrics(metrics, step)
 
     def _dispatch(self, datamodule, mesh):
         """JAX's dispatch on the mesh: whether the steps shard atoms

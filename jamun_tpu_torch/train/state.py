@@ -34,6 +34,7 @@ from jamun_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, global_graph_m
 from jamun_tpu_torch.train.ema import ema_init, ema_update
 from jamun_tpu_torch.train.optim import bind
 from jamun_tpu_torch.utils.device import resolve_device
+from jamun_tpu_torch.utils.trace import span
 
 __all__ = [
     "TrainState", "create_train_state", "make_train_step", "make_eval_step", "global_norm",
@@ -108,14 +109,20 @@ def make_train_step(
         sigma = float(sigma_distribution.sample(state.host_generator))
         params = list(state.module.parameters())
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = denoiser.training_loss(batch, sigma, state.generator, loss_mesh)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_grads(params, mesh)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        gnorm = global_norm(grads)
-        state.optimizer.step()
-        ema_update(list(state.ema.parameters()), params, ema_decay)
+        with span("jamun.train.forward"):
+            loss, aux = denoiser.training_loss(batch, sigma, state.generator, loss_mesh)
+        with span("jamun.train.backward"):
+            loss.backward()
+        if mesh is not None and mesh.distributed:
+            with span("jamun.train.all_reduce"):
+                all_reduce_grads(params, mesh)
+        with span("jamun.train.grad_norm"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            gnorm = global_norm(grads)
+        with span("jamun.train.optimizer"):
+            state.optimizer.step()
+        with span("jamun.train.ema"):
+            ema_update(list(state.ema.parameters()), params, ema_decay)
         state.step += 1
         aux = {k: v.detach() for k, v in aux.items()}
         aux["sigma"] = torch.tensor(sigma)
