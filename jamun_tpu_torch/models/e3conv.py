@@ -7,8 +7,12 @@ names (`ConvBlock_0`, `_HiddenLayer_k`, `EquivariantMLP_0`, ...), so
 
 `tensor_product` is JAX's, "uvw" by default: e3nn's fully connected product
 (`ops/tensor_product.py`) and the experimental product
-(`ops/experimental_tp.py`) run JAX's generic dense or sparse path on either
-device, as every kernel route in JAX is gated on "uvu". Whether a model may
+(`ops/experimental_tp.py`) run the library ops on either device, dense or
+sparse, as every kernel route in JAX is gated on "uvu". Their messages are
+computed on the live radial pairs alone: each forward compacts the pairs
+once (`ops/graph.edge_pairs`, one host wait) for every layer to share
+(`pair_lists`; a model whose every product has the fast uvu shape never
+compacts). Whether a model may
 take the kernels is decided once, at construction, from its structure, by
 JAX's gates (`jamun_tpu/models/e3conv.py:501-575`, `jamun_tpu/ops/conv.py:
 77-92, 175-183`): the uvu product, hidden irreps `Sx0e + Vx1e` (V > 0), SH
@@ -104,14 +108,14 @@ from jamun_tpu_torch.models.noise_conditioning import (
     NoiseConditionalScaling,
     NoiseConditionalSkipConnection,
 )
-from jamun_tpu_torch.ops.conv import PALLAS_VARIANTS, ConvBlock
+from jamun_tpu_torch.ops.conv import PALLAS_VARIANTS, ConvBlock, takes_pair_list
 from jamun_tpu_torch.ops.cuda import conv_block as k2
 from jamun_tpu_torch.ops.cuda import e3_stack as k3
 from jamun_tpu_torch.ops.cuda import fused_block_tiled as k5
 from jamun_tpu_torch.ops.cuda.conv_block import EDGE_FEATURE_ATOMS
 from jamun_tpu_torch.ops.cuda.edge_features import edge_features
 from jamun_tpu_torch.ops.cuda.nbr_edge_features import nbr_edge_features
-from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data
+from jamun_tpu_torch.ops.graph import GraphBatch, dense_edge_data, edge_pairs
 from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.mlp import EquivariantMLP, xla_sigmoid
 from jamun_tpu_torch.ops.neighbors import neighbor_edge_data
@@ -316,6 +320,9 @@ class E3Conv(nn.Module):
             self.irreps_hidden, self.irreps_out, [self.irreps_hidden]
         )
         self.output_gain = nn.Parameter(torch.zeros(()))
+        # a product without the fast uvu shape computes a message per live
+        # pair: one list of them a forward, shared by every layer
+        self.pair_lists = takes_pair_list(self)
         if seed is not None:
             self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
@@ -495,15 +502,17 @@ class E3Conv(nn.Module):
             else:
                 edges = self._plain_edges(batch, radial_cutoff, **sharded)
             edges = dataclasses.replace(edges, atom_axis=group)
-            return self._standard_forward(batch, c_noise, edges, False), tel
+            return self._standard_forward(batch, c_noise, edges, False, n_total), tel
 
     def _embed(self, batch: GraphBatch, c_noise: torch.Tensor) -> torch.Tensor:
         return self.NoiseConditionalScaling_0(self.embedder(batch), c_noise)
 
-    def _standard_forward(self, batch, c_noise, edges, kernel: bool):
+    def _standard_forward(self, batch, c_noise, edges, kernel: bool, n_src: Optional[int] = None):
         """Every ConvBlock the standard block on `edges`, `kernel` passed to
-        each `Conv`, and the plain head: the sparse path, and the dense path
-        under `pallas_variant="plane"`."""
+        each `Conv`, and the plain head: the sparse path, the dense path
+        under `pallas_variant="plane"` and the sharded path (`n_src` source
+        rows a graph, the batch's own by default)."""
+        edges = self._with_pairs(edges, n_src or batch.pos.shape[1])
         block = lambda blk, h: blk(h, edges, kernel)  # noqa: E731
         x = block(self.ConvBlock_0, self._embed(batch, c_noise))
         for layer in self._hidden_layers():
@@ -570,7 +579,7 @@ class E3Conv(nn.Module):
         if kernels:
             block = self._kernel_block(batch, float(radial_cutoff))
         else:
-            edges = self._plain_edges(batch, radial_cutoff)
+            edges = self._with_pairs(self._plain_edges(batch, radial_cutoff), batch.pos.shape[1])
             block = lambda blk, h: blk(h, edges)  # noqa: E731
         x = block(self.ConvBlock_0, x)
         for layer in self._hidden_layers():
@@ -626,6 +635,13 @@ class E3Conv(nn.Module):
             )
         bond0, bond1 = self.embed_bondedness[0], self.embed_bondedness[1]
         return lambda blk, h: blk.fused(h, geometry, bond0, bond1, cdt)
+
+    def _with_pairs(self, edges, n_src: int):
+        """`edges` with its live radial pairs (`ops/graph.edge_pairs`) where
+        the model's product needs them (`pair_lists`), else as it is."""
+        if not self.pair_lists:
+            return edges
+        return dataclasses.replace(edges, pairs=edge_pairs(edges, n_src))
 
     def _attr_fn(self, radial_cutoff):
         """attr_fn(dist, bonded) -> [..., edge_attr_dim]: the bondedness

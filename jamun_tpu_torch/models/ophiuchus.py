@@ -18,6 +18,7 @@ JAX parameter tree onto this module one to one.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Tuple, Union
 
@@ -31,9 +32,9 @@ from jamun_tpu_torch.models.noise_conditioning import (
     NoiseConditionalSkipConnection,
 )
 from jamun_tpu_torch.ops.cg import real_wigner_3j
-from jamun_tpu_torch.ops.conv import ConvBlock
+from jamun_tpu_torch.ops.conv import ConvBlock, takes_pair_list
 from jamun_tpu_torch.ops.gate import Gate
-from jamun_tpu_torch.ops.graph import EdgeData, GraphBatch
+from jamun_tpu_torch.ops.graph import EdgeData, GraphBatch, edge_pairs
 from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 from jamun_tpu_torch.ops.radial import soft_one_hot_linspace
@@ -187,6 +188,7 @@ class Ophiuchus(nn.Module):
         self.IrrepsLinear_2 = IrrepsLinear(  # each atom's offset from it
             self.irreps_hidden, Irreps([(P * mi.mul, mi.ir) for mi in self.irreps_out])
         )
+        self.pair_lists = takes_pair_list(self)
         if seed is not None:
             self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
@@ -254,6 +256,8 @@ class Ophiuchus(nn.Module):
         features = self.IrrepsLinear_0(torch.cat(feats, dim=-1))
 
         edges = self._residue_edges(base, batch.residue_mask, radial_cutoff, features.dtype)
+        if self.pair_lists:  # one list of live residue pairs for every layer
+            edges = dataclasses.replace(edges, pairs=edge_pairs(edges))
         for k in range(self.n_layers):
             new = getattr(self, f"SelfInteraction_{k}")(features, c_noise)
             new = getattr(self, f"ConvBlock_{k}")(new, edges)

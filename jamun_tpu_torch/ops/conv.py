@@ -14,10 +14,11 @@ product of `Sx0e (+ Vx1e)` with `1x0e + 1x1e` is JAX's fast shape
 (`_fast_uvu_supported`, `jamun_tpu/ops/conv.py:175-183`): its messages come
 from the closed form of `ops/fast_uvu.py`, on the kernels below where the
 caller allows them. Every other product, uvu of any l included, runs
-JAX's generic path on either device (`jamun_tpu/ops/conv.py:253-262,
-353-364`): the radial MLP's weights per path (`_path_weights`) and the
-product's einsums, as every kernel route of JAX's `Conv` is gated on the
-fast uvu shape.
+the library ops on either device, as every kernel route of JAX's `Conv` is
+gated on the fast uvu shape: the radial MLP's weights per path
+(`_path_weights`) and the product's einsums, on the live radial pairs alone
+(`_tp_messages`, `ops/graph.live_pairs`), where JAX's generic path computes
+every slot and masks the sum (`jamun_tpu/ops/conv.py:253-262, 353-364`).
 
 `Conv.forward(x, edges, kernel)`: the caller sets `kernel` for a call that
 may take the hand-written kernels (on the card; their plain twins on the
@@ -81,18 +82,17 @@ from jamun_tpu_torch.ops.fast_uvu import (
     uvu_messages,
 )
 from jamun_tpu_torch.ops.gate import Gate
-from jamun_tpu_torch.ops.graph import EdgeData
+from jamun_tpu_torch.ops.graph import EdgeData, edge_pairs
 from jamun_tpu_torch.ops.irreps import Irreps
 from jamun_tpu_torch.ops.linear import IrrepsLinear
 from jamun_tpu_torch.ops.mlp import ScalarMLP
-from jamun_tpu_torch.ops.neighbors import gather_neighbors
 from jamun_tpu_torch.ops.sh import SH_IRREPS
 from jamun_tpu_torch.parallel.mesh import gather_halo
 from jamun_tpu_torch.ops.tensor_product import depthwise_tp, fully_connected_tp
 
 __all__ = [
     "Conv", "SeparableConv", "ExperimentalConv", "ConvBlock", "depthwise_irreps",
-    "PALLAS_VARIANTS", "TENSOR_PRODUCTS",
+    "takes_pair_list", "PALLAS_VARIANTS", "TENSOR_PRODUCTS",
 ]
 
 PALLAS_VARIANTS = ("packed", "plane")  # JAX's `pallas_variant`
@@ -118,6 +118,12 @@ def depthwise_irreps(irreps_in, irreps_out):
     if V:
         blocks += [(V, "1e"), (V, "0e"), (V, "1e")]
     return Irreps(blocks)
+
+
+def takes_pair_list(model: nn.Module) -> bool:
+    """Whether a `Conv` of `model` computes its messages on the live pairs
+    (`Conv._tp_messages`): a product without the fast uvu shape."""
+    return any(isinstance(m, Conv) and not m.fast_uvu for m in model.modules())
 
 
 class Conv(nn.Module):
@@ -225,22 +231,23 @@ class Conv(nn.Module):
     def _tp_messages(self, src: torch.Tensor, edges: EdgeData, out_dtype):
         """The summed messages and the degree of the radial edges through
         `self.tp` (any product but the fast uvu shape) from the source
-        features `src`: JAX's generic dense path
-        (`jamun_tpu/ops/conv.py:353-364`), or its generic sparse path on a
-        capped list (`:253-262`). The sums accumulate in `out_dtype`, as
-        `preferred_element_type` asks there."""
-        cdt, x = src.dtype, src
-        if edges.nbr_idx is None:
-            w = self._path_weights(edges.attr_dense.to(cdt))  # [G, dst, src, *] per path
-            G, N_src, D = x.shape
-            N = edges.adj.shape[1]
-            msg = self.tp(x[:, None].expand(G, N, N_src, D), edges.sh_dense.to(cdt), w)
-            out = torch.einsum("gijd,gij->gid", msg.to(out_dtype), edges.adj.to(out_dtype))
-            return out, edges.adj.sum(-1)
-        w = self._path_weights(edges.attr_nbr.to(cdt))  # [G, N, K, *] per path
-        msg = self.tp(gather_neighbors(x, edges.nbr_idx), edges.sh_nbr.to(cdt), w)
-        out = torch.einsum("gnkd,gnk->gnd", msg.to(out_dtype), edges.nbr_mask.to(out_dtype))
-        return out, edges.nbr_mask.sum(-1)
+        features `src`, on the live pairs alone: those `edges.pairs` holds,
+        else compacted here (`ops/graph.edge_pairs`). Either layout, dense
+        or capped (JAX's generic paths, `jamun_tpu/ops/conv.py:253-262,
+        353-364`, which compute every slot and mask the sum), gives the
+        same steps: each pair's source row, radial weights and message,
+        then a segment sum over the dst-major rows, deterministic on either
+        device. A slot the mask drops adds an exact 0 there, so only the
+        order of the f32 sums differs. The sums accumulate in `out_dtype`,
+        as `preferred_element_type` asks there."""
+        cdt = src.dtype
+        G, N_src, D = src.shape
+        pairs = edges.pairs if edges.pairs is not None else edge_pairs(edges, N_src)
+        mask = edges.adj if edges.nbr_idx is None else edges.nbr_mask
+        w = self._path_weights(pairs.attr.to(cdt))  # [P, *] per path
+        msg = self.tp(src.reshape(-1, D)[pairs.src], pairs.sh.to(cdt), w)
+        out = torch.segment_reduce(msg.to(out_dtype), "sum", lengths=pairs.rows, unsafe=True)
+        return out.reshape(G, mask.shape[1], -1), mask.sum(-1)
 
     def _wants_grad(self, x: torch.Tensor, edges: EdgeData) -> bool:
         inputs = (x, edges.pos, edges.bond0_embed, edges.bond1_embed)

@@ -52,7 +52,8 @@ def full_tensor_product(
             f2 = x2[..., sl2[i2]].reshape(batch + (mi2.mul, mi2.ir.dim))
             for ir3 in mi1.ir * mi2.ir:
                 C = _coupling(mi1.ir.l, mi2.ir.l, ir3.l, x1.dtype, x1.device)
-                blk = torch.einsum("...ui,...vj,ijk->...uvk", f1, f2, C)
+                # x2 with C first, as `WeightedTensorProduct` contracts
+                blk = torch.einsum("...ui,...vik->...uvk", f1, torch.einsum("...vj,ijk->...vik", f2, C))
                 blocks.append(blk.reshape(batch + (mi1.mul * mi2.mul * ir3.dim,)))
     return torch.cat(blocks, dim=-1), full_tensor_product_irreps(irreps1, irreps2)
 

@@ -3,7 +3,9 @@
 Graphs are padded to [G, N] dense tensors. The radial edge set is a masked
 N x N distance test recomputed from positions on every forward, or, on the
 sparse path, a capped list of K neighbours per atom (`ops/neighbors.py`);
-bonded edges are a small padded edge list [G, B].
+bonded edges are a small padded edge list [G, B]. `live_pairs` compacts
+either radial layout to the list of its live slots, for the products that
+compute a message per pair (`ops/conv.py`).
 """
 
 from __future__ import annotations
@@ -13,7 +15,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["GraphBatch", "EdgeData", "dense_edge_data", "self_pairs"]
+from jamun_tpu_torch.utils.trace import span
+
+__all__ = [
+    "GraphBatch", "EdgeData", "LivePairs", "PAIR_COUNTS", "dense_edge_data", "edge_pairs",
+    "live_pairs", "self_pairs",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +106,75 @@ class EdgeData:
     # the atom-sharded mode: the process group over which `Conv` gathers its
     # source features (the halo); the destination rows are this rank's
     atom_axis: Optional[object] = None
+    # the live radial pairs (`edge_pairs`), when the caller compacted them
+    # once for every layer
+    pairs: Optional["LivePairs"] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class LivePairs:
+    """The P live slots of a radial layout, dst-major (`live_pairs`), and
+    the edge features at them (`edge_pairs`)."""
+
+    slot: torch.Tensor  # [P] int64, flat index into the [G, N, N_src] or [G, N, K] slots
+    dst: torch.Tensor  # [P] int64, the destination row g * N + i, ascending
+    src: torch.Tensor  # [P] int64, the source row g * N_src + j
+    rows: torch.Tensor  # [G * N] int64, live slots per destination row
+    count: int  # P
+    sh: Optional[torch.Tensor] = None  # [P, 4]
+    attr: Optional[torch.Tensor] = None  # [P, A]
+
+
+class PairCounts:
+    """Cumulative host counts of `live_pairs`: the live pairs found and the
+    slots they were found among (live / slots is the share of the dense
+    work that the compact messages do)."""
+
+    def __init__(self):
+        self.live = 0
+        self.slots = 0
+
+
+PAIR_COUNTS = PairCounts()
+
+
+def live_pairs(
+    mask: torch.Tensor, nbr_idx: Optional[torch.Tensor] = None, n_src: Optional[int] = None
+) -> LivePairs:
+    """The live slots of the dense `adj` [G, N, N_src] or of the sparse
+    `nbr_mask` [G, N, K] with its `nbr_idx` (sources among `n_src` rows a
+    graph, N by default), in dst-major order. Their number sizes what
+    follows, so the host waits here for the device, once (the span
+    `jamun.host.wait:pair_compact`)."""
+    G, N, K = mask.shape
+    with span("jamun.host.wait:pair_compact"):
+        slot = torch.nonzero(mask.reshape(-1)).squeeze(1)
+    P = slot.shape[0]
+    PAIR_COUNTS.live += P
+    PAIR_COUNTS.slots += mask.numel()
+    dst = slot // K
+    graph = dst // N
+    if nbr_idx is None:
+        src = graph * K + slot % K
+    else:
+        src = graph * (N if n_src is None else n_src) + nbr_idx.reshape(-1)[slot]
+    rows = (mask.reshape(G * N, K) != 0).sum(-1)
+    return LivePairs(slot=slot, dst=dst, src=src, rows=rows, count=P)
+
+
+def edge_pairs(edges: EdgeData, n_src: Optional[int] = None) -> LivePairs:
+    """`live_pairs` of the radial layout `edges` holds, with its harmonics
+    and attributes gathered at the live slots; `n_src` as there (the sparse
+    layout's source rows a graph)."""
+    if edges.nbr_idx is None:
+        pairs, sh, attr = live_pairs(edges.adj), edges.sh_dense, edges.attr_dense
+    else:
+        pairs = live_pairs(edges.nbr_mask, edges.nbr_idx, n_src)
+        sh, attr = edges.sh_nbr, edges.attr_nbr
+    return dataclasses.replace(
+        pairs, sh=sh.reshape(-1, sh.shape[-1])[pairs.slot],
+        attr=attr.reshape(-1, attr.shape[-1])[pairs.slot],
+    )
 
 
 def self_pairs(pos: torch.Tensor, src_pos: torch.Tensor, dst_index: Optional[torch.Tensor]):

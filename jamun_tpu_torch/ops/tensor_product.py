@@ -1,8 +1,9 @@
 """Weighted Clebsch-Gordan tensor products on packed irreps tensors
 (counterpart of `jamun_tpu/ops/tensor_product.py:28-143`).
 
-Paths are built once, at construction; the call runs two einsums per path,
-the small CG contraction first:
+Paths are built once, at construction; the call runs three einsums per
+path, the small CG contraction first (x2 with C, then x1: the order
+opt_einsum picks, written out so that no call searches for it on the host):
 
     t[..., u, v, k] = sum_{i,j} C[i,j,k] x1[..., u, i] x2[..., v, j]
     out[..., w, k]  = path_weight * sum_{u,v} W[..., u, v, w] t[..., u, v, k]
@@ -135,7 +136,7 @@ class WeightedTensorProduct:
             f2 = x2[..., sl2[ins.i_in2]].reshape(batch_shape + (mi2.mul, mi2.ir.dim))
             C = self._coupling(mi1.ir.l, mi2.ir.l, mi3.ir.l, x1)
             w = w.reshape(w.shape[:-1] + ins.weight_shape)
-            t = torch.einsum("...ui,...vj,ijk->...uvk", f1, f2, C)
+            t = torch.einsum("...ui,...vik->...uvk", f1, torch.einsum("...vj,ijk->...vik", f2, C))
             if ins.mode == "uvw":
                 blk = torch.einsum("...uvk,...uvw->...wk", t, w)
             else:

@@ -822,3 +822,60 @@ def test_atom_sharded_forward_on_two_gloo_ranks_of_one_card(cuda, tmp_path):
     for r in launch.spawn(launch.forward_worker, 2, (spec,), backend="gloo", workdir=str(tmp_path),
                           timeout=300):
         assert _rel(r["out"], want.cpu()) <= TOL[torch.float32]
+
+
+def test_uvw_compact_messages_on_the_card(cuda):
+    """The uvw E3Conv at the training cell's shape and widths (G = 32,
+    N = 48, `120x0e + 32x1e`, five layers) on the live pairs: forward and
+    every parameter gradient on the card against the CPU, f32 1e-4. Under
+    `torch.profiler` each forward shows one `jamun.host.wait:pair_compact`
+    span, and under sync debug mode a forward and its backward wait for the
+    device once (the compaction's `nonzero`)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jamun_tpu_torch.ops.graph import PAIR_COUNTS
+
+    nodes = [48 - (g % 9) for g in range(32)]
+    host = make_test_batch(num_graphs=32, max_nodes=48, nodes_per_graph=nodes, max_bonds=96,
+                           scale=0.35, device="cpu")
+    c_noise, cutoff = -0.8, 0.55
+    sides = {}
+    for dev in ("cpu", cuda):
+        model = E3Conv(device=dev, seed=0)
+        assert model.pair_lists
+        model.output_gain.data.fill_(1.0)
+        batch = host.to(dev)
+        proj = torch.randn((32, 48, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+        live0, slots0 = PAIR_COUNTS.live, PAIR_COUNTS.slots
+        out = model(batch, torch.tensor([c_noise], device=dev), cutoff)
+        (out * proj).sum().backward()
+        share = (PAIR_COUNTS.live - live0) / (PAIR_COUNTS.slots - slots0)
+        sides[str(dev)] = dict(out=out.detach().cpu(), share=share,
+                               **{n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    got, want = sides[str(cuda)], sides["cpu"]
+    assert got["share"] == want["share"] and 0.05 < want["share"] < 0.5
+    assert set(got) == set(want) and len(want) > 50
+    for k in want:  # max |card - cpu| within 1e-4 of the cpu's max (0 where no gradient flows)
+        if k != "share":
+            err = (got[k] - want[k]).abs().max()
+            assert err <= TOL[torch.float32] * want[k].abs().max(), (k, float(err))
+
+    c = torch.tensor([c_noise], device=cuda)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            model(batch, c, cutoff).sum().backward()
+    spans = [e for e in prof.events() if e.name == "jamun.host.wait:pair_compact"]
+    assert len(spans) == 2
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model(batch, c, cutoff).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    waits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(waits) == 1, waits

@@ -1,13 +1,20 @@
 """The port's fully connected (uvw) product against JAX (CPU, f32): the real
 Clebsch-Gordan tensors, `WeightedTensorProduct`, `E3Conv(tensor_product=
 "uvw")` forward and gradients on the dense and the sparse path, E(3)
-equivariance, and the denoiser's training loss.
+equivariance, and the denoiser's training loss. Then the messages on the
+live pairs (`Conv._tp_messages` on `ops/graph.live_pairs`) against the dense
+masked sum they replaced, kept here as the reference, for the uvw and the
+experimental product on every layout, the pair counter, and the separable
+model, which never compacts.
 
 JAX runs uvw through XLA einsums (no Pallas kernel reaches it), and so does
 the port through PyTorch's. Parameters: JAX `init`, every leaf perturbed with
 seeded numpy noise so that no gradient is trivially 0. Each tolerance is
 written beside its check.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +27,14 @@ from jamun_tpu.models.e3conv import E3Conv as JE3Conv
 from jamun_tpu.ops.cg import real_wigner_3j as j_real_wigner_3j
 from jamun_tpu.ops.tensor_product import fully_connected_tp as j_fully_connected_tp
 from jamun_tpu.utils.testing import make_test_batch as j_make_test_batch
+import jamun_tpu_torch.ops.graph as graph_mod
 from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from jamun_tpu_torch.models.e3conv import E3Conv
 from jamun_tpu_torch.ops.cg import real_wigner_3j
+from jamun_tpu_torch.ops.conv import Conv
+from jamun_tpu_torch.ops.graph import PAIR_COUNTS
+from jamun_tpu_torch.ops.neighbors import gather_neighbors
+from jamun_tpu_torch.ops.sh import spherical_harmonics
 from jamun_tpu_torch.ops.tensor_product import fully_connected_tp
 from jamun_tpu_torch.params import from_jax_params
 from jamun_tpu_torch.utils.testing import make_test_batch
@@ -165,3 +177,212 @@ def test_uvw_training_loss_matches_jax():
     assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
     for k in ("coordinate_loss", "raw_coordinate_loss", "scaled_rmsd", "loss"):
         assert abs(aux[k].item() - float(jaux[k])) <= 1e-5 * abs(float(jaux[k])), k
+
+
+# ---- the messages on the live pairs against the dense masked sum ----
+
+
+def _dense_tp_messages(conv, src, edges, out_dtype):
+    """The reference: a message on every slot of the dense [G, N, N_src]
+    or capped [G, N, K] layout, then the sum masked by the adjacency (JAX's
+    generic paths, `jamun_tpu/ops/conv.py:253-262, 353-364`)."""
+    cdt = src.dtype
+    if edges.nbr_idx is None:
+        G, N_src, D = src.shape
+        N = edges.adj.shape[1]
+        w = conv._path_weights(edges.attr_dense.to(cdt))
+        msg = conv.tp(src[:, None].expand(G, N, N_src, D), edges.sh_dense.to(cdt), w)
+        out = torch.einsum("gijd,gij->gid", msg.to(out_dtype), edges.adj.to(out_dtype))
+        return out, edges.adj.sum(-1)
+    w = conv._path_weights(edges.attr_nbr.to(cdt))
+    msg = conv.tp(gather_neighbors(src, edges.nbr_idx), edges.sh_nbr.to(cdt), w)
+    out = torch.einsum("gnkd,gnk->gnd", msg.to(out_dtype), edges.nbr_mask.to(out_dtype))
+    return out, edges.nbr_mask.sum(-1)
+
+
+# batch: (atoms per graph, N, graph moved out of every other's cutoff,
+# cutoff, neighbour cap); "all_live": every pair of the real atoms inside
+# the cutoff, and with the cap at N - 1 every capped slot live
+_BATCHES = {
+    "padded": ([12, 9], 12, None, 0.9, 6),
+    "empty_graph": ([12, 10], 12, 1, 0.9, 6),
+    "all_live": ([10, 10], 10, None, 100.0, 9),
+}
+
+
+def _compact_case(product, layout, batch, seed=0):
+    nodes, N, far, cutoff, cap = _BATCHES[batch]
+    tb = make_test_batch(num_graphs=len(nodes), max_nodes=N, nodes_per_graph=nodes, max_bonds=2 * N,
+                         scale=0.35, seed=seed, device="cpu")
+    if far is not None:  # its atoms 50 cutoffs apart: no radial pair, bonds kept
+        pos = tb.pos.clone()
+        pos[far] *= 50 * cutoff / 0.35
+        tb = tb.replace_pos(pos)
+    model = E3Conv(irreps_hidden="16x0e + 8x1e", n_layers=2, tensor_product=product,
+                   neighbor_mode=layout, neighbor_cap=cap, device="cpu", seed=seed)
+    with torch.no_grad():
+        model.output_gain.fill_(1.0)
+        for p in model.parameters():  # no gradient trivially 0
+            p.add_(0.3 * torch.randn(p.shape, generator=torch.Generator().manual_seed(seed + 5)))
+    return model, tb, cutoff
+
+
+def _forward_and_grads(model, run):
+    """The output of `run()` and every parameter's gradient of a random
+    projection of it (zeros where none flows)."""
+    model.zero_grad(set_to_none=True)
+    out = run()
+    proj = torch.randn(out.shape, generator=torch.Generator().manual_seed(11))
+    (out * proj).sum().backward()
+    return out.detach(), {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
+                          for n, p in model.named_parameters()}
+
+
+def _compact_and_dense(monkeypatch, model, run):
+    """(compact, dense) sides of `_forward_and_grads`, and the live pairs
+    the compact side counted."""
+    live0 = PAIR_COUNTS.live
+    got = _forward_and_grads(model, run)
+    live = PAIR_COUNTS.live - live0
+    with monkeypatch.context() as m:
+        m.setattr(Conv, "_tp_messages", _dense_tp_messages)
+        want = _forward_and_grads(model, run)
+    return got, want, live
+
+
+def _assert_close(got, want, tol=1e-5):
+    (out, grads), (out_ref, grads_ref) = got, want
+    assert np.abs(out_ref.numpy()).max() > 1e-3
+    assert _rel(out.numpy(), out_ref.numpy()) <= tol
+    live = [n for n, g in grads_ref.items() if g.abs().max() > 0]
+    assert len(live) >= len(grads_ref) - 2, sorted(set(grads_ref) - set(live))
+    for name, ref in grads_ref.items():
+        if name in live:
+            assert _rel(grads[name].numpy(), ref.numpy()) <= tol, (name, _rel(grads[name], ref))
+        else:  # an embedding row the batch does not index
+            assert grads[name].abs().max() == 0, name
+
+
+@pytest.mark.parametrize("batch", list(_BATCHES))
+@pytest.mark.parametrize("layout", ["dense", "nbr"])
+@pytest.mark.parametrize("product", ["uvw", "experimental"])
+def test_compact_messages_match_the_dense_masked_sum(monkeypatch, product, layout, batch):
+    """E3Conv's forward and every parameter gradient on the live pairs
+    against the dense masked sum, f32, within 1e-5 of each one's max (the
+    order of the sums); the live pairs are those the adjacency counts."""
+    model, tb, cutoff = _compact_case(product, layout, batch)
+    c_noise = torch.tensor([np.log(SIGMA) / 4.0])
+    got, want, live = _compact_and_dense(monkeypatch, model, lambda: model(tb, c_noise, cutoff))
+    _assert_close(got, want)
+    with torch.no_grad():
+        if layout == "dense":
+            adj = model._plain_edges(tb, cutoff).adj
+        else:
+            adj = model._sparse_edges(tb, cutoff, None, False)[0].nbr_mask
+    assert live == int(adj.sum())
+    if batch == "empty_graph":
+        assert adj[1].sum() == 0 and adj[0].sum() > 0
+    if batch == "all_live":
+        G, N = tb.node_mask.shape
+        assert int(adj.sum()) == (G * N * (N - 1) if layout == "dense" else adj.numel())
+
+
+@pytest.mark.parametrize("product", ["uvw", "experimental"])
+def test_compact_messages_in_the_sharded_layout(monkeypatch, product):
+    """The atom-sharded layout in one process (`E3Conv.sharded_forward`
+    with no group), and a `Conv` on a rank's 5 of 12 destination rows
+    ([G, 5, 12] adjacency, sources the whole gathered molecule): forward and
+    gradients against the dense masked sum, 1e-5."""
+    model, tb, cutoff = _compact_case(product, "dense", "padded")
+    c_noise = torch.tensor([np.log(SIGMA) / 4.0])
+    got, want, _ = _compact_and_dense(
+        monkeypatch, model, lambda: model.sharded_forward(tb, c_noise, cutoff, None)[0])
+    _assert_close(got, want)
+
+    conv = model._HiddenLayer_0.ConvBlock_0.Conv_0
+    rows = torch.arange(4, 9)
+    G = tb.pos.shape[0]
+    edges = graph_mod.dense_edge_data(
+        tb.pos[:, rows], tb.node_mask[:, rows], tb.bond_src[:, :0], tb.bond_dst[:, :0],
+        tb.bond_mask[:, :0], cutoff, functools.partial(spherical_harmonics, model.irreps_sh),
+        model._attr_fn(cutoff),
+        src_pos=tb.pos, src_mask=tb.node_mask, dst_index=rows.expand(G, -1),
+    )
+    assert edges.adj.shape == (G, 5, 12) and 0 < edges.adj.sum() < edges.adj.numel()
+    x = torch.randn((G, 12, conv.irreps_in.dim), generator=torch.Generator().manual_seed(3))
+    sides = []
+    for fn in (Conv._tp_messages, _dense_tp_messages):
+        xs = x.clone().requires_grad_(True)
+        conv.zero_grad(set_to_none=True)
+        out, deg = fn(conv, xs, edges, torch.float32)
+        (out * torch.randn(out.shape, generator=torch.Generator().manual_seed(4))).sum().backward()
+        sides.append((out.detach(), deg, xs.grad, [p.grad.clone() for p in conv.parameters()]))
+    (out, deg, gx, gp), (out_r, deg_r, gx_r, gp_r) = sides
+    assert torch.equal(deg, deg_r)
+    assert _rel(out.numpy(), out_r.numpy()) <= 1e-5 and _rel(gx.numpy(), gx_r.numpy()) <= 1e-5
+    for g, r in zip(gp, gp_r):
+        assert _rel(g.numpy(), r.numpy()) <= 1e-5
+
+
+def test_no_live_pair_gives_zero_messages_and_gradients():
+    """P = 0 (every pair outside the cutoff): zero messages and degree, and
+    zero gradients of the radial MLP and the source features."""
+    model, tb, _ = _compact_case("uvw", "dense", "padded")
+    conv = model._HiddenLayer_0.ConvBlock_0.Conv_0
+    edges = model._plain_edges(tb, 1e-4)
+    pairs = graph_mod.edge_pairs(edges)
+    assert pairs.count == 0 and pairs.attr.shape == (0, edges.attr_dense.shape[-1])
+    x = torch.randn((2, 12, conv.irreps_in.dim), requires_grad=True)
+    conv.zero_grad(set_to_none=True)
+    out, deg = conv._tp_messages(x, dataclasses.replace(edges, pairs=pairs), torch.float32)
+    assert out.shape == (2, 12, conv.tp.irreps_out.dim) and torch.equal(out, torch.zeros_like(out))
+    assert deg.abs().max() == 0
+    (out * 1.5).sum().backward()
+    assert x.grad is None or x.grad.abs().max() == 0
+    for p in conv.radial_nn.parameters():
+        assert p.grad is not None and p.grad.abs().max() == 0
+
+
+@pytest.mark.parametrize("layout", ["dense", "nbr"])
+def test_pair_counter_reads_one_list_a_forward(layout):
+    """After one uvw forward the counter has grown by the adjacency's sum
+    (live pairs) and by the layout's slot count once: the six `Conv` calls
+    share one list."""
+    model, tb, cutoff = _compact_case("uvw", layout, "padded")
+    with torch.no_grad():
+        if layout == "dense":
+            mask = model._plain_edges(tb, cutoff).adj
+        else:
+            mask = model._sparse_edges(tb, cutoff, None, False)[0].nbr_mask
+        live0, slots0 = PAIR_COUNTS.live, PAIR_COUNTS.slots
+        model(tb, torch.tensor([-0.8]), cutoff)
+    assert PAIR_COUNTS.live - live0 == int(mask.sum())
+    assert PAIR_COUNTS.slots - slots0 == mask.numel()
+    assert mask.numel() == (2 * 12 * 12 if layout == "dense" else 2 * 12 * 6)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tensor_product="uvu"),
+    dict(tensor_product="uvu", plain=True),
+    dict(tensor_product="uvu", neighbor_mode="nbr"),
+    dict(tensor_product="uvu", fused_stack=True),
+], ids=["layerwise", "plain", "nbr", "stack"])
+def test_separable_forward_never_compacts_pairs(monkeypatch, kw):
+    """A spy on `live_pairs`: the separable model's forwards (its kernel
+    twins, its plain path, the sparse path, the whole-model stack) never
+    call it, so the walks never wait there; a uvw forward calls it once."""
+    calls = []
+    real = graph_mod.live_pairs
+    monkeypatch.setattr(graph_mod, "live_pairs", lambda *a, **k: calls.append(1) or real(*a, **k))
+    tb = make_test_batch(num_graphs=2, max_nodes=12, max_bonds=24, scale=0.35, device="cpu")
+    c_noise = torch.tensor([-0.8])
+    sep = E3Conv(irreps_hidden="16x0e + 8x1e", n_layers=2, neighbor_cap=6, device="cpu", seed=0, **kw)
+    assert not sep.pair_lists
+    with torch.no_grad():
+        sep(tb, c_noise, 0.9)
+    sep(tb, c_noise, 0.9).sum().backward()
+    assert calls == []
+    uvw = E3Conv(**ARCH, device="cpu", seed=0)
+    assert uvw.pair_lists
+    uvw(tb, c_noise, 0.9).sum().backward()
+    assert calls == [1]
