@@ -48,7 +48,7 @@ def _sum_at(dst: torch.Tensor, values: torch.Tensor, num_nodes: int) -> torch.Te
 
 class _PerEdgeConv(nn.Module):
     """The fully connected product of `Conv` per edge, without aggregation:
-    its radial MLP's weights per path (`ScalarMLP.split_forward`)."""
+    its radial MLP's weights per uvw group (`ScalarMLP.split_forward`)."""
 
     def __init__(self, irreps_in, irreps_out, irreps_sh, edge_attr_dim: int):
         super().__init__()
@@ -56,7 +56,8 @@ class _PerEdgeConv(nn.Module):
         self.radial_nn = ScalarMLP(edge_attr_dim, self.tp.weight_numel, [edge_attr_dim])
 
     def forward(self, src_attr, edge_attr, edge_sh):
-        return self.tp(src_attr, edge_sh, self.radial_nn.split_forward(edge_attr, self.tp.weight_slices()))
+        groups = self.tp.weight_groups(edge_attr.device)
+        return self.tp(src_attr, edge_sh, self.radial_nn.split_forward(edge_attr, groups))
 
 
 class MultiheadAttention(nn.Module):

@@ -15,8 +15,8 @@ product of `Sx0e (+ Vx1e)` with `1x0e + 1x1e` is JAX's fast shape
 from the closed form of `ops/fast_uvu.py`, on the kernels below where the
 caller allows them. Every other product, uvu of any l included, runs
 the library ops on either device, as every kernel route of JAX's `Conv` is
-gated on the fast uvu shape: the radial MLP's weights per path
-(`_path_weights`) and the product's einsums, on the live radial pairs alone
+gated on the fast uvu shape: the radial MLP's weights per uvw group or
+path (`_path_weights`) and the product, on the live radial pairs alone
 (`_tp_messages`, `ops/graph.live_pairs`), where JAX's generic path computes
 every slot and masks the sum (`jamun_tpu/ops/conv.py:253-262, 353-364`).
 
@@ -220,13 +220,18 @@ class Conv(nn.Module):
         return out if self._post_linear is None else self._post_linear(out)
 
     def _path_weights(self, attr: torch.Tensor) -> list:
-        """The radial MLP's `tp.weight_numel` outputs, one tensor per path of
-        `self.tp`: the last Dense layer runs on each path's columns. The
-        same numbers as JAX's one output split at the paths, but no tensor
-        of every path's weights is made, nor in the backward a gradient of
-        that size for each path's slice of it: at the flagship width a pair
-        carries 28992 weights (uvw and experimental alike)."""
-        return self.radial_nn.split_forward(attr, self.tp.weight_slices())
+        """The radial MLP's `tp.weight_numel` outputs, one tensor per weight
+        entry of `self.tp`: the last Dense layer runs on each entry's
+        columns, a uvw group's gathered in the product's [w, U] order
+        (`WeightedTensorProduct.weight_groups`), the experimental product's
+        a path's slice. The same numbers as JAX's one output split at the
+        paths, but no tensor of every path's weights is made, nor in the
+        backward a gradient of that size for each entry's part of it: at
+        the flagship width a pair carries 28992 weights (uvw and
+        experimental alike)."""
+        if self.tensor_product == "experimental":
+            return self.radial_nn.split_forward(attr, self.tp.weight_slices())
+        return self.radial_nn.split_forward(attr, self.tp.weight_groups(attr.device))
 
     def _tp_messages(self, src: torch.Tensor, edges: EdgeData, out_dtype):
         """The summed messages and the degree of the radial edges through
@@ -244,7 +249,7 @@ class Conv(nn.Module):
         G, N_src, D = src.shape
         pairs = edges.pairs if edges.pairs is not None else edge_pairs(edges, N_src)
         mask = edges.adj if edges.nbr_idx is None else edges.nbr_mask
-        w = self._path_weights(pairs.attr.to(cdt))  # [P, *] per path
+        w = self._path_weights(pairs.attr.to(cdt))  # [P, *] per weight entry
         msg = self.tp(src.reshape(-1, D)[pairs.src], pairs.sh.to(cdt), w)
         out = torch.segment_reduce(msg.to(out_dtype), "sum", lengths=pairs.rows, unsafe=True)
         return out.reshape(G, mask.shape[1], -1), mask.sum(-1)

@@ -124,14 +124,19 @@ class ScalarMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(self.n_layers - 1)(self.hidden(x))
 
-    def split_forward(self, x: torch.Tensor, slices) -> list:
-        """The output's columns at each of `slices`, one tensor each: the
-        final Dense layer runs on each slice's columns, so no tensor of all
-        the outputs is made (nor its gradient in the backward)."""
+    def split_forward(self, x: torch.Tensor, columns) -> list:
+        """The output's columns at each of `columns` (a slice, or an index
+        tensor on x's device), one tensor each: the final Dense layer runs
+        on each entry's columns, so no tensor of all the outputs is made
+        (nor its gradient in the backward)."""
         h = self.hidden(x)
         last = self.layer(self.n_layers - 1)
         kernel, bias = last.kernel.to(h.dtype), last.bias.to(h.dtype)
-        return [h @ kernel[:, s] + bias[s] for s in slices]
+        return [
+            h @ kernel[:, c] + bias[c] if isinstance(c, slice)
+            else h @ kernel.index_select(1, c) + bias.index_select(0, c)
+            for c in columns
+        ]
 
 
 class EquivariantMLPBlock(nn.Module):

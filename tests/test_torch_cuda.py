@@ -879,3 +879,34 @@ def test_uvw_compact_messages_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     waits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
     assert len(waits) == 1, waits
+
+
+def test_uvw_grouped_product_on_the_card(cuda):
+    """The flagship uvw denoiser's training loss at the training cell's
+    shape (G = 32, N = 48, `120x0e + 32x1e`, five layers; noise of ones):
+    loss and every parameter gradient on the card against the CPU, f32
+    1e-4, and every product call of the forward a grouped one (two a Conv,
+    twelve a forward)."""
+    from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from jamun_tpu_torch.ops.tensor_product import PRODUCT_CALLS
+
+    nodes = [48 - (g % 7) for g in range(32)]
+    host = make_test_batch(num_graphs=32, max_nodes=48, nodes_per_graph=nodes, max_bonds=96,
+                           scale=0.35, device="cpu")
+    sides = {}
+    for dev in ("cpu", cuda):
+        model = E3Conv(device=dev, seed=0)
+        model.output_gain.data.fill_(1.0)
+        den = Denoiser(model, DenoiserConfig(1.0, 0.5, add_fixed_ones=True))
+        calls0 = dict(PRODUCT_CALLS)
+        loss, _ = den.training_loss(host.to(dev), 0.04, torch.Generator().manual_seed(0))
+        calls = {k: PRODUCT_CALLS[k] - calls0[k] for k in calls0}
+        loss.backward()
+        assert calls == {"grouped": 12, "per_path": 0}, calls
+        sides[str(dev)] = dict(loss=loss.detach().cpu().reshape(1),
+                               **{n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    got, want = sides[str(cuda)], sides["cpu"]
+    assert set(got) == set(want) and len(want) > 50
+    for k in want:  # max |card - cpu| within 1e-4 of the cpu's max
+        err = (got[k] - want[k]).abs().max()
+        assert err <= TOL[torch.float32] * want[k].abs().max(), (k, float(err))

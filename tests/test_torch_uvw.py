@@ -5,7 +5,10 @@ equivariance, and the denoiser's training loss. Then the messages on the
 live pairs (`Conv._tp_messages` on `ops/graph.live_pairs`) against the dense
 masked sum they replaced, kept here as the reference, for the uvw and the
 experimental product on every layout, the pair counter, and the separable
-model, which never compacts.
+model, which never compacts. Then the grouped uvw product (one batched
+product per output group) against the per-path product it replaced, kept
+here as the reference (`_per_path_tp`), its call counter, and the autograd
+graph it builds at the published widths.
 
 JAX runs uvw through XLA einsums (no Pallas kernel reaches it), and so does
 the port through PyTorch's. Parameters: JAX `init`, every leaf perturbed with
@@ -15,6 +18,7 @@ written beside its check.
 
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +34,15 @@ from jamun_tpu.utils.testing import make_test_batch as j_make_test_batch
 import jamun_tpu_torch.ops.graph as graph_mod
 from jamun_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from jamun_tpu_torch.models.e3conv import E3Conv
+from jamun_tpu_torch.ops.attention import split_irreps
 from jamun_tpu_torch.ops.cg import real_wigner_3j
 from jamun_tpu_torch.ops.conv import Conv
 from jamun_tpu_torch.ops.graph import PAIR_COUNTS
 from jamun_tpu_torch.ops.neighbors import gather_neighbors
 from jamun_tpu_torch.ops.sh import spherical_harmonics
-from jamun_tpu_torch.ops.tensor_product import fully_connected_tp
+from jamun_tpu_torch.ops.tensor_product import (
+    PRODUCT_CALLS, WeightedTensorProduct, depthwise_tp, fully_connected_tp,
+)
 from jamun_tpu_torch.params import from_jax_params
 from jamun_tpu_torch.utils.testing import make_test_batch
 
@@ -182,20 +189,58 @@ def test_uvw_training_loss_matches_jax():
 # ---- the messages on the live pairs against the dense masked sum ----
 
 
+def _per_path_tp(tp, x1, x2, weights):
+    """The reference product of `tp`'s instructions, path by path, as the
+    port computed every product before its uvw paths were grouped: per path
+    the CG contraction (x2 with C first), the weights' einsum, the path
+    weight and a sum into the output block. weights [..., weight_numel] or
+    [weight_numel] (shared)."""
+    batch_shape = x1.shape[:-1]
+    sl1, sl2 = tp.irreps_in1.slices(), tp.irreps_in2.slices()
+    out_blocks = [None] * len(tp.irreps_out)
+    for ins in tp.instructions:
+        mi1, mi2, mi3 = tp.irreps_in1[ins.i_in1], tp.irreps_in2[ins.i_in2], tp.irreps_out[ins.i_out]
+        f1 = x1[..., sl1[ins.i_in1]].reshape(batch_shape + (mi1.mul, mi1.ir.dim))
+        f2 = x2[..., sl2[ins.i_in2]].reshape(batch_shape + (mi2.mul, mi2.ir.dim))
+        cg = real_wigner_3j(mi1.ir.l, mi2.ir.l, mi3.ir.l) * math.sqrt(mi3.ir.dim)
+        C = torch.as_tensor(cg, dtype=x1.dtype, device=x1.device)
+        w = weights[..., ins.weight_offset:ins.weight_offset + int(np.prod(ins.weight_shape))]
+        w = w.reshape(w.shape[:-1] + ins.weight_shape)
+        t = torch.einsum("...ui,...vik->...uvk", f1, torch.einsum("...vj,ijk->...vik", f2, C))
+        if ins.mode == "uvw":
+            blk = torch.einsum("...uvk,...uvw->...wk", t, w)
+        else:
+            blk = torch.einsum("...uvk,...uv->...uk", t, w)
+        blk = ins.path_weight * blk
+        i3 = ins.i_out
+        out_blocks[i3] = blk if out_blocks[i3] is None else out_blocks[i3] + blk
+    flat = [
+        x1.new_zeros(batch_shape + (mi3.dim,)) if blk is None else blk.reshape(batch_shape + (mi3.dim,))
+        for mi3, blk in zip(tp.irreps_out, out_blocks)
+    ]
+    return torch.cat(flat, dim=-1)
+
+
 def _dense_tp_messages(conv, src, edges, out_dtype):
     """The reference: a message on every slot of the dense [G, N, N_src]
     or capped [G, N, K] layout, then the sum masked by the adjacency (JAX's
-    generic paths, `jamun_tpu/ops/conv.py:253-262, 353-364`)."""
+    generic paths, `jamun_tpu/ops/conv.py:253-262, 353-364`). The uvw
+    messages come from the per-path reference on the radial MLP's whole
+    output, independent of the grouped product."""
     cdt = src.dtype
+
+    def product(x1, x2, attr):
+        if conv.tensor_product == "uvw":
+            return _per_path_tp(conv.tp, x1, x2, conv.radial_nn(attr.to(cdt)))
+        return conv.tp(x1, x2, conv._path_weights(attr.to(cdt)))
+
     if edges.nbr_idx is None:
         G, N_src, D = src.shape
         N = edges.adj.shape[1]
-        w = conv._path_weights(edges.attr_dense.to(cdt))
-        msg = conv.tp(src[:, None].expand(G, N, N_src, D), edges.sh_dense.to(cdt), w)
+        msg = product(src[:, None].expand(G, N, N_src, D), edges.sh_dense.to(cdt), edges.attr_dense)
         out = torch.einsum("gijd,gij->gid", msg.to(out_dtype), edges.adj.to(out_dtype))
         return out, edges.adj.sum(-1)
-    w = conv._path_weights(edges.attr_nbr.to(cdt))
-    msg = conv.tp(gather_neighbors(src, edges.nbr_idx), edges.sh_nbr.to(cdt), w)
+    msg = product(gather_neighbors(src, edges.nbr_idx), edges.sh_nbr.to(cdt), edges.attr_nbr)
     out = torch.einsum("gnkd,gnk->gnd", msg.to(out_dtype), edges.nbr_mask.to(out_dtype))
     return out, edges.nbr_mask.sum(-1)
 
@@ -386,3 +431,143 @@ def test_separable_forward_never_compacts_pairs(monkeypatch, kw):
     assert uvw.pair_lists
     uvw(tb, c_noise, 0.9).sum().backward()
     assert calls == [1]
+
+
+# ---- the grouped uvw product against the per-path reference ----
+
+_Q_HEAD = str(split_irreps("16x0e + 8x1e", 2)[1])
+# (x1, x2, out irreps, instructions): the flagship Conv's (its first layer
+# too), those of `test_weighted_tensor_product_matches_jax`, the l = 2 uvw
+# E3Conv's hidden Conv, attention's q.k `dot`, and uvw and uvu paths mixed
+_PRODUCTS = {
+    "flagship": ("120x0e + 32x1e", "1x0e + 1x1e", "120x0e + 32x0e + 32x1e", None),
+    "flagship_first": ("56x0e", "1x0e + 1x1e", "120x0e + 32x0e + 32x1e", None),
+    "jax_sv": ("16x0e + 8x1e", "1x0e + 1x1e", "24x0e + 8x0e + 8x1e", None),
+    "jax_scalars": ("12x0e", "1x0e + 1x1e", "20x0e + 4x0e + 4x1e", None),
+    "jax_l2": ("3x0e + 2x1e + 1x2e", "1x0e + 1x1e + 1x2e", "2x0e + 3x1e + 2x2e + 1x1o", None),
+    "uvw_l2": ("8x0e + 4x1e + 2x2e", "1x0e + 1x1e + 1x2e", "8x0e + 4x0e + 2x0e + 4x1e + 2x2e", None),
+    "attention_dot": (_Q_HEAD, _Q_HEAD, "1x0e", None),
+    "mixed": ("4x0e + 2x1e", "1x0e + 1x1e", "4x0e + 4x1e + 2x0e + 3x1e",
+              [(0, 0, 0, "uvw"), (1, 1, 0, "uvw"), (0, 1, 1, "uvu"), (1, 0, 1, "uvw"), (1, 1, 2, "uvw")]),
+}
+
+
+def _product(name):
+    x1, x2, out, instructions = _PRODUCTS[name]
+    return WeightedTensorProduct(x1, x2, out, instructions)
+
+
+@pytest.mark.parametrize("weights", ["flat", "shared", "per_group"])
+@pytest.mark.parametrize("name", list(_PRODUCTS))
+def test_grouped_product_matches_the_per_path_reference(name, weights):
+    """The product's output and the gradients of x1, x2 and the weights
+    against `_per_path_tp`, f32, within 1e-5 of each one's max (the order
+    of the sums within a group, the path weight folded into C). Weights per
+    element on a [3, 5] batch, shared on a [3, 5] batch, or per element on a
+    [7] batch as the list `weight_groups` describes (the radial MLP's)."""
+    tp = _product(name)
+    batch = (7,) if weights == "per_group" else (3, 5)
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    x1 = torch.randn(batch + (tp.irreps_in1.dim,), generator=gen)
+    x2 = torch.randn(batch + (tp.irreps_in2.dim,), generator=gen)
+    w = torch.randn(((tp.weight_numel,) if weights == "shared" else batch + (tp.weight_numel,)), generator=gen)
+    proj = torch.randn(batch + (tp.irreps_out.dim,), generator=gen)
+    sides = []
+    for side in ("grouped", "reference"):
+        leaves = [t.clone().requires_grad_(True) for t in (x1, x2, w)]
+        a, b, wl = leaves
+        if side == "reference":
+            out = _per_path_tp(tp, a, b, wl)
+        elif weights == "per_group":
+            out = tp(a, b, [wl[..., c] if isinstance(c, slice) else wl.index_select(-1, c)
+                            for c in tp.weight_groups(wl.device)])
+        else:
+            out = tp(a, b, wl)
+        (out * proj).sum().backward()
+        sides.append([out.detach()] + [t.grad for t in leaves])
+    assert sides[0][0].shape == batch + (tp.irreps_out.dim,)
+    for got, want, what in zip(*sides, ("out", "x1", "x2", "weights")):
+        assert want.abs().max() > 1e-3, what
+        assert _rel(got.numpy(), want.numpy()) <= 1e-5, (what, _rel(got.numpy(), want.numpy()))
+
+
+def test_product_groups_the_uvw_paths_by_output_block():
+    """The flagship Conv's seven paths make two groups: `120x0e + 32x0e`
+    (w 152) from 0e x 0e and 1e x 1e (U = 120 + 32), and `32x1e` from
+    0e x 1e, 1e x 0e and 1e x 1e (U = 120 + 32 + 32, k = 3); each group's
+    weight index holds every weight of its paths once."""
+    tp = _product("flagship")
+    assert [(g.outs, g.w, g.U, g.k) for g in tp._groups] == [((0, 1), 152, 152, 1), ((2,), 32, 184, 3)]
+    assert not tp._paths
+    cols = np.concatenate([g.columns.reshape(-1) for g in tp._groups])
+    assert np.array_equal(np.sort(cols), np.arange(tp.weight_numel))
+
+
+def test_product_calls_count_grouped_and_per_path():
+    """`PRODUCT_CALLS`: a uvw product counts one grouped call, the uvu
+    (depthwise) one a per-path call, a product with both one of each; the
+    uvw E3Conv's forward only grouped calls (two a Conv: pairs and bonds),
+    the generic uvu of l = 2 only per-path ones, and the fast uvu shape
+    none (its messages never reach the product)."""
+
+    def delta(run):
+        before = dict(PRODUCT_CALLS)
+        run()
+        return {k: PRODUCT_CALLS[k] - before[k] for k in before}
+
+    def call(tp):
+        return lambda: tp(torch.randn(4, tp.irreps_in1.dim), torch.randn(4, tp.irreps_in2.dim),
+                          torch.randn(4, tp.weight_numel))
+
+    assert delta(call(_product("flagship"))) == {"grouped": 1, "per_path": 0}
+    assert delta(call(depthwise_tp("16x0e + 8x1e", "1x0e + 1x1e", "16x0e + 8x1e")[0])) == {
+        "grouped": 0, "per_path": 1}
+    assert delta(call(_product("mixed"))) == {"grouped": 1, "per_path": 1}
+
+    tb = make_test_batch(num_graphs=2, max_nodes=12, max_bonds=24, scale=0.35, device="cpu")
+    c_noise = torch.tensor([-0.8])
+    l2 = dict(irreps_sh="1x0e + 1x1e + 1x2e", irreps_hidden="8x0e + 4x1e + 2x2e", n_layers=2)
+    for kw, want in [
+        (dict(ARCH), {"grouped": 6, "per_path": 0}),
+        (dict(tensor_product="uvu", **l2), {"grouped": 0, "per_path": 6}),
+        (dict(tensor_product="uvu", irreps_hidden="16x0e + 8x1e", n_layers=2), {"grouped": 0, "per_path": 0}),
+    ]:
+        model = E3Conv(**kw, device="cpu", seed=0)
+        with torch.no_grad():
+            assert delta(lambda: model(tb, c_noise, 0.9)) == want, kw
+
+
+def _graph(root, stop=()):
+    """The autograd nodes reachable from `root`, not walking past `stop`."""
+    seen, todo = set(), [root]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen or node in stop:
+            continue
+        seen.add(node)
+        todo.extend(f for f, _ in node.next_functions)
+    return seen
+
+
+def test_uvw_training_loss_builds_a_small_autograd_graph(monkeypatch):
+    """The flagship uvw denoiser (published widths, 5 layers) at G = 4:
+    one `training_loss` builds at most 1900 autograd nodes (3302 with the
+    per-path product), and each of its 12 product calls at most 40 (68-172
+    before): the host walks this graph at every training step."""
+    calls = []
+    real = WeightedTensorProduct.__call__
+
+    def spy(self, x1, x2, weights):
+        out = real(self, x1, x2, weights)
+        ins = [x1, x2] + ([weights] if torch.is_tensor(weights) else list(weights))
+        calls.append((out.grad_fn, {t.grad_fn for t in ins if t.grad_fn is not None}))
+        return out
+
+    monkeypatch.setattr(WeightedTensorProduct, "__call__", spy)
+    tb = make_test_batch(num_graphs=4, max_nodes=48, max_bonds=96, scale=0.35, device="cpu")
+    den = Denoiser(E3Conv(device="cpu", seed=0), DenoiserConfig(1.0, 0.5))
+    assert den.arch.tensor_product == "uvw" and str(den.arch.irreps_hidden) == "120x0e + 32x1e"
+    loss, _ = den.training_loss(tb, SIGMA, torch.Generator().manual_seed(0))
+    inside = [len(_graph(out, stop)) for out, stop in calls]
+    assert len(calls) == 12 and max(inside) <= 40, inside
+    assert len(_graph(loss.grad_fn)) <= 1900
